@@ -1,5 +1,6 @@
 """JAX-package variables -> torch state_dict (the inverse of
-simple_pose_tpu/convert/torch2flax.py for the ResNet family).
+simple_pose_tpu/convert/torch2flax.py for the ResNet family), and a JAX
+TrainState -> the port's TrainState (``load_jax_train_state``).
 
 ``flax_to_torch_state`` turns a numpy pytree ``{'params': ...,
 'batch_stats': ...}`` of a flax PoseResNet into a state_dict under the
@@ -23,7 +24,7 @@ import re
 import numpy as np
 import torch
 
-__all__ = ["flax_to_torch_state"]
+__all__ = ["flax_to_torch_state", "load_jax_train_state"]
 
 _BN_LEAF = {"scale": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var"}
 
@@ -82,4 +83,83 @@ def flax_to_torch_state(variables) -> dict:
                 state[f"{module}.weight"] = t.permute(*perm).contiguous()
             else:
                 state[f"{module}.bias"] = t
+    return state
+
+
+def _optax_states(tree):
+    """The NamedTuple states inside an optax state: chains are tuples, and
+    optax.multi_transform keeps one masked state per group in a dict."""
+    if hasattr(tree, "_fields"):
+        yield tree
+    if isinstance(tree, (tuple, list)):
+        for sub in tree:
+            yield from _optax_states(sub)
+    elif isinstance(tree, dict):
+        for sub in tree.values():
+            yield from _optax_states(sub)
+
+
+def _unmasked(tree):
+    """A group's moment tree without optax.multi_transform's MaskedNode
+    placeholders for the other groups' parameters."""
+    if isinstance(tree, dict) or hasattr(tree, "items"):
+        out = {k: _unmasked(v) for k, v in tree.items()}
+        return {k: v for k, v in out.items() if v is not None}
+    return None if type(tree).__name__ == "MaskedNode" else tree
+
+
+def _moments(states, field):
+    """{torch name: tensor} of ``field`` merged over the groups' states."""
+    out = {}
+    for st in states:
+        out.update({k: v for k, v in flax_to_torch_state(
+            {"params": _unmasked(getattr(st, field))}).items()
+            if not k.endswith("num_batches_tracked")})
+    return out
+
+
+@torch.no_grad()
+def _load_optimizer_state(optimizer, model, opt_state):
+    """optax.adam's (count, mu, nu) -> torch Adam's (step, exp_avg,
+    exp_avg_sq), or optax.sgd's trace -> SGD's momentum_buffer, over one
+    param group or optax.multi_transform's groups."""
+    states = list(_optax_states(opt_state))
+    adam = [s for s in states if {"count", "mu", "nu"} <= set(s._fields)]
+    trace = [s for s in states if "trace" in s._fields]
+    params = dict(model.named_parameters())
+    if adam:
+        count = float(np.asarray(adam[0].count))
+        mu, nu = _moments(adam, "mu"), _moments(adam, "nu")
+        for name, p in params.items():
+            optimizer.state[p] = {"step": torch.tensor(count),
+                                  "exp_avg": mu[name].to(p.device),
+                                  "exp_avg_sq": nu[name].to(p.device)}
+    elif trace:
+        buf = _moments(trace, "trace")
+        for name, p in params.items():
+            optimizer.state[p] = {"momentum_buffer": buf[name].to(p.device)}
+    else:
+        raise NotImplementedError("no optax.adam or optax.sgd state to carry")
+
+
+@torch.no_grad()
+def load_jax_train_state(state, jax_state):
+    """Copy a JAX-package TrainState (numpy or jax arrays; a mapping or an
+    object with its fields) into the port's TrainState (train/solver.py):
+    ``params`` and ``batch_stats`` into the model, ``ema_params`` and
+    ``ema_batch_stats`` into the EMA copies, ``step``, and the optimizer's
+    moments from ``opt_state`` once it has taken a step (optax.adam or
+    optax.sgd, with or without split groups)."""
+    def get(key):
+        return jax_state[key] if hasattr(jax_state, "keys") else getattr(jax_state, key)
+
+    state.model.load_state_dict(
+        flax_to_torch_state({"params": get("params"), "batch_stats": get("batch_stats")}))
+    ema = flax_to_torch_state({"params": get("ema_params"),
+                               "batch_stats": get("ema_batch_stats")})
+    for name, t in {**state.ema_params, **state.ema_buffers}.items():
+        t.copy_(ema[name])
+    state.step = int(np.asarray(get("step")))
+    if state.step:
+        _load_optimizer_state(state.optimizer, state.model, get("opt_state"))
     return state

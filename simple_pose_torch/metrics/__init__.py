@@ -1,1 +1,1 @@
-"""Numpy COCO keypoint evaluation."""
+"""Numpy COCO keypoint evaluation and the training heatmap accuracy."""

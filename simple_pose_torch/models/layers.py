@@ -4,8 +4,9 @@ Port of simple_pose_tpu/models/layers.py.  The JAX package re-creates each
 torch op in flax; here they are the torch ops themselves:
 
   * conv / conv3x3 / conv1x1  -> nn.Conv2d, bias-free unless asked
-  * batch_norm                -> nn.BatchNorm2d(eps 1e-5, momentum 0.1; flax
-                                 momentum 0.9 is torch momentum 0.1)
+  * batch_norm                -> BatchNorm2d (eps 1e-5, momentum 0.1; flax
+                                 momentum 0.9 is torch momentum 0.1), which
+                                 trains like flax's nn.BatchNorm (below)
   * deconv                    -> nn.ConvTranspose2d(k4, s2, p1, bias=False)
   * max pool                  -> nn.MaxPool2d(3, 2, 1)
   * SELayer                   -> nets/commons.py:4-18: mean -> 1x1 conv ->
@@ -23,10 +24,11 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["conv", "conv3x3", "conv1x1", "batch_norm", "SELayer", "BODY_INIT",
-           "HEAD_INIT", "init_weights"]
+__all__ = ["conv", "conv3x3", "conv1x1", "batch_norm", "BatchNorm2d", "SELayer",
+           "BODY_INIT", "HEAD_INIT", "init_weights"]
 
 
 def HEAD_INIT(shape, generator):
@@ -55,8 +57,35 @@ def conv1x1(cin, cout, stride=1):
     return conv(cin, cout, 1, stride, 0)
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """nn.BatchNorm2d whose training update is flax's nn.BatchNorm
+    (layers.py:68-77 of the JAX package).
+
+    Both normalize with the biased batch variance, computed in f32.  Torch
+    moves ``running_var`` toward the *unbiased* variance, flax toward the
+    biased one: they differ by n/(n-1), up to 14% at n = 8.  Here
+    F.batch_norm (PyTorch's own kernels, as for nn.BatchNorm2d) normalizes
+    and updates copies of the buffers; the copy's move gives back the batch
+    variance, and the buffer gets the biased update.  Per-channel arithmetic only: no second pass
+    over the activations."""
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        n = x.numel() // x.shape[1]
+        mean, var = self.running_mean.clone(), self.running_var.clone()
+        y = F.batch_norm(x, mean, var, self.weight, self.bias, True, self.momentum, self.eps)
+        with torch.no_grad():
+            # var = (1-m) rv + m v_unbiased, so rv + m v_biased = var - m v_unbiased / n
+            moved = var - (1.0 - self.momentum) * self.running_var
+            self.running_var.copy_(var - moved / n)
+            self.running_mean.copy_(mean)
+            self.num_batches_tracked.add_(1)
+        return y
+
+
 def batch_norm(channels):
-    return nn.BatchNorm2d(channels, eps=1e-5, momentum=0.1)
+    return BatchNorm2d(channels, eps=1e-5, momentum=0.1)
 
 
 class SELayer(nn.Module):

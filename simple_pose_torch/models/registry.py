@@ -34,11 +34,14 @@ def resolve_amp_dtype(amp, device) -> "torch.dtype | None":
 
 
 def build_model(model_type: str, name: str = "resnet50", num_joints: int = 17,
-                reduction: bool = False, dtype=None):
-    """dtype: compute dtype (torch.bfloat16 or None); weights from a seeded
-    torch.Generator, in eval mode, on the CPU."""
+                reduction: bool = False, train: bool = False, dtype=None, seed: int = 0):
+    """dtype: compute dtype (torch.bfloat16 or None); weights from
+    ``torch.Generator().manual_seed(seed)``, on the CPU, in training mode
+    (BatchNorm on batch statistics) when ``train`` and in eval mode
+    otherwise."""
     if model_type == "pose_resnet_dconv":
-        return build_resnet(name, num_joints=num_joints, se=reduction, dtype=dtype)
+        model = build_resnet(name, num_joints=num_joints, se=reduction, dtype=dtype, seed=seed)
+        return model.train(train)
     if model_type in _NOT_PORTED:
         raise NotImplementedError(
             f"{model_type}: {_NOT_PORTED[model_type]} is not ported yet "
@@ -47,11 +50,13 @@ def build_model(model_type: str, name: str = "resnet50", num_joints: int = 17,
                    f"(resnet names: {sorted(RESNET_SPECS)})")
 
 
-def build_from_cfg(model_cfg: dict, dtype=None):
+def build_from_cfg(model_cfg: dict, train: bool = False, dtype=None, seed: int = 0):
     return build_model(
         model_cfg["type"],
         name=model_cfg.get("name", "resnet50"),
         num_joints=model_cfg.get("num_joints", 17),
         reduction=model_cfg.get("reduction", False),
+        train=train,
         dtype=dtype,
+        seed=seed,
     )

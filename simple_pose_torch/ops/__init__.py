@@ -1,2 +1,3 @@
-"""Affine geometry, the device crop, decoders, OKS and the fused layer1
-Bottleneck-chain kernel."""
+"""Affine geometry, the device crops (with the rotation-resample kernel),
+heatmap targets, decoders, OKS and the fused layer1 Bottleneck-chain
+kernel."""

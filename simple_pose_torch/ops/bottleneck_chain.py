@@ -35,7 +35,7 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 
-from simple_pose_torch.utils.cuda_build import load_library
+from simple_pose_torch.utils.cuda_build import counts_launches, load_library
 
 __all__ = ["fold_conv_bn", "fold_bottleneck_blocks", "bottleneck_chain_reference",
            "bottleneck_chain", "prepare_blocks"]
@@ -229,6 +229,7 @@ def _bottleneck_chain_cuda(x, blocks, compute_dtype):
     return y
 
 
+@counts_launches
 def bottleneck_chain(x, blocks: Sequence[dict], compute_dtype=torch.float32):
     """Fused folded-Bottleneck chain on NCHW ``x`` -> [B, Cout, H, W] in x's
     dtype.  CPU tensors take :func:`bottleneck_chain_reference`; CUDA tensors
@@ -241,6 +242,3 @@ def bottleneck_chain(x, blocks: Sequence[dict], compute_dtype=torch.float32):
     y = _bottleneck_chain_cuda(x, blocks, compute_dtype)
     bottleneck_chain.launches += 1
     return y
-
-
-bottleneck_chain.launches = 0

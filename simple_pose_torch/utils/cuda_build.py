@@ -9,6 +9,12 @@ compiled for Hopper into ``build/`` at the root of the checkout:
 The file name carries a hash of the source, so an edited source is rebuilt
 and concurrent processes never load a half-written library (each writes a
 temporary file and renames it into place).
+
+Every kernel's Python wrapper carries a launch counter, set up by
+:func:`counts_launches`: ``<wrapper>.launches`` grows by one where the
+wrapper launches its kernel, and nowhere else, so a run can show that its
+path went through the kernel (``chip_smoke.py`` zeroes the counters before
+the main path and reads them after).
 """
 
 from __future__ import annotations
@@ -21,7 +27,7 @@ import shutil
 import subprocess
 import time
 
-__all__ = ["CSRC_DIR", "BUILD_DIR", "build_library", "load_library"]
+__all__ = ["CSRC_DIR", "BUILD_DIR", "build_library", "load_library", "counts_launches"]
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(CSRC_DIR)), "build")
@@ -62,3 +68,10 @@ def load_library(name: str) -> ctypes.CDLL:
     """The built ``csrc/<name>.cu`` library, loaded once per process."""
     path, _ = build_library(name)
     return ctypes.CDLL(path)
+
+
+def counts_launches(wrapper):
+    """Give a kernel wrapper its launch counter, ``wrapper.launches = 0``.
+    The wrapper adds one to it where it launches its kernel."""
+    wrapper.launches = 0
+    return wrapper
