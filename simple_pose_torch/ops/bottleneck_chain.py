@@ -4,7 +4,8 @@ Port of simple_pose_tpu/ops/pallas_bottleneck.py.  At eval time BatchNorm is
 a per-channel affine, so a chain of Bottleneck blocks folds into pure
 (matmul, bias, relu) ops.  On a CUDA tensor :func:`bottleneck_chain` runs the
 hand-written Hopper kernel ``csrc/bottleneck_chain.cu`` (one launch per
-block, two more for an SE gate); on a CPU tensor it runs
+block, two more for an SE gate; a bf16 ``compute_dtype`` runs the products
+on tensor cores, f32 on CUDA cores); on a CPU tensor it runs
 :func:`bottleneck_chain_reference`, the plain PyTorch version of the same
 math.  There is no fallback: a CUDA tensor reaches the kernel or raises.
 

@@ -24,7 +24,8 @@ BF16_MAX_REL, BF16_MEAN_REL = 1e-2, 1e-3
 F32_ATOL = 1e-5
 
 
-def _rand_block(rng, cin, width, cout, downsample, se):
+def _rand_block(rng, cin, width, cout, downsample, se, hidden=None):
+    hidden = cout if hidden is None else hidden
     blk = {
         "w1": rng.normal(0, 0.2, (cin, width)),
         "b1": rng.normal(0, 0.1, width),
@@ -37,9 +38,9 @@ def _rand_block(rng, cin, width, cout, downsample, se):
         blk["wd"] = rng.normal(0, 0.2, (cin, cout))
         blk["bd"] = rng.normal(0, 0.1, cout)
     if se:
-        blk["sf1"] = rng.normal(0, 0.2, (cout, cout))
-        blk["sb1"] = rng.normal(0, 0.1, cout)
-        blk["sf2"] = rng.normal(0, 0.2, (cout, cout))
+        blk["sf1"] = rng.normal(0, 0.2, (cout, hidden))
+        blk["sb1"] = rng.normal(0, 0.1, hidden)
+        blk["sf2"] = rng.normal(0, 0.2, (hidden, cout))
         blk["sb2"] = rng.normal(0, 0.1, cout)
     return {k: v.astype(np.float32) for k, v in blk.items()}
 
@@ -189,6 +190,29 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _check_cuda_chain(device, x, blocks, x_dtype, cd):
+    """One kernel call against the plain version on the card: one launch,
+    the input's dtype and shape, f32 to 1e-4 relative, bf16 to
+    BF16_MAX_REL / BF16_MEAN_REL."""
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16}
+    xt = _nchw(x, device, dt[x_dtype])
+    tb = _torch_blocks(blocks, device)
+    want = bottleneck_chain_reference(xt, tb, dt[cd]).float()
+    before = bottleneck_chain.launches
+    got = bottleneck_chain(xt, tb, dt[cd])
+    torch.cuda.synchronize()
+    assert bottleneck_chain.launches == before + 1
+    assert got.dtype == xt.dtype and got.shape == want.shape
+    assert torch.isfinite(got.float()).all()
+    err = (got.float() - want).abs()
+    scale = want.abs().max().item()
+    if cd == "f32":
+        assert err.max().item() < 1e-4 * scale
+    else:
+        assert err.max().item() < BF16_MAX_REL * scale
+        assert err.mean().item() < BF16_MEAN_REL * scale
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("x_dtype,cd", [("f32", "f32"), ("bf16", "bf16"), ("f32", "bf16")])
 @pytest.mark.parametrize("shape", [(3, 16, 12), (2, 7, 48), (1, 5, 70)])
@@ -197,19 +221,33 @@ def test_kernel_matches_reference_cuda(cuda_device, x_dtype, cd, shape):
     (7 rows of 48), a band of 2 rows (W=70), narrow widths."""
     batch, h, w = shape
     x, blocks = _chain_np(seed=11, batch=batch, h=h, w=w)
-    dt = {"f32": torch.float32, "bf16": torch.bfloat16}
-    xt = _nchw(x, cuda_device, dt[x_dtype])
-    tb = _torch_blocks(blocks, cuda_device)
-    want = bottleneck_chain_reference(xt, tb, dt[cd]).float()
-    before = bottleneck_chain.launches
-    got = bottleneck_chain(xt, tb, dt[cd])
-    torch.cuda.synchronize()
-    assert bottleneck_chain.launches == before + 1
-    assert got.dtype == xt.dtype and got.shape == want.shape
-    err = (got.float() - want).abs()
-    scale = want.abs().max().item()
-    if cd == "f32":
-        assert err.max().item() < 1e-4 * scale
-    else:
-        assert err.max().item() < BF16_MAX_REL * scale
-        assert err.mean().item() < BF16_MEAN_REL * scale
+    _check_cuda_chain(cuda_device, x, blocks, x_dtype, cd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_dtype,cd", [("f32", "f32"), ("bf16", "bf16"), ("f32", "bf16")])
+def test_kernel_ragged_channels_cuda(cuda_device, x_dtype, cd):
+    """cin 40 and width 24 (not multiples of the k16 tile), cout 48: the
+    tensor-core kernel pads K with zeros and steps N by 8."""
+    rng = np.random.default_rng(12)
+    blocks = [_rand_block(rng, 40, 24, 48, True, True, hidden=12),
+              _rand_block(rng, 48, 24, 48, False, True, hidden=12)]
+    x = rng.normal(0, 1, (2, 9, 20, 40)).astype(np.float32)
+    _check_cuda_chain(cuda_device, x, blocks, x_dtype, cd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_dtype,cd", [("f32", "f32"), ("bf16", "bf16"), ("f32", "bf16")])
+def test_kernel_layer1_widths_cuda(cuda_device, x_dtype, cd):
+    """layer1's own widths: 64 -> 64 -> 256, three SE blocks (hidden 16),
+    the first with a projection, batch 2 at 64x48."""
+    rng = np.random.default_rng(13)
+    blocks = [_rand_block(rng, 64, 64, 256, True, True, hidden=16)]
+    blocks += [_rand_block(rng, 256, 64, 256, False, True, hidden=16) for _ in range(2)]
+    for blk in blocks:  # fan-in scaled, so the three blocks keep their size
+        for k in ("w1", "w3", "wd", "sf1", "sf2"):
+            if k in blk:
+                blk[k] *= 4.0 / np.sqrt(blk[k].shape[0])
+        blk["w2"] *= 10.0 / np.sqrt(9 * blk["w2"].shape[2])
+    x = rng.normal(0, 1, (2, 64, 48, 64)).astype(np.float32)
+    _check_cuda_chain(cuda_device, x, blocks, x_dtype, cd)
