@@ -22,21 +22,31 @@ raises, and the script exits non-zero without a result line):
      counters zeroed just before and read just after; fused vs unfused
      heatmaps; the f32 card path vs the CPU plain path on 2 crops; COCO
      stats against a synthetic GT; crops/s at batch 128;
-  5. the rotation-resample kernel K1 against its plain version at the
-     training path's shapes (batch 128 of 640^2 seeded uint8 canvases, box
-     affines rotated within +-40 deg and scaled 0.7-1.3, the 328^2 bf16
-     stage-1 intermediate, 256x192 crops): f32 out bit for bit (asserted to
-     1e-3), bf16 out equal to the f32 out rounded; then timed in bf16 and f32
-     out beside the plain version and one grid_sample on the same
-     intermediate;
+  5. the training crop's kernels at the training path's shapes (batch 128
+     of 640^2 seeded uint8 canvases, box affines rotated within +-40 deg and
+     scaled 0.7-1.3, 256x192 crops, the 328^2 stage-1 intermediate):
+     a. the stage-2 kernel K1 (rotate_resample_kernel) against its plain
+        version on the bf16 intermediate that stage 1 (cuBLAS) makes: f32 out
+        bit for bit (asserted to 1e-3), bf16 out equal to the f32 out
+        rounded; timed in bf16 and f32 out beside the plain version and one
+        grid_sample on the same intermediate;
+     b. the whole-crop kernel (rotate_resample_crop_kernel, what the
+        training step runs) on the uint8 canvases, against
+        affine_crop_two_stage_reference and against the two-launch card path
+        it replaced (stage 1 on cuBLAS, then K1): f32 out bit for bit with
+        both, bf16 out equal to the f32 out rounded and to K1's bf16 out;
+        timed in bf16 and f32 out beside the plain version, that two-launch
+        path, and one grid_sample of the canvas (bf16 or f32 NCHW, made
+        outside the timed region) with the composite dst->src grid;
   6. the training path: init_train_state + make_train_step with
      configs/fast_pose.yaml's model and optimizer (ResNet-50-DConv+SE,
      256x192, Adam, multistep, EMA, bf16 autocast, unbiased targets) at batch
      128 on the phase-5 canvases, 3 warm-up and 20 timed steps with the
-     launch counters zeroed just before and read just after; train crops/s
-     and peak memory; then one f32 step on 2 crops on the card (the kernel,
-     TF32 off) against the same step on the CPU (the plain versions) from the
-     same state.
+     launch counters zeroed just before and read just after (23 launches of
+     the whole-crop kernel, none of K1); train crops/s and peak memory; then
+     one f32 step on 2 crops on the card (the whole-crop kernel, TF32 off)
+     against the same step on the CPU (the plain versions) from the same
+     state.
 
 The line before the last holds the kernels' JSON; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -68,11 +78,19 @@ from simple_pose_torch.ops.bottleneck_chain import (
     prepare_blocks,
 )
 from simple_pose_torch.ops.rotate_resample import (
+    _rotate_resample_crop_cuda,
     affine_crop_two_stage,
+    affine_crop_two_stage_reference,
+    crop_scalars,
     rotate_resample,
     rotate_resample_reference,
 )
-from simple_pose_torch.ops.warp import decompose_affine, stage1_resample
+from simple_pose_torch.ops.warp import (
+    _src_coords,
+    decompose_affine,
+    invert_affine_batch,
+    stage1_resample,
+)
 from simple_pose_torch.train.solver import init_train_state, make_train_step
 from simple_pose_torch.utils.cuda_build import build_library
 
@@ -468,15 +486,121 @@ def check_rotate_kernel(data):
         }
         timing[f"b{TRAIN_BATCH}_{name}"] = row
         log(f"rotate_resample b{TRAIN_BATCH} {name} out: " + json.dumps(row))
-    # the whole training crop, and its stage 1 (f32 cuBLAS), for their share
-    # of the step
-    timing["crop_ms"] = {
-        "stage1": cuda_ms(lambda: stage1_resample(canvas, d0, d1, t1x, t1y, INTER), iters=10),
-        "two_stage_bf16": cuda_ms(lambda: affine_crop_two_stage(
-            canvas, trans, CROP_HW, inter=INTER, out_dtype=torch.bfloat16), iters=10),
-    }
-    log(f"training crop b{TRAIN_BATCH} ms: " + json.dumps(timing["crop_ms"]))
     return report, timing, {"canvas": canvas, "trans": trans}
+
+
+def two_stage_k1(canvas, trans, out_dtype):
+    """The training crop as the card ran it before the whole-crop kernel:
+    stage 1 on cuBLAS, the bf16 intermediate, then K1."""
+    d0, d1, r_mat, u0, t1x, t1y = decompose_affine(trans, CROP_HW, INTER)
+    inter_img = stage1_resample(canvas, d0, d1, t1x, t1y, INTER)
+    inter_img = inter_img.permute(0, 3, 1, 2).to(torch.bfloat16).contiguous()
+    return rotate_resample(inter_img, r_mat, u0, CROP_HW, out_dtype=out_dtype)
+
+
+def crop_work(canvas, trans, out_dtype):
+    """(flops, bytes) of one whole-crop call on these inputs.  Bytes: each
+    canvas pixel that a stage-1 tap of a read intermediate pixel touches,
+    read once (uint8), each output written once, the scalars.  Flops: per
+    intermediate pixel read, its 4 weights (10) and per channel 6 products
+    and 3 sums; per output pixel as rotate_work counts it."""
+    b, h, w, c = canvas.shape
+    oh, ow = CROP_HW
+    dev = canvas.device
+    d0, d1, r_mat, u0, t1x, t1y = decompose_affine(trans, CROP_HW, INTER)
+    ux, uy = sample_coords(r_mat, u0)
+    x0, y0 = torch.floor(ux).long(), torch.floor(uy).long()
+    read = torch.zeros((b, INTER, INTER), dtype=torch.bool, device=dev)
+    bi = torch.arange(b, device=dev)[:, None, None].expand(b, oh, ow)
+    for dy in (0, 1):
+        for dx in (0, 1):
+            xi, yi = x0 + dx, y0 + dy
+            ok = (xi >= 0) & (xi < INTER) & (yi >= 0) & (yi < INTER)
+            read[bi[ok], yi[ok], xi[ok]] = True
+    n_read = int(read.sum().item())
+    o = torch.arange(INTER, dtype=torch.float32, device=dev)[None, :]
+    py0 = torch.floor(t1y[:, None] + o * d1[:, None]).long()  # [B, inter] stage-1 row taps
+    px0 = torch.floor(t1x[:, None] + o * d0[:, None]).long()
+    sb, siy, six = read.nonzero(as_tuple=True)
+    touched = torch.zeros((b, h, w), dtype=torch.bool, device=dev)
+    for dy in (0, 1):
+        for dx in (0, 1):
+            yi, xi = py0[sb, siy] + dy, px0[sb, six] + dx
+            ok = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
+            touched[sb[ok], yi[ok], xi[ok]] = True
+    out = b * oh * ow * c * torch.empty((), dtype=out_dtype).element_size()
+    flops = n_read * (10 + 9 * c) + b * oh * ow * (18 + 9 * c)
+    return flops, int(touched.sum().item()) * c + out + b * 10 * 4
+
+
+def canvas_grid_sample_args(canvas, trans, dtype):
+    """grid_sample's input (the canvas as NCHW) and normalized grid
+    (align_corners=True) for the composite dst->src affine: the library
+    yardstick of the whole crop; the port never calls it."""
+    h, w = canvas.shape[1:3]
+    sx, sy = _src_coords(invert_affine_batch(trans.to(torch.float32)), CROP_HW)
+    grid = torch.stack([sx * (2.0 / (w - 1)) - 1.0, sy * (2.0 / (h - 1)) - 1.0], dim=-1)
+    return canvas.permute(0, 3, 1, 2).to(dtype).contiguous(), grid.to(dtype)
+
+
+def check_crop_kernel(canvas, trans):
+    """The whole-crop kernel against its plain version and against the
+    two-launch path it replaced, then timed.  Returns (errors, timing)."""
+    want = affine_crop_two_stage_reference(canvas, trans, CROP_HW, INTER, torch.float32)
+    k1_32 = two_stage_k1(canvas, trans, torch.float32)
+    k1_16 = two_stage_k1(canvas, trans, torch.bfloat16)
+    got32 = affine_crop_two_stage(canvas, trans, CROP_HW, inter=INTER, out_dtype=torch.float32)
+    got16 = affine_crop_two_stage(canvas, trans, CROP_HW, inter=INTER, out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert got32.shape == (TRAIN_BATCH, *CROP_HW, 3) and got16.dtype == torch.bfloat16
+    assert torch.isfinite(got32).all()
+    d_plain = (got32 - want).abs().max().item()
+    d_k1 = (got32 - k1_32).abs().max().item()
+    identical = (got32 == want).float().mean().item()
+    bf16_rounded = bool(torch.equal(got16, got32.to(torch.bfloat16)))
+    bf16_k1 = bool(torch.equal(got16, k1_16))
+    log(f"whole-crop kernel f32: max|d| {d_plain:.3e} vs the plain version ({identical:.6%} "
+        f"bit-identical), {d_k1:.3e} vs stage 1 + K1; bf16 == f32 rounded: {bf16_rounded}, "
+        f"bf16 == stage 1 + K1 bf16: {bf16_k1}")
+    assert d_plain == 0 and d_k1 == 0, "whole-crop kernel disagrees (f32)"
+    assert bf16_rounded and bf16_k1, "whole-crop kernel disagrees (bf16)"
+    report = {"f32": {"max_abs_err": d_plain, "max_abs_err_vs_stage1_k1": d_k1,
+                      "bit_identical_share": identical},
+              "bf16": {"max_abs_err": (got16.float() - want.to(torch.bfloat16).float())
+                       .abs().max().item(), "equals_f32_rounded": bf16_rounded,
+                       "equals_stage1_k1": bf16_k1}}
+    del want, k1_32, k1_16, got32, got16
+
+    d0, d1, _, _, t1x, t1y = decompose_affine(trans, CROP_HW, INTER)
+    timing = {"stage1_ms": cuda_ms(lambda: stage1_resample(canvas, d0, d1, t1x, t1y, INTER),
+                                   iters=10)}
+    scalars = crop_scalars(trans, CROP_HW, INTER)
+    for name, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        flops, nbytes = crop_work(canvas, trans, dt)
+        gs_in, gs_grid = canvas_grid_sample_args(canvas, trans, dt)
+
+        def library():
+            return torch.nn.functional.grid_sample(gs_in, gs_grid, mode="bilinear",
+                                                   padding_mode="zeros", align_corners=True)
+
+        t_bytes, t_flops = nbytes / PEAK_BYTES, flops / PEAK_F32_FLOPS
+        row = {  # kernel_ms: the launch alone; wrapper_ms: with decompose_affine's ~30 ops
+            "kernel_ms": cuda_ms(lambda: _rotate_resample_crop_cuda(
+                canvas, scalars, CROP_HW, INTER, dt), iters=50),
+            "wrapper_ms": cuda_ms(lambda: affine_crop_two_stage(
+                canvas, trans, CROP_HW, inter=INTER, out_dtype=dt), iters=50),
+            "plain_ms": cuda_ms(lambda: affine_crop_two_stage_reference(
+                canvas, trans, CROP_HW, INTER, dt), iters=10),
+            "two_stage_ms": cuda_ms(lambda: two_stage_k1(canvas, trans, dt), iters=10),
+            "library_ms": cuda_ms(library, iters=50),
+            "bound_ms": max(t_bytes, t_flops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_flops else "operations",
+            "mbytes": nbytes / 1e6, "gflop": flops / 1e9,
+        }
+        del gs_in, gs_grid
+        timing[f"b{TRAIN_BATCH}_{name}"] = row
+        log(f"whole-crop kernel b{TRAIN_BATCH} {name} out: " + json.dumps(row))
+    return report, timing
 
 
 # ---------------------------------------------------------------------------
@@ -507,8 +631,9 @@ def _trees(state):
 
 
 def check_f32_step(data):
-    """One f32 step on 2 crops on the card (K1, cuDNN with TF32 off) against
-    the same step on the CPU (the plain versions), from the same state."""
+    """One f32 step on 2 crops on the card (the whole-crop kernel, cuDNN with
+    TF32 off) against the same step on the CPU (the plain versions), from the
+    same state."""
     cfg = copy.deepcopy(TRAIN_CFG)
     cfg["optim"]["amp"] = False
     step = make_train_step(HEAT_HW, CROP_HW, amp=False, crop_impl="kernel")
@@ -547,7 +672,7 @@ def run_train_path(data_dev, data):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    for fn in (bottleneck_chain, rotate_resample):
+    for fn in (bottleneck_chain, rotate_resample, affine_crop_two_stage):
         fn.launches = 0
     losses, accs = [], []
     for _ in range(TRAIN_WARMUP):
@@ -563,13 +688,15 @@ def run_train_path(data_dev, data):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = {"bottleneck_chain": bottleneck_chain.launches,
-                "rotate_resample": rotate_resample.launches}
+                "rotate_resample": rotate_resample.launches,
+                "rotate_resample_crop": affine_crop_two_stage.launches}
     peak = torch.cuda.max_memory_allocated()
     losses = torch.stack(losses).float().cpu().numpy()
     accs = torch.stack(accs).float().cpu().numpy()
     log(f"train path: launches {launches}; loss per step {[float(x) for x in losses]}; "
         f"acc per step {[float(x) for x in accs]}")
-    assert launches["rotate_resample"] == TRAIN_WARMUP + TRAIN_TIMED, launches
+    assert launches["rotate_resample_crop"] == TRAIN_WARMUP + TRAIN_TIMED, launches
+    assert launches["rotate_resample"] == 0, launches
     assert np.isfinite(losses).all() and np.isfinite(accs).all()
     assert state.step == TRAIN_WARMUP + TRAIN_TIMED
     rate = TRAIN_TIMED * TRAIN_BATCH / seconds
@@ -606,6 +733,8 @@ def main() -> int:
     data = train_inputs(np.random.default_rng(5), TRAIN_BATCH)
     rot_report, rot_timing, data_dev = check_rotate_kernel(data)
     log("rotate_resample timing: " + json.dumps({"card": card, **rot_timing}))
+    crop_report, crop_timing = check_crop_kernel(data_dev["canvas"], data_dev["trans"])
+    log("whole-crop kernel timing: " + json.dumps({"card": card, **crop_timing}))
     train_launches, train = run_train_path(data_dev, data)
     log(f"train crops/s at batch {TRAIN_BATCH} (ResNet-50-DConv+SE 256x192, bf16, Adam, EMA) "
         f"on {card}: {train['crops_per_s']:.2f} ({train['ms_per_step']:.2f} ms/step); "
@@ -644,6 +773,26 @@ def main() -> int:
         "bound_by": rot_row["bound_by"],
         "library_ms": rot_row["library_ms"],
         "errors": rot_report,
+        "main_path": "none: the training step runs rotate_resample_crop",
+    })
+    crop_row = crop_timing[f"b{TRAIN_BATCH}_bf16"]
+    kernels.append({
+        "name": "rotate_resample_crop",
+        "route": "cuda",
+        "source": "simple_pose_torch/csrc/rotate_resample.cu",
+        "replaces": "simple_pose_tpu/ops/pallas_warp.py:45",
+        "replaces_path": "simple_pose_tpu/ops/pallas_warp.py:170 (affine_crop_pallas)",
+        "launches": train_launches["rotate_resample_crop"],
+        "max_abs_err": max(crop_report["f32"]["max_abs_err"], crop_report["bf16"]["max_abs_err"]),
+        "ms": crop_row["kernel_ms"],
+        "kernel_ms": crop_row["kernel_ms"],
+        "wrapper_ms": crop_row["wrapper_ms"],
+        "plain_ms": crop_row["plain_ms"],
+        "two_stage_ms": crop_row["two_stage_ms"],
+        "bound_ms": crop_row["bound_ms"],
+        "bound_by": crop_row["bound_by"],
+        "library_ms": crop_row["library_ms"],
+        "errors": crop_report,
     })
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -3,14 +3,16 @@
     python scripts/profile_torch_train.py [--batch 128] [--steps 3]
 
 Builds the flagship training step of chip_smoke.py (configs/fast_pose.yaml's
-ResNet-50-DConv+SE, 256x192, Adam, EMA, bf16 autocast, the K1 crop kernel)
+ResNet-50-DConv+SE, 256x192, Adam, EMA, bf16 autocast, the whole-crop kernel)
 on seeded data, warms it up, then traces ``--steps`` steps with
 torch.profiler.  Prints, as JSON lines: the card (nvidia-smi name and power
 limit), the step time on the host clock, the device busy time per step
 (the union of kernel intervals) and its share of the step, and the kernels
-with the most device time, grouped into the crop (stage 1 and K1), the
-convolutions, BatchNorm, the optimizer and EMA, and the rest.  Needs a card;
-imports torch, numpy and simple_pose_torch only.
+with the most device time, grouped into the crop kernels (``crop_k1``: every
+kernel named rotate_resample*), f32 GEMMs (``crop_stage1_gemm``: the crop's
+stage 1 before it ran inside the crop kernel), the convolutions, BatchNorm,
+the optimizer and EMA, and the rest.  Needs a card; imports torch, numpy and
+simple_pose_torch only.
 """
 
 from __future__ import annotations
