@@ -1,6 +1,6 @@
-"""Chip smoke test of the PyTorch + CUDA port: drives the serving path and the
-training step on one CUDA card and holds every kernel against its plain
-PyTorch version.
+"""Chip smoke test of the PyTorch + CUDA port: drives the serving path, the
+training step and the training solver on one CUDA card and holds every
+kernel against its plain PyTorch version.
 
     python3 chip_smoke.py
 
@@ -46,7 +46,24 @@ raises, and the script exits non-zero without a result line):
      the whole-crop kernel, none of K1); train crops/s and peak memory; then
      one f32 step on 2 crops on the card (the whole-crop kernel, TF32 off)
      against the same step on the CPU (the plain versions) from the same
-     state.
+     state;
+  7. the solver, the port's training entry point: synthetic COCO keypoints
+     JSON (256 train and 64 val images of 640x480, 1-4 people each, ~2.3 on
+     average, 17 joints inside each box) whose images come from a seeded
+     numpy painter installed in place of data/pipeline._imread_rgb (no JPEG
+     decoder is assumed on the card's host); PoseSolver(TRAIN_CFG + those paths,
+     2 epochs, validation every epoch).run(), then a fresh PoseSolver with 3
+     epochs .run(resume=True).  With the launch counters zeroed just before
+     and read just after: the whole-crop kernel launched once per solver
+     train step, K1 never; the step count continues across the resume; the
+     restored tensors equal the saved ones exactly, Adam's step counts on
+     the CPU as before the save; every loss finite; val AP
+     in [0, 1]; the _last and _best .pth files, the _best one loading into
+     PoseEvaluator with no missing and no unexpected keys.  Solver crops/s
+     per epoch, host-only batches/s, epoch and validate seconds beside the
+     phase-6 bare-step rate.  Then one bf16 step at batch 128 from one
+     state with model.remat off and on: loss and every BN running statistic
+     to 1e-3 relative, peak memory of each.
 
 The line before the last holds the kernels' JSON; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -54,6 +71,7 @@ The line before the last holds the kernels' JSON; the last line is
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import math
@@ -62,11 +80,13 @@ import subprocess
 import sys
 import tempfile
 import time
+import zlib
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
+import simple_pose_torch.data.pipeline as data_pipeline
 from simple_pose_torch.evalkit.workflows import PoseEvaluator, kps_to_dicts
 from simple_pose_torch.metrics.cocoeval import evaluate_map
 from simple_pose_torch.models.resnet import build_resnet
@@ -91,7 +111,7 @@ from simple_pose_torch.ops.warp import (
     invert_affine_batch,
     stage1_resample,
 )
-from simple_pose_torch.train.solver import init_train_state, make_train_step
+from simple_pose_torch.train.solver import PoseSolver, init_train_state, make_train_step
 from simple_pose_torch.utils.cuda_build import build_library
 
 # H100 SXM data-sheet peaks (dense): bf16 tensor cores, HBM3 bandwidth
@@ -136,6 +156,15 @@ INTER = int(math.ceil(math.hypot(*CROP_HW))) + 8  # 328, as make_train_step size
 # first step, lr*g/(|g|+eps), turns a near-zero gradient's sign, which the
 # two sum orders may disagree on, into a full +-lr step)
 F32_STEP_LOSS_REL, F32_STEP_TREE_REL, F32_STEP_WARMUP = 1e-4, 1e-2, 8
+# phase 7: synthetic COCO for the solver; people per image 1-4 with these
+# odds (mean 2.3, COCO's instances per image)
+SOLVER_TRAIN_IMAGES, SOLVER_VAL_IMAGES, SOLVER_IMG_WH = 256, 64, (640, 480)
+PEOPLE_ODDS = (0.3, 0.3, 0.2, 0.2)
+# remat on vs off, one bf16 step from one state: the recompute repeats the
+# forward's ops on the same inputs, so the loss and BN statistics (taken in
+# the forward) agree to far less; a second BN update would move the
+# statistics by ~10% (momentum 0.1)
+REMAT_REL = 1e-3
 
 
 def log(*a):
@@ -705,6 +734,217 @@ def run_train_path(data_dev, data):
                       "losses": [float(x) for x in losses]}
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the solver
+# ---------------------------------------------------------------------------
+
+
+def write_synth_coco(path, n_images, first_id, rng):
+    """A COCO person-keypoints JSON: n_images of SOLVER_IMG_WH, 1-4 people
+    each (PEOPLE_ODDS), 17 visible joints uniform inside each box."""
+    w, h = SOLVER_IMG_WH
+    images, anns = [], []
+    for img_id in range(first_id, first_id + n_images):
+        images.append({"id": img_id, "width": w, "height": h, "file_name": f"{img_id:012d}.jpg"})
+        for _ in range(1 + int(rng.choice(4, p=PEOPLE_ODDS))):
+            bw, bh = rng.uniform(60, 300), rng.uniform(100, 400)
+            x1, y1 = rng.uniform(0, w - bw), rng.uniform(0, h - bh)
+            kp = np.zeros((17, 3))
+            kp[:, 0] = rng.uniform(x1, x1 + bw, 17)
+            kp[:, 1] = rng.uniform(y1, y1 + bh, 17)
+            kp[:, 2] = 2
+            anns.append({"id": len(anns) + first_id * 10, "image_id": img_id, "category_id": 1,
+                         "iscrowd": 0, "keypoints": kp.reshape(-1).tolist(), "num_keypoints": 17,
+                         "area": float(bw * bh),
+                         "bbox": [float(x1), float(y1), float(bw), float(bh)]})
+    with open(path, "w") as f:
+        json.dump({"images": images, "annotations": anns,
+                   "categories": [{"id": 1, "name": "person"}]}, f)
+    return len(anns)
+
+
+def painted_rgb(path):
+    """A seeded uint8 noise image for an image path (keyed by its file name)."""
+    rng = np.random.default_rng(zlib.crc32(os.path.basename(path).encode()))
+    w, h = SOLVER_IMG_WH
+    return rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+
+
+@contextlib.contextmanager
+def painter_installed():
+    orig = data_pipeline._imread_rgb
+    data_pipeline._imread_rgb = painted_rgb
+    log("phase 7: a seeded numpy painter stands in for simple_pose_torch.data.pipeline."
+        "_imread_rgb (noise images keyed by file name; no JPEG decoder is assumed)")
+    try:
+        yield
+    finally:
+        data_pipeline._imread_rgb = orig
+
+
+def state_tensors(state):
+    """CPU copies of every tensor of a TrainState: the model, the EMA copies
+    and the optimizer's moments."""
+    out = {f"model.{k}": v.detach().to("cpu", copy=True)
+           for k, v in state.model.state_dict().items()}
+    out.update({f"ema.{k}": v.to("cpu", copy=True)
+                for k, v in {**state.ema_params, **state.ema_buffers}.items()})
+    names = {id(p): k for k, p in state.model.named_parameters()}
+    for p, st in state.optimizer.state.items():
+        for key, v in st.items():
+            out[f"opt.{names[id(p)]}.{key}"] = torch.as_tensor(v).to("cpu", copy=True)
+    return out
+
+
+def instrument(solver, record):
+    """Time each train_epoch and validate of ``solver`` and keep each step's
+    loss (device tensors, read after the run)."""
+    solver._compile()
+    step, train_epoch, validate = solver._train_step, solver.train_epoch, solver.validate
+
+    def timed_step(state, batch):
+        state, metrics = step(state, batch)
+        record["losses"].append(metrics["loss"])
+        return state, metrics
+
+    def timed_epoch(epoch, log_every=50):
+        torch.cuda.synchronize()
+        t0, s0 = time.perf_counter(), solver.state.step
+        out = train_epoch(epoch, log_every)
+        torch.cuda.synchronize()
+        dt, steps = time.perf_counter() - t0, solver.state.step - s0
+        record["epochs"].append({"epoch": epoch, "steps": steps, "seconds": dt,
+                                 "crops_per_s": steps * solver.cfg.data.batch_size / dt,
+                                 "loss": out["loss"]})
+        return out
+
+    def timed_validate(epoch, results_path="temp_test.json"):
+        t0 = time.perf_counter()
+        stats = validate(epoch, results_path)
+        record["val"].append({"epoch": epoch, "seconds": time.perf_counter() - t0,
+                              "AP": float(stats["AP"])})
+        return stats
+
+    solver._train_step, solver.train_epoch, solver.validate = timed_step, timed_epoch, timed_validate
+
+
+def remat_step(remat, batch):
+    """One bf16 step at TRAIN_CFG's width from the seeded init: (loss, BN
+    running statistics on the CPU, peak device bytes of the step)."""
+    cfg = copy.deepcopy(TRAIN_CFG)
+    cfg["model"]["remat"] = remat
+    state = init_train_state(cfg)
+    step = make_train_step(HEAT_HW, CROP_HW, amp=True, crop_impl="kernel")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state, m = step(state, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    stats = {k: v.to("cpu", torch.float32, copy=True)
+             for k, v in state.model.state_dict().items() if "running_" in k}
+    loss = m["loss"].item()
+    del state, m
+    torch.cuda.empty_cache()
+    return loss, stats, peak
+
+
+def check_remat(batch):
+    loss_off, stats_off, peak_off = remat_step(False, batch)
+    loss_on, stats_on, peak_on = remat_step(True, batch)
+    loss_rel = abs(loss_on / loss_off - 1)
+    stat_rel = {k: ((stats_on[k] - v).abs().max() / v.abs().max().clamp_min(1e-12)).item()
+                for k, v in stats_off.items()}
+    worst = max(stat_rel, key=stat_rel.get)
+    out = {"loss_off": loss_off, "loss_on": loss_on, "loss_rel": loss_rel,
+           "worst_bn_stat_rel": stat_rel[worst], "worst_bn_stat": worst,
+           "bn_stats": len(stat_rel), "peak_gib_off": peak_off / 2**30,
+           "peak_gib_on": peak_on / 2**30}
+    log("remat on vs off (one bf16 step, batch 128): " + json.dumps(out))
+    assert loss_rel <= REMAT_REL and stat_rel[worst] <= REMAT_REL, out
+    return out
+
+
+def run_solver_path(workdir, card, step_rate, device=None):
+    """Phase 7.  ``step_rate``: phase 6's bare-step crops/s, printed beside."""
+    rng = np.random.default_rng(7)
+    img_root = os.path.join(workdir, "images")  # never read: the painter stands in
+    train_ann, val_ann = os.path.join(workdir, "train.json"), os.path.join(workdir, "val.json")
+    n_train = write_synth_coco(train_ann, SOLVER_TRAIN_IMAGES, 1, rng)
+    n_val = write_synth_coco(val_ann, SOLVER_VAL_IMAGES, 100001, rng)
+    cfg = copy.deepcopy(TRAIN_CFG)
+    cfg["data"].update(train_ann_path=train_ann, val_ann_path=val_ann, train_img_root=img_root,
+                       val_img_root=img_root, num_workers=8)
+    cfg["optim"]["epochs"] = 2
+    cfg["val"] = {"interval": 1, "weight_path": os.path.join(workdir, "weights")}
+    log(f"solver data: {n_train} train instances on {SOLVER_TRAIN_IMAGES} images, {n_val} val "
+        f"instances on {SOLVER_VAL_IMAGES} images")
+
+    record = {"losses": [], "epochs": [], "val": []}
+    solver = PoseSolver(cfg, device=device)
+    instrument(solver, record)
+    # seeded random weights score AP 0 on this data; the first validation
+    # writes _best all the same, so that the file exists to be loaded
+    solver.best_ap = -1.0
+    t0 = time.perf_counter()
+    host_batches = sum(1 for _ in solver.train_pipe.epoch(0))  # the device untouched
+    host_rate = host_batches / (time.perf_counter() - t0)
+
+    for fn in (bottleneck_chain, rotate_resample, affine_crop_two_stage):
+        fn.launches = 0
+    solver.run()
+    steps_first = solver.state.step
+    saved = state_tensors(solver.state)
+    del solver
+
+    cfg["optim"]["epochs"] = 3
+    resumed = PoseSolver(cfg, device=device)
+    assert resumed.restore_checkpoint() == 2
+    restored = state_tensors(resumed.state)
+    assert set(restored) == set(saved)
+    unequal = [k for k in saved if not torch.equal(restored[k], saved[k])]
+    assert not unequal, unequal[:5]
+    # Adam keeps its step counts on the CPU; restored onto the card, each
+    # update would sync with the device once per parameter
+    step_devices = {str(s["step"].device) for s in resumed.state.optimizer.state.values()}
+    assert step_devices == {"cpu"}, step_devices
+    instrument(resumed, record)
+    resumed.run(resume=True)
+    launches = {"bottleneck_chain": bottleneck_chain.launches,
+                "rotate_resample": rotate_resample.launches,
+                "rotate_resample_crop": affine_crop_two_stage.launches}
+    steps = resumed.state.step
+    steps_epoch3 = record["epochs"][-1]["steps"]
+    losses = torch.stack(record["losses"]).float().cpu().numpy()
+    log(f"solver: launches {launches}; steps {steps_first} + {steps_epoch3} = {steps}; "
+        f"{len(saved)} tensors restored exactly; loss per step {[float(x) for x in losses]}; "
+        f"val {json.dumps(record['val'])}")
+    assert launches["rotate_resample_crop"] == steps == len(losses), (launches, steps)
+    assert launches["rotate_resample"] == 0 and launches["bottleneck_chain"] == 0, launches
+    assert steps == steps_first + steps_epoch3 and len(record["epochs"]) == 3
+    assert np.isfinite(losses).all()
+    assert len(record["val"]) == 3 and all(0.0 <= v["AP"] <= 1.0 for v in record["val"])
+
+    last, best = resumed.checkpoint_path(), resumed.checkpoint_path("pose_resnet_dconv_best")
+    assert os.path.exists(last) and os.path.exists(best), (last, best)
+    ema = torch.load(best, map_location="cpu")["ema"]
+    ev = PoseEvaluator(CFG, best, INPUT_SHAPE, amp="auto", device=device)
+    want = set(ev.model.state_dict())
+    missing, unexpected = len(want - set(ema)), len(set(ema) - want)
+    log(f"PoseEvaluator(weights={os.path.basename(best)}): {missing} missing, "
+        f"{unexpected} unexpected keys")
+    assert missing == 0 and unexpected == 0
+    del resumed, ev
+
+    rates = {"card": card, "solver_epochs": record["epochs"],
+             "validate": record["val"],
+             "host_only_batches_per_s": host_rate, "host_only_batches": host_batches,
+             "host_only_crops_per_s": host_rate * TRAIN_BATCH,
+             "bare_step_crops_per_s_phase6": step_rate}
+    log("solver (pipeline + H2D + step, per epoch) beside the bare step: " + json.dumps(rates))
+    return launches, rates
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -741,6 +981,16 @@ def main() -> int:
         f"torch.cuda.max_memory_allocated {train['max_memory_allocated_gib']:.2f} GiB")
     f32_step = check_f32_step(data)
     log("train path: " + json.dumps({"card": card, **train, "f32_step": f32_step}))
+
+    with tempfile.TemporaryDirectory() as workdir, painter_installed():
+        cwd = os.getcwd()
+        os.chdir(workdir)  # validate writes its results JSON to the working directory
+        try:
+            solver_launches, solver = run_solver_path(workdir, card, train["crops_per_s"])
+        finally:
+            os.chdir(cwd)
+    remat = check_remat({**data_dev, "joints": torch.from_numpy(data["joints"]).cuda()})
+    log("remat: " + json.dumps({"card": card, **remat}))
 
     main_row = timing[f"b{BATCH}_bf16"]
     kernels = [{
@@ -783,6 +1033,7 @@ def main() -> int:
         "replaces": "simple_pose_tpu/ops/pallas_warp.py:45",
         "replaces_path": "simple_pose_tpu/ops/pallas_warp.py:170 (affine_crop_pallas)",
         "launches": train_launches["rotate_resample_crop"],
+        "launches_solver": solver_launches["rotate_resample_crop"],
         "max_abs_err": max(crop_report["f32"]["max_abs_err"], crop_report["bf16"]["max_abs_err"]),
         "ms": crop_row["kernel_ms"],
         "kernel_ms": crop_row["kernel_ms"],

@@ -1,28 +1,37 @@
-"""Host input pipeline, eval path: JPEG decode and 2x3 matrix math only; the
-crop, normalization and decode run on the device.
+"""Host input pipeline: JPEG decode and tiny matrix math only; the crop,
+augmentation warp, target encoding and normalization run on the device.
 
-Port of simple_pose_tpu/data/pipeline.py for ``augment=False`` (GT-box eval).
-Per sample the host decodes the JPEG and pastes it (RGB) into a fixed uint8
-canvas at the origin -- no interpolation on the host, so the device bilinear
-crop is the single resample, like cv2.warpAffine on the original image (zero
-padding beyond the true image equals BORDER_CONSTANT 0) -- and computes the
-crop affine and its heatmap-space inverse.
+Port of simple_pose_tpu/data/pipeline.py:44-411 (``PosePipeline``, training
+and eval), without the native libjpeg loader.  Per sample the host:
 
-A batch is {canvas u8 [U,S,S,3], canvas_idx i32 [B], trans f32
-[B,2,3], joints f32 [B,17,3], trans_inv f32 [B,2,3], img_id i64 [B], valid
-f32 [B]}.  Decoding runs in a thread pool (cv2 releases the GIL) with a
-bounded prefetch window.  ``cv2`` is imported only when an image is read.
+  1. decodes the JPEG and pastes it (RGB) into a fixed uint8 canvas at the
+     origin -- no interpolation on the host, so the device bilinear crop is
+     the single resample, like cv2.warpAffine on the original image (zero
+     padding beyond the true image equals BORDER_CONSTANT 0);
+  2. draws augmentation parameters (DPG box jitter, scale 0.7-1.3, rotation
+     +-40, p=0.5 horizontal flip) from ``default_rng((seed, epoch, ridx))``
+     and composes them into two 2x3 affines (crop matrix, output-space
+     matrix): the image flip is folded into the matrices via hflip_affine,
+     so the host never touches pixels;
+  3. transforms joints into heatmap space (affine_transform_batch parity).
+
+A batch is {canvas u8 [B,S,S,3], trans f32 [B,2,3], joints f32 [B,17,3],
+trans_inv f32 [B,2,3], img_id i64 [B], valid f32 [B]}; with canvas dedup the
+canvas is [U,S,S,3] and ``canvas_idx`` i32 [B] picks each crop's canvas.
+Decoding runs in a thread pool (cv2 releases the GIL) with a bounded prefetch
+window; each process takes a stride of the epoch permutation.  Images are
+read only through :func:`_imread_rgb`, which imports cv2 when called.
 """
 
 from __future__ import annotations
 
 import queue
 import threading
-from typing import Iterator, Sequence
+from typing import Iterator, Optional, Sequence
 
 import numpy as np
 
-from simple_pose_torch.data.coco import PoseRecord
+from simple_pose_torch.data.coco import JOINT_PAIRS, PoseRecord
 from simple_pose_torch.ops import affine as A
 
 __all__ = ["PosePipeline", "RGB_MEAN"]
@@ -42,17 +51,50 @@ def _imread_rgb(path):
     return img[..., ::-1]  # BGR -> RGB
 
 
-def eval_geometry(rec: PoseRecord, input_shape, output_shape):
-    """Crop affine (image -> input crop), joints in heatmap space and the
-    heatmap -> image inverse for one un-augmented sample."""
-    x1, y1, x2, y2 = rec.box
-    center, scale = A.box_to_center_scale(x1, y1, x2 - x1, y2 - y1,
-                                          input_shape[0] / input_shape[1])
-    img_trans, _ = A.get_affine_transform(center, scale, 0.0, input_shape)
-    out_trans, out_trans_inv = A.get_affine_transform(center, scale, 0.0, output_shape)
-    joints = A.affine_transform_joints(rec.joints.copy(), out_trans)
-    return (img_trans.astype(np.float32), joints.astype(np.float32),
-            np.asarray(out_trans_inv, dtype=np.float32))
+class _SampleTransform:
+    """Geometry for one sample: reproduces RefineSimpleTransform.__call__
+    (commons/transforms.py:193-223) with the image flip/warp folded into
+    matrices."""
+
+    def __init__(self, input_shape=(192, 256), output_shape=(48, 64),
+                 scale=(0.7, 1.3), rot=(-40, 40), rand_crop=True, flip=True):
+        self.input_shape = input_shape
+        self.output_shape = output_shape
+        self.w_h_ratio = input_shape[0] / input_shape[1]
+        self.scale = scale
+        self.rot = rot
+        self.rand_crop = rand_crop
+        self.flip = flip
+
+    def __call__(self, rec: PoseRecord, rng: np.random.Generator, augment: bool):
+        joints = rec.joints.copy()
+        bbox = list(rec.box)
+        if augment and self.rand_crop:
+            bbox = A.box_jitter(bbox, rec.width, rec.height, rng)
+        x1, y1, x2, y2 = bbox
+        center, scale = A.box_to_center_scale(x1, y1, x2 - x1, y2 - y1, self.w_h_ratio)
+        if augment:
+            scale = scale * rng.uniform(self.scale[0], self.scale[1])
+            rot = rng.uniform(self.rot[0], self.rot[1])
+        else:
+            rot = 0.0
+        flipped = augment and self.flip and rng.uniform() < 0.5
+        if flipped:
+            joints = A.flip_joints(joints, rec.width, JOINT_PAIRS)
+            center = center.copy()
+            center[0] = rec.width - center[0] - 1
+
+        img_trans, _ = A.get_affine_transform(center, scale, rot, self.input_shape)
+        out_trans, out_trans_inv = A.get_affine_transform(center, scale, rot, self.output_shape)
+        if flipped:
+            # fold np.fliplr into the sampling matrices (image stays unflipped)
+            img_trans = A.compose_affine(img_trans, A.hflip_affine(rec.width))
+        joints_out = A.affine_transform_joints(joints, out_trans)
+        return (
+            img_trans.astype(np.float32),
+            joints_out.astype(np.float32),
+            np.asarray(out_trans_inv, dtype=np.float32),
+        )
 
 
 class _Prefetcher:
@@ -113,95 +155,204 @@ class _Prefetcher:
                 window.release()
 
 
-class PosePipeline:
-    """Eval batches from PoseRecords, in record order, with canvas dedup.
+def _paste(canvas, img):
+    """Paste an RGB image at the canvas origin, clipped to the canvas."""
+    ch, cw = min(img.shape[0], canvas.shape[0]), min(img.shape[1], canvas.shape[1])
+    canvas[:ch, :cw] = img[:ch, :cw]
 
-    COCO averages ~2.3 instances per image, so each image is decoded and
-    shipped once: a batch holds ``batch_size`` crops and batch_size // 2
-    canvas slots (the JAX package's single-device plan), and crops index
-    their canvas through ``canvas_idx``.  Crop slots left over when the
-    canvas slots run out are padded with valid = 0.
+
+class PosePipeline:
+    """Training/val batches from PoseRecords.
 
     :param canvas: fixed square canvas edge (COCO images are <= 640)
+    :param process_index, process_count: this process's stride of the epoch
+    :param dedup_canvases: canvas slots per batch (0 = one canvas per crop)
+    :param dedup_buckets: per-device buckets the slots and crops are packed
+        into, so a device's crops index only its own canvases
     """
 
     def __init__(self, records: Sequence[PoseRecord], batch_size: int,
-                 input_shape=(192, 256), output_shape=(48, 64), canvas: int = 640):
+                 input_shape=(192, 256), output_shape=(48, 64), canvas: int = 640,
+                 augment: bool = True, shuffle: bool = True, seed: int = 1024,
+                 num_threads: int = 8, prefetch: int = 4,
+                 process_index: int = 0, process_count: int = 1,
+                 drop_last: bool = True, dedup_canvases: int = 0, dedup_buckets: int = 1,
+                 aug_scale=(0.7, 1.3), aug_rot=(-40, 40), aug_flip=True):
         self.records = list(records)
         self.batch_size = batch_size
-        self.dedup_canvases = max(1, batch_size // 2)
-        self.input_shape = tuple(input_shape)
-        self.output_shape = tuple(output_shape)
         self.canvas = canvas
+        self.augment = augment
+        self.shuffle = shuffle
+        self.seed = seed
+        self.num_threads = num_threads
+        self.prefetch = prefetch
+        self.process_index = process_index
+        self.process_count = process_count
+        self.drop_last = drop_last
+        self.transform = _SampleTransform(input_shape=input_shape, output_shape=output_shape,
+                                          scale=tuple(aug_scale), rot=tuple(aug_rot),
+                                          flip=bool(aug_flip))
         self.num_joints = self.records[0].joints.shape[0] if self.records else 17
+        # canvas dedup: COCO averages ~2.3 instances/image, so shipping one
+        # canvas per CROP wastes ~2x host decode + H2D.  Crops stay at
+        # batch_size; slots and crops are packed per device bucket, and
+        # "canvas_idx" holds bucket-local slot indices.
+        self.dedup_canvases = int(dedup_canvases)
+        self.dedup_buckets = max(1, int(dedup_buckets))
+        if self.dedup_canvases and (batch_size % self.dedup_buckets
+                                    or self.dedup_canvases % self.dedup_buckets):
+            raise ValueError(f"batch_size {batch_size} and dedup_canvases {dedup_canvases} "
+                             f"must divide into {self.dedup_buckets} buckets")
 
-    def _pack(self):
-        """Greedy packing plan (pure index math, no IO): a list of batches,
-        each (canvas_paths, crops) with crops a list of (canvas_slot,
-        record_idx | None); None is a padded crop slot."""
+    def batches_per_epoch(self) -> int:
+        # every process must produce the SAME number of batches (they take
+        # part in the same collectives): size off the global record count,
+        # not this process's shard (which can differ by one)
+        if self.drop_last:
+            n_min = len(self.records) // self.process_count
+            return n_min // self.batch_size
+        n_max = -(-len(self.records) // self.process_count)
+        return -(-n_max // self.batch_size)
+
+    def _epoch_order(self, epoch: int, process_index: Optional[int] = None) -> np.ndarray:
+        n = len(self.records)
+        order = np.arange(n)
+        if self.shuffle:
+            order = np.random.default_rng(self.seed + epoch).permutation(n)
+        pi = self.process_index if process_index is None else process_index
+        return order[pi::self.process_count]
+
+    def _geometry(self, ridx: int, epoch: int):
+        rng = np.random.default_rng((self.seed, epoch, int(ridx)))
+        return self.transform(self.records[ridx], rng, self.augment)
+
+    # -- canvas dedup packing ------------------------------------------------
+
+    def _pack_epoch(self, epoch: int, process_index: Optional[int] = None):
+        """Greedy per-bucket packing plan (pure index math, no IO).
+
+        Returns a list of batch plans; each plan is a list of dedup_buckets
+        buckets, each bucket = (canvas_paths, crops) with crops a list of
+        (local_canvas_slot, record_idx | None).  None = padded crop slot
+        (canvas slots ran out on a run of single-instance images); padded
+        crops carry zero joints so the loss mask drops them.
+        """
+        order = self._epoch_order(epoch, process_index)
+        # instance groups by source image, ordered by first appearance
         by_img: dict = {}
-        for ridx, rec in enumerate(self.records):
-            by_img.setdefault(rec.img_path, []).append(ridx)
+        for ridx in order:
+            by_img.setdefault(self.records[int(ridx)].img_path, []).append(int(ridx))
         groups = list(by_img.items())
-        cap_crops, cap_canv = self.batch_size, self.dedup_canvases
-        plans, gi, carry = [], 0, None
+        n = self.dedup_buckets
+        cap_crops = self.batch_size // n
+        cap_canv = self.dedup_canvases // n
+        plans = []
+        gi = 0
+        carry = None  # remainder of a split group: (path, insts)
         while True:
-            canv, crops, exhausted = [], [], False
-            while len(crops) < cap_crops:
-                if carry is not None:
-                    (path, insts), carry = carry, None
-                elif gi < len(groups):
-                    path, insts = groups[gi]
-                    gi += 1
-                else:
-                    exhausted = True
-                    break
-                if len(canv) == cap_canv:
-                    carry = (path, insts)  # no slot left; the batch pads
-                    break
-                room = cap_crops - len(crops)
-                take, rest = insts[:room], insts[room:]
-                ci = len(canv)
-                canv.append(path)
-                crops.extend((ci, r) for r in take)
-                if rest:  # image spills into the next batch
-                    carry = (path, rest)
-                    break
-            crops += [(0, None)] * (cap_crops - len(crops))
-            plans.append((canv, crops))
+            plan = []
+            exhausted = False
+            for _ in range(n):
+                canv, crops = [], []
+                while len(crops) < cap_crops:
+                    if carry is not None:
+                        (path, insts), carry = carry, None
+                    elif gi < len(groups):
+                        path, insts = groups[gi]
+                        gi += 1
+                    else:
+                        exhausted = True
+                        break
+                    if len(canv) == cap_canv:
+                        carry = (path, insts)  # no slot left; bucket pads
+                        break
+                    room = cap_crops - len(crops)
+                    take, rest = insts[:room], insts[room:]
+                    ci = len(canv)
+                    canv.append(path)
+                    crops.extend((ci, r) for r in take)
+                    if rest:  # image spills into the next bucket/batch
+                        carry = (path, rest)
+                        break
+                crops += [(0, None)] * (cap_crops - len(crops))  # pad (valid=0)
+                plan.append((canv, crops))
+            if exhausted and self.drop_last:
+                break
+            plans.append(plan)
             if exhausted or (gi >= len(groups) and carry is None):
                 break
         return plans
 
-    def epoch(self) -> Iterator[dict]:
-        plans = self._pack()
+    def dedup_batches_per_epoch(self, epoch: int) -> int:
+        """Packed batch count, equalized across processes (each packs every
+        process's plan -- cheap index math -- and takes the min, so
+        collectives can't deadlock on a skewed instance distribution)."""
+        return min(len(self._pack_epoch(epoch, process_index=h))
+                   for h in range(self.process_count))
+
+    def _dedup_epoch(self, epoch: int) -> Iterator[dict]:
+        plans = self._pack_epoch(epoch)
+        nb = self.dedup_batches_per_epoch(epoch) if self.process_count > 1 else len(plans)
+        cap_canv = self.dedup_canvases // self.dedup_buckets
         bs, U = self.batch_size, self.dedup_canvases
         ident = np.array([[1, 0, 0], [0, 1, 0]], np.float32)
 
         def make_batch(bi):
-            canv, crops = plans[bi]
             batch = {
                 "canvas": np.zeros((U, self.canvas, self.canvas, 3), dtype=np.uint8),
                 "canvas_idx": np.zeros((bs,), dtype=np.int32),
-                "trans": np.tile(ident, (bs, 1, 1)),
-                "trans_inv": np.tile(ident, (bs, 1, 1)),
+                "trans": np.zeros((bs, 2, 3), dtype=np.float32),
                 "joints": np.zeros((bs, self.num_joints, 3), dtype=np.float32),
+                "trans_inv": np.zeros((bs, 2, 3), dtype=np.float32),
                 "img_id": np.zeros((bs,), dtype=np.int64),
                 "valid": np.zeros((bs,), dtype=np.float32),
             }
-            for ci, path in enumerate(canv):
-                img = _imread_rgb(path)
-                ch, cw = min(img.shape[0], self.canvas), min(img.shape[1], self.canvas)
-                batch["canvas"][ci, :ch, :cw] = img[:ch, :cw]
-            for k, (ci, ridx) in enumerate(crops):
-                batch["canvas_idx"][k] = ci
-                if ridx is None:
-                    continue
-                rec = self.records[ridx]
-                batch["trans"][k], batch["joints"][k], batch["trans_inv"][k] = eval_geometry(
-                    rec, self.input_shape, self.output_shape)
-                batch["img_id"][k] = rec.img_id
-                batch["valid"][k] = 1.0
+            k = 0
+            for b, (canv, crops) in enumerate(plans[bi]):
+                for ci, path in enumerate(canv):
+                    _paste(batch["canvas"][b * cap_canv + ci], _imread_rgb(path))
+                for ci, ridx in crops:
+                    batch["canvas_idx"][k] = ci  # bucket-LOCAL slot index
+                    if ridx is not None:
+                        batch["trans"][k], batch["joints"][k], batch["trans_inv"][k] = (
+                            self._geometry(ridx, epoch))
+                        batch["img_id"][k] = self.records[ridx].img_id
+                        batch["valid"][k] = 1.0
+                    else:  # padded slot: identity crop, zero joints
+                        batch["trans"][k] = batch["trans_inv"][k] = ident
+                    k += 1
             return batch
 
-        return iter(_Prefetcher(make_batch, len(plans)))
+        return iter(_Prefetcher(make_batch, nb, self.num_threads, self.prefetch))
+
+    def epoch(self, epoch: int = 0) -> Iterator[dict]:
+        if self.dedup_canvases:
+            return self._dedup_epoch(epoch)
+        order = self._epoch_order(epoch)
+        bs = self.batch_size
+
+        def make_batch(bi):
+            idxs = order[bi * bs:(bi + 1) * bs]
+            real = len(idxs)
+            if real < bs:  # pad to fixed shape; mask via 'valid'
+                filler = idxs[-1:] if real else (order[-1:] if len(order) else np.array([0]))
+                idxs = np.concatenate([idxs, np.repeat(filler, bs - real)])
+            batch = {
+                "canvas": np.zeros((bs, self.canvas, self.canvas, 3), dtype=np.uint8),
+                "trans": np.zeros((bs, 2, 3), dtype=np.float32),
+                "joints": np.zeros((bs, self.num_joints, 3), dtype=np.float32),
+                "trans_inv": np.zeros((bs, 2, 3), dtype=np.float32),
+                "img_id": np.zeros((bs,), dtype=np.int64),
+                "valid": np.zeros((bs,), dtype=np.float32),
+            }
+            for k, ridx in enumerate(idxs):
+                rec = self.records[ridx]
+                _paste(batch["canvas"][k], _imread_rgb(rec.img_path))
+                batch["trans"][k], batch["joints"][k], batch["trans_inv"][k] = (
+                    self._geometry(ridx, epoch))
+                batch["img_id"][k] = rec.img_id
+                batch["valid"][k] = 1.0 if k < real else 0.0
+            return batch
+
+        return iter(_Prefetcher(make_batch, self.batches_per_epoch(), self.num_threads,
+                                self.prefetch))

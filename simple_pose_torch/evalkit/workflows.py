@@ -163,13 +163,16 @@ def predicts_by_gt(img_root, ann_path, model_cfg, weights=None, batch_size=32,
                    fused_layer1=False, device=None):
     """GT-box eval (eval.py:30-66).  Returns the stats dict."""
     records = load_coco_keypoints(img_root, ann_path, debug=debug)
+    # one canvas per image, batch_size // 2 canvas slots (the JAX package's
+    # single-device plan, evalkit/workflows.py:319-332)
     pipe = PosePipeline(records, batch_size, input_shape=input_shape,
                         output_shape=(input_shape[0] // 4, input_shape[1] // 4),
-                        canvas=canvas)
+                        canvas=canvas, augment=False, shuffle=False, drop_last=False,
+                        dedup_canvases=max(1, batch_size // 2))
     ev = PoseEvaluator(model_cfg, weights, input_shape, decoder, flip_test, amp=amp,
                        fused_layer1=fused_layer1, device=device)
     results = []
-    for batch in pipe.epoch():
+    for batch in pipe.epoch(0):
         out = {k: v.cpu().numpy() for k, v in ev(batch).items()}
         keep = batch["valid"] > 0.5
         kps_to_dicts(out["kps"][keep], out["conf"][keep], out["scores"][keep],

@@ -67,7 +67,14 @@ class BatchNorm2d(nn.BatchNorm2d):
     F.batch_norm (PyTorch's own kernels, as for nn.BatchNorm2d) normalizes
     and updates copies of the buffers; the copy's move gives back the batch
     variance, and the buffer gets the biased update.  Per-channel arithmetic only: no second pass
-    over the activations."""
+    over the activations.
+
+    ``update_stats = False`` normalizes with the batch statistics as usual
+    but leaves the buffers alone: the recompute of a rematerialized block
+    (models/resnet.py) sets it, since that block's forward already moved
+    them once."""
+
+    update_stats = True
 
     def forward(self, x):
         if not self.training:
@@ -75,6 +82,8 @@ class BatchNorm2d(nn.BatchNorm2d):
         n = x.numel() // x.shape[1]
         mean, var = self.running_mean.clone(), self.running_var.clone()
         y = F.batch_norm(x, mean, var, self.weight, self.bias, True, self.momentum, self.eps)
+        if not self.update_stats:
+            return y
         with torch.no_grad():
             # var = (1-m) rv + m v_unbiased, so rv + m v_biased = var - m v_unbiased / n
             moved = var - (1.0 - self.momentum) * self.running_var

@@ -6,6 +6,7 @@ reference YAML ``model`` section:
   name: resnet18..resnet152 / resnext / wide_resnet
   num_joints: 17
   reduction: bool (SE attention)
+  remat: bool (recompute each residual block in backward)
 """
 
 from __future__ import annotations
@@ -34,13 +35,16 @@ def resolve_amp_dtype(amp, device) -> "torch.dtype | None":
 
 
 def build_model(model_type: str, name: str = "resnet50", num_joints: int = 17,
-                reduction: bool = False, train: bool = False, dtype=None, seed: int = 0):
+                reduction: bool = False, train: bool = False, dtype=None, seed: int = 0,
+                remat: bool = False):
     """dtype: compute dtype (torch.bfloat16 or None); weights from
     ``torch.Generator().manual_seed(seed)``, on the CPU, in training mode
     (BatchNorm on batch statistics) when ``train`` and in eval mode
-    otherwise."""
+    otherwise.  remat: checkpoint each residual block in training (memory
+    for FLOPs)."""
     if model_type == "pose_resnet_dconv":
-        model = build_resnet(name, num_joints=num_joints, se=reduction, dtype=dtype, seed=seed)
+        model = build_resnet(name, num_joints=num_joints, se=reduction, dtype=dtype, seed=seed,
+                             remat=remat)
         return model.train(train)
     if model_type in _NOT_PORTED:
         raise NotImplementedError(
@@ -59,4 +63,5 @@ def build_from_cfg(model_cfg: dict, train: bool = False, dtype=None, seed: int =
         train=train,
         dtype=dtype,
         seed=seed,
+        remat=model_cfg.get("remat", False),
     )

@@ -15,17 +15,28 @@ when that block carries a downsample projection (pose_resnet_dconv.py:
 ``dtype`` is the compute dtype, as in the flax model: parameters stay f32
 and, when it is set, the forward runs under autocast to it.  Input NCHW
 [B, 3, 256, 192]; output heatmaps [B, J, 64, 48].
+
+``remat`` rematerializes each residual block in training (the JAX package's
+``nn.remat``, models/resnet.py:120,138-139): torch.utils.checkpoint keeps
+only the block's input and recomputes its activations in backward.  flax's
+batch_stats update is functional, so its recompute moves nothing; here the
+recompute runs BatchNorm's forward a second time, and it would move the
+running statistics twice.  The recompute therefore runs with the block's
+BatchNorm updates off (``_stats_frozen``).
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import Optional, Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from simple_pose_torch.models.layers import (
+    BatchNorm2d,
     SELayer,
     batch_norm,
     conv,
@@ -95,12 +106,14 @@ class PoseResNet(nn.Module):
     :param layers: blocks per stage, e.g. (3, 4, 6, 3) for resnet50
     :param se: SE attention in stage-leading blocks (the reference
         ``reduction`` flag)
-    :param dtype: compute dtype (None = f32, or torch.bfloat16)"""
+    :param dtype: compute dtype (None = f32, or torch.bfloat16)
+    :param remat: recompute each residual block's activations in backward
+        (training only)"""
 
     def __init__(self, block: str = "bottleneck", layers: Sequence[int] = (3, 4, 6, 3),
                  head: str = "dconv", num_joints: int = 17, groups: int = 1,
                  width_per_group: int = 64, se: bool = False,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, remat: bool = False):
         super().__init__()
         if head != "dconv":
             raise NotImplementedError(
@@ -110,6 +123,7 @@ class PoseResNet(nn.Module):
         self.layers = tuple(layers)
         self.groups = groups
         self.dtype = dtype
+        self.remat = remat
         block_cls = BasicBlock if block == "basic" else Bottleneck
         self.conv1 = conv(3, 64, 7, stride=2, padding=3)
         self.bn1 = batch_norm(64)
@@ -156,9 +170,41 @@ class PoseResNet(nn.Module):
                 x = bottleneck_chain(x.contiguous(), layer1_folded,
                                      compute_dtype=self.dtype or torch.float32)
             else:
-                x = self.layer1(x)
-            x = self.layer4(self.layer3(self.layer2(x)))
+                x = self._stage(self.layer1, x)
+            for stage in (self.layer2, self.layer3, self.layer4):
+                x = self._stage(stage, x)
             return self.final_layer(self.deconv_layers(x))
+
+    def _stage(self, stage, x):
+        if not (self.remat and self.training and torch.is_grad_enabled()):
+            return stage(x)
+        for block in stage:
+            # The non-reentrant checkpoint recomputes under the autocast
+            # state of the forward (it records and re-enters it), so the
+            # recompute runs in the same dtypes.  Blocks draw no random
+            # numbers, so no RNG state is kept.
+            x = checkpoint(block, x, use_reentrant=False, preserve_rng_state=False,
+                           context_fn=functools.partial(_recompute_contexts, block))
+        return x
+
+
+@contextlib.contextmanager
+def _stats_frozen(module):
+    """The BatchNorm layers of ``module`` leave their running statistics
+    alone while inside."""
+    bns = [m for m in module.modules() if isinstance(m, BatchNorm2d)]
+    for m in bns:
+        m.update_stats = False
+    try:
+        yield
+    finally:
+        for m in bns:
+            m.update_stats = True
+
+
+def _recompute_contexts(block):
+    """checkpoint's context_fn: (forward context, recompute context)."""
+    return contextlib.nullcontext(), _stats_frozen(block)
 
 
 # name -> (block, layers, extra kwargs); mirrors the reference factories
@@ -177,11 +223,11 @@ RESNET_SPECS = {
 
 
 def build_resnet(name: str, num_joints: int = 17, se: bool = False, dtype=None,
-                 seed: int = 0) -> PoseResNet:
+                 seed: int = 0, remat: bool = False) -> PoseResNet:
     """A PoseResNet with weights drawn from ``torch.Generator().manual_seed(seed)``
     (on the CPU; move it to a device afterwards)."""
     block, layers, extra = RESNET_SPECS[name]
     model = PoseResNet(block=block, layers=layers, num_joints=num_joints, se=se,
-                       dtype=dtype, **extra)
+                       dtype=dtype, remat=remat, **extra)
     init_weights(model, torch.Generator().manual_seed(seed), head_modules=[model.final_layer])
     return model.eval()

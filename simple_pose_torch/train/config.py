@@ -63,8 +63,8 @@ class ModelConfig:
     num_joints: int = 17
     pretrained: str = ""  # path to a converted/torch checkpoint, or empty
     reduction: bool = False
-    # rematerialize each residual block (the JAX package's jax.checkpoint);
-    # not ported yet: init_train_state refuses it
+    # rematerialize each residual block in training (the JAX package's
+    # nn.remat; torch.utils.checkpoint here, models/resnet.py)
     remat: bool = False
 
 

@@ -1,8 +1,9 @@
-"""Training and validation steps on one device.
+"""Training and validation on one device: the steps and the solver.
 
-Port of simple_pose_tpu/train/solver.py:51-167 (the steps), 257-301 (schedule
-and optimizer) and 533-552 (weight-decay mask and param groups).  The step
-runs the whole per-batch pipeline on the device:
+Port of simple_pose_tpu/train/solver.py: 51-192 (the steps), 195-531
+(``PoseSolver``), 257-301 (schedule and optimizer) and 533-552 (weight-decay
+mask and param groups).  The step runs the whole per-batch pipeline on the
+device:
 
   uint8 canvases -> affine crop (ops/rotate_resample.py, the K1 kernel, or
   ops/warp.affine_crop) -> normalize (mean-subtract only,
@@ -13,34 +14,46 @@ runs the whole per-batch pipeline on the device:
 PyTorch is stateful where JAX is functional: :class:`TrainState` holds the
 model (its parameters and BN buffers), the optimizer (its moments) and the
 EMA copies, and the step updates them in place and returns the same state.
-``PoseSolver`` (data pipelines, the epoch loop, validation, checkpoints) is
-not ported yet (ROADMAP.md).
+
+``PoseSolver`` builds the training and val pipelines (data/pipeline.py) from
+the config, runs epochs of train steps with the batches staged by
+parallel/prefetch.device_prefetch, validates to COCO AP and keeps torch
+checkpoints (``<type>_last.pth`` and ``<type>_best.pth``, with the optimizer
+state and step, in place of the JAX package's Orbax directories) for
+``run(resume=True)``.
 """
 
 from __future__ import annotations
 
+import json
 import math
+import os
+import shutil
+import time
 from dataclasses import dataclass
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 from torch import nn
 
-from simple_pose_torch.data.pipeline import RGB_MEAN
+from simple_pose_torch.data.coco import load_coco_keypoints
+from simple_pose_torch.data.pipeline import RGB_MEAN, PosePipeline
 from simple_pose_torch.metrics.acc import heatmap_accuracy
+from simple_pose_torch.metrics.cocoeval import evaluate_map
 from simple_pose_torch.models.registry import build_from_cfg
 from simple_pose_torch.ops.decode import decode_basic, decode_gauss_taylor, instance_scores
 from simple_pose_torch.ops.heatmap import encode_biased, encode_unbiased
 from simple_pose_torch.ops.rotate_resample import affine_crop_two_stage
 from simple_pose_torch.ops.warp import affine_crop, affine_crop_separable
+from simple_pose_torch.parallel.prefetch import device_prefetch
 from simple_pose_torch.train import schedules as S
 from simple_pose_torch.train.config import OptimConfig, TrainConfig, load_config
 from simple_pose_torch.train.ema import ema_update
 from simple_pose_torch.utils.device import resolve_device
 
-__all__ = ["TrainState", "init_train_state", "build_schedule", "build_optimizer",
-           "make_train_step", "make_val_step"]
+__all__ = ["TrainState", "PoseSolver", "init_train_state", "load_pretrained",
+           "build_schedule", "build_optimizer", "make_train_step", "make_val_step"]
 
 
 @dataclass
@@ -124,8 +137,38 @@ def build_optimizer(optim_cfg: OptimConfig, named_params, steps_per_epoch: int):
     return opt, schedules
 
 
+def load_pretrained(model: nn.Module, path: str):
+    """Partial load of a torch ``.pth`` into ``model`` (JAX solver.py:322-340):
+    the ``['ema']`` entry where present (the reference checkpoint layout), a
+    ``module.`` prefix stripped, ``num_batches_tracked`` and keys the model
+    lacks (an ImageNet ``fc.*``) skipped.
+
+    :returns: (missing keys, unexpected keys)"""
+    raw = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(raw, dict) and "ema" in raw:
+        raw = raw["ema"]
+    own = model.state_dict()
+    state, unexpected = {}, []
+    for k, v in raw.items():
+        k = k[len("module."):] if k.startswith("module.") else k
+        if k.endswith("num_batches_tracked"):
+            continue
+        if k in own:
+            state[k] = v
+        else:
+            unexpected.append(k)
+    missing = [k for k in own if k not in state and not k.endswith("num_batches_tracked")]
+    model.load_state_dict(state, strict=False)
+    if missing:
+        print(f"pretrained: {len(missing)} missing keys (kept init)")
+    if unexpected:
+        print(f"pretrained: {len(unexpected)} unexpected keys (skipped)")
+    return missing, unexpected
+
+
 def init_train_state(cfg, device=None, steps_per_epoch: int = 1000) -> TrainState:
-    """Model (seeded init, training mode), optimizer and EMA copies.
+    """Model (seeded init, then ``model.pretrained`` if set; training mode),
+    optimizer and EMA copies of the loaded weights.
 
     :param cfg: a TrainConfig, a dict or a YAML path (train/config.py)
     :param device: None means CUDA (raises where no GPU is present); pass
@@ -133,12 +176,12 @@ def init_train_state(cfg, device=None, steps_per_epoch: int = 1000) -> TrainStat
     :param steps_per_epoch: converts the schedule's epochs to steps (the JAX
         solver's default without a data pipeline is 1000)"""
     cfg = cfg if isinstance(cfg, TrainConfig) else load_config(cfg)
-    if cfg.model.pretrained or cfg.model.remat:
-        raise NotImplementedError("model.pretrained and model.remat are not ported yet "
-                                  "(ROADMAP.md, 'Modules still to port')")
     dev = resolve_device(device)
     amp_dtype = torch.bfloat16 if cfg.optim.amp else None
-    model = build_from_cfg(vars(cfg.model), train=True, dtype=amp_dtype, seed=cfg.seed).to(dev)
+    model = build_from_cfg(vars(cfg.model), train=True, dtype=amp_dtype, seed=cfg.seed)
+    if cfg.model.pretrained:
+        load_pretrained(model, cfg.model.pretrained)
+    model.to(dev)
     opt, schedules = build_optimizer(cfg.optim, model.named_parameters(), steps_per_epoch)
     buffers = dict(model.named_buffers())
     return TrainState(
@@ -256,3 +299,221 @@ def make_val_step(decoder="basic", out_shape=(64, 48), crop_shape=(256, 192), us
                 "scores": instance_scores(maxvals)}
 
     return val_step
+
+
+class PoseSolver:
+    """End-to-end trainer on one device (the DP Processor equivalent).
+
+    :param cfg: a TrainConfig, a dict or a YAML path (train/config.py)
+    :param device: None means CUDA (raises where no GPU is present); pass
+        "cpu" explicitly to run on the CPU"""
+
+    _TRAIN_DEVICE_KEYS = ("canvas", "canvas_idx", "trans", "joints")
+    _VAL_DEVICE_KEYS = ("canvas", "canvas_idx", "trans", "trans_inv", "joints")
+
+    def __init__(self, cfg, device=None):
+        self.cfg: TrainConfig = cfg if isinstance(cfg, TrainConfig) else load_config(cfg)
+        cfgd = self.cfg
+        self.device = resolve_device(device)
+        in_w, in_h = cfgd.data.input_shape
+        self.crop_shape = (in_h, in_w)
+        self.out_shape = (in_h // 4, in_w // 4)
+        common = dict(input_shape=cfgd.data.input_shape, output_shape=(in_w // 4, in_h // 4),
+                      canvas=cfgd.data.canvas, seed=cfgd.seed,
+                      num_threads=cfgd.data.num_workers)
+
+        self.train_pipe = self.val_pipe = None
+        if cfgd.data.train_ann_path:
+            recs = load_coco_keypoints(cfgd.data.train_img_root, cfgd.data.train_ann_path,
+                                       cfgd.data.debug, check_center=cfgd.data.check_center)
+            dedup_canvases = 0  # one device: one bucket (JAX solver.py:217-223)
+            if cfgd.data.dedup and cfgd.data.dedup_ratio > 0:
+                dedup_canvases = max(1, int(round(cfgd.data.batch_size * cfgd.data.dedup_ratio)))
+            self.train_pipe = PosePipeline(
+                recs, cfgd.data.batch_size, augment=cfgd.data.augment,
+                aug_scale=cfgd.data.aug_scale, aug_rot=cfgd.data.aug_rot,
+                aug_flip=cfgd.data.aug_flip, dedup_canvases=dedup_canvases, **common)
+        if cfgd.data.val_ann_path:
+            recs = load_coco_keypoints(cfgd.data.val_img_root, cfgd.data.val_ann_path,
+                                       cfgd.data.debug, check_center=cfgd.data.check_center)
+            self.val_pipe = PosePipeline(recs, cfgd.data.batch_size, augment=False,
+                                         shuffle=False, drop_last=False, **common)
+
+        # The schedule counts plain batches per epoch even where dedup
+        # packing yields another number of batches, as the JAX solver does
+        # (solver.py:247).
+        self._steps_per_epoch = self.train_pipe.batches_per_epoch() if self.train_pipe else 1000
+        self.state: Optional[TrainState] = None
+        self.best_ap = 0.0
+        self._train_step = None
+        self._val_step = None
+
+    def init_state(self) -> TrainState:
+        self.state = init_train_state(self.cfg, self.device, self._steps_per_epoch)
+        return self.state
+
+    def _compile(self):
+        if self._train_step is None:
+            self._train_step = make_train_step(self.out_shape, self.crop_shape,
+                                               amp=self.cfg.optim.amp, ema=self.cfg.optim.ema,
+                                               encoding=self.cfg.data.encoding)
+        if self._val_step is None:
+            decoder = self.cfg.val.decoder or (
+                "gauss_taylor" if self.cfg.model.type == "pose_hrnet" else "basic")
+            self._val_step = make_val_step(decoder, self.out_shape, self.crop_shape)
+
+    # -- loops -------------------------------------------------------------
+
+    def train_epoch(self, epoch: int, log_every: int = 50):
+        self._compile()
+        t0 = time.time()
+        # Metrics stay on the device between log points: a per-step .item()
+        # would make the host wait for step i before it queues step i+1
+        # (the reference pays that via loss.item(),
+        # dp_pose_resnet_solver.py:120).  They are fetched at log_every and
+        # at the end of the epoch.
+        pending = []
+        loss_sum, acc_sum, n = 0.0, 0.0, 0
+
+        def drain():
+            nonlocal loss_sum, acc_sum, n
+            if pending:
+                vals = torch.stack(pending).cpu().numpy().astype(np.float64)
+                loss_sum += float(vals[:, 0].sum())
+                acc_sum += float(vals[:, 1].sum())
+                n += len(pending)
+                pending.clear()
+
+        batches = device_prefetch(self.train_pipe.epoch(epoch), self.device,
+                                  device_keys=self._TRAIN_DEVICE_KEYS)
+        for i, batch in enumerate(batches):
+            self.state, metrics = self._train_step(self.state, batch)
+            pending.append(torch.stack([metrics["loss"], metrics["acc"]]))
+            if log_every and (i + 1) % log_every == 0:
+                drain()
+                dt = time.time() - t0
+                print(
+                    f"train epoch:{epoch + 1:3d}|iter:{i + 1:4d}|loss:{loss_sum / n:8.6f}"
+                    f"|acc:{acc_sum / n * 100:6.4f}|{self.cfg.data.batch_size * n / dt:7.1f} crops/s"
+                )
+        drain()
+        return {"loss": loss_sum / max(n, 1), "acc": acc_sum / max(n, 1)}
+
+    def validate(self, epoch: int, results_path: str = "temp_test.json"):
+        self._compile()
+        results = []
+        loss_sum, acc_sum, n = 0.0, 0.0, 0
+
+        # One-step software pipeline: the val step for batch i+1 is queued
+        # before batch i's outputs are fetched, so the host's fetch and
+        # result building overlap the device's work.
+        def process(out, valid, img_ids):
+            nonlocal loss_sum, acc_sum, n
+            host = {k: v.cpu().numpy() for k, v in out.items()}
+            loss_sum += float(host["loss"])
+            acc_sum += float(host["acc"])
+            n += 1
+            kps, conf, scores = host["kps"], host["kp_conf"], host["scores"]
+            for b in range(kps.shape[0]):
+                if valid[b] < 0.5:
+                    continue
+                results.append({
+                    "image_id": int(img_ids[b]),
+                    "category_id": 1,
+                    "keypoints": np.concatenate([kps[b], conf[b]], -1).reshape(-1).tolist(),
+                    "score": float(scores[b]),
+                })
+
+        pending = None
+        for batch in device_prefetch(self.val_pipe.epoch(0), self.device,
+                                     device_keys=self._VAL_DEVICE_KEYS):
+            out = self._val_step(
+                self.state, {k: batch[k] for k in self._VAL_DEVICE_KEYS if k in batch})
+            if pending is not None:
+                process(*pending)
+            pending = (out, batch["valid"], batch["img_id"])
+        if pending is not None:
+            process(*pending)
+        with open(results_path, "w") as wf:
+            json.dump(results, wf)
+        stats = evaluate_map(results_path, self.cfg.data.val_ann_path)
+        print(
+            f"eval epoch:{epoch + 1:d}|mean_loss:{loss_sum / max(n, 1):8.6f}"
+            f"|mean_acc:{acc_sum / max(n, 1) * 100:6.4f}|val_ap:{stats['AP']:6.4f}"
+        )
+        return stats
+
+    # -- checkpoints ---------------------------------------------------------
+
+    def checkpoint_path(self, name: Optional[str] = None) -> str:
+        """``<weight_path>/<model.type>_last.pth`` (or ``<name>.pth``)."""
+        name = name or f"{self.cfg.model.type}_last"
+        return os.path.join(os.path.abspath(self.cfg.val.weight_path), f"{name}.pth")
+
+    def save_checkpoint(self, epoch: int, val_ap: float):
+        """Write ``_last.pth``, and ``_best.pth`` when ``val_ap`` beats the
+        best so far.  The file holds ``model`` (the state_dict), ``ema`` (the
+        EMA weights and BN statistics as a state_dict under the reference's
+        key names, so the file loads as a reference checkpoint:
+        ``PoseEvaluator(weights=)`` or ``model.pretrained``), ``optimizer``,
+        ``step``, ``epoch`` and ``val_ap``."""
+        st = self.state
+        model_sd = st.model.state_dict()
+        counters = {k: v for k, v in model_sd.items() if k.endswith("num_batches_tracked")}
+        ckpt = {
+            "model": model_sd,
+            "ema": {**st.ema_params, **st.ema_buffers, **counters},
+            "optimizer": st.optimizer.state_dict(),
+            "step": st.step,
+            "epoch": epoch,
+            "val_ap": float(val_ap),
+        }
+        last = self.checkpoint_path()
+        os.makedirs(os.path.dirname(last), exist_ok=True)
+        tmp = f"{last}.{os.getpid()}.tmp"
+        torch.save(ckpt, tmp)
+        os.replace(tmp, last)  # a cut-off save never leaves a torn _last
+        if val_ap > self.best_ap:
+            self.best_ap = val_ap
+            best = self.checkpoint_path(f"{self.cfg.model.type}_best")
+            shutil.copyfile(last, f"{best}.tmp")
+            os.replace(f"{best}.tmp", best)
+
+    def restore_checkpoint(self, name: Optional[str] = None) -> int:
+        """Load a checkpoint of :meth:`save_checkpoint` into the state (resume,
+        which the reference lacks).  Sets ``best_ap`` to its ``val_ap``.
+
+        :returns: the epoch to continue from
+        :raises FileNotFoundError: when there is no such checkpoint"""
+        if self.state is None:
+            self.init_state()
+        # Loaded on the CPU: the optimizer moves each moment to its
+        # parameter's device but leaves Adam's per-parameter step where it
+        # finds it, and a step on the card costs a device sync per parameter
+        # in every update (optimizer.step reads it with .item()).
+        ckpt = torch.load(self.checkpoint_path(name), map_location="cpu", weights_only=True)
+        st = self.state
+        st.model.load_state_dict(ckpt["model"])
+        st.optimizer.load_state_dict(ckpt["optimizer"])
+        with torch.no_grad():
+            for k, t in {**st.ema_params, **st.ema_buffers}.items():
+                t.copy_(ckpt["ema"][k])
+        st.step = int(ckpt["step"])
+        self.best_ap = float(ckpt["val_ap"])
+        return int(ckpt["epoch"]) + 1
+
+    def run(self, resume: bool = False):
+        start_epoch = 0
+        if self.state is None:
+            self.init_state()
+        if resume:
+            try:
+                start_epoch = self.restore_checkpoint()
+                print(f"resumed at epoch {start_epoch}")
+            except FileNotFoundError:
+                pass
+        for epoch in range(start_epoch, self.cfg.optim.epochs):
+            self.train_epoch(epoch)
+            if (epoch + 1) % self.cfg.val.interval == 0:
+                stats = self.validate(epoch)
+                self.save_checkpoint(epoch, stats["AP"])
