@@ -50,8 +50,8 @@ raises, and the script exits non-zero without a result line):
   7. the solver, the port's training entry point: synthetic COCO keypoints
      JSON (256 train and 64 val images of 640x480, 1-4 people each, ~2.3 on
      average, 17 joints inside each box) whose images come from a seeded
-     numpy painter installed in place of data/pipeline._imread_rgb (no JPEG
-     decoder is assumed on the card's host); PoseSolver(TRAIN_CFG + those paths,
+     numpy painter installed in place of data/pipeline._imread_rgb, the
+     native loader off (phase 8 reads real JPEGs); PoseSolver(TRAIN_CFG + those paths,
      2 epochs, validation every epoch).run(), then a fresh PoseSolver with 3
      epochs .run(resume=True).  With the launch counters zeroed just before
      and read just after: the whole-crop kernel launched once per solver
@@ -63,7 +63,29 @@ raises, and the script exits non-zero without a result line):
      per epoch, host-only batches/s, epoch and validate seconds beside the
      phase-6 bare-step rate.  Then one bf16 step at batch 128 from one
      state with model.remat off and on: loss and every BN running statistic
-     to 1e-3 relative, peak memory of each.
+     to 1e-3 relative, peak memory of each;
+  8. real JPEGs (tests/data_torch_jpeg, scripts/make_torch_jpeg_fixtures.py):
+     a. the machine's JPEG loader built with g++ into build/, timed:
+        native/canvas_loader.cc where jpeglib.h is found, else the port's
+        csrc/jpeg_canvas.cc (libjpeg's arithmetic, no libjpeg); the
+        toolchain and what the library links;
+     b. the committed fixture (48 JPEGs) decoded against its per-image
+        CRC32s (libjpeg-turbo's decode), heights and widths, exactly, and
+        a FileNotFoundError for a missing file;
+     c. host batches/s of PosePipeline(use_native=True) at the solver's
+        batch shape (64 canvas slots of 640^2, 128 crops, the training
+        augmentation, the fixture's 32 images cycled 8 times) with 8
+        decode threads and with 1, beside phase 7's painter rate;
+     d. predicts_by_detections at full width on the fixture's detections
+        (ResNet-50-DConv+SE, 256x192, bf16, fused_layer1, flip-test, batch
+        128, 64 canvas slots, canvas 640) with data/pipeline._imread_rgb
+        replaced by a function that raises: K2 launched twice per batch,
+        the loader at least once per batch, the crop kernel never; AP in
+        [0, 1]; rescore_and_filter again on the saved raw predictions gives
+        the same stats; then crops/s from JPEG files over 4 passes after a
+        warm one;
+     e. decoder='dark_original' on one batch of d: finite keypoints, conf
+        equal to gauss_taylor's.
 
 The line before the last holds the kernels' JSON; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -76,6 +98,7 @@ import copy
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -87,7 +110,14 @@ import numpy as np
 import torch
 
 import simple_pose_torch.data.pipeline as data_pipeline
-from simple_pose_torch.evalkit.workflows import PoseEvaluator, kps_to_dicts
+from simple_pose_torch.data import native
+from simple_pose_torch.data.coco import load_coco_keypoints, load_detection_boxes
+from simple_pose_torch.evalkit.workflows import (
+    PoseEvaluator,
+    kps_to_dicts,
+    predicts_by_detections,
+    rescore_and_filter,
+)
 from simple_pose_torch.metrics.cocoeval import evaluate_map
 from simple_pose_torch.models.resnet import build_resnet
 from simple_pose_torch.ops import affine as A
@@ -165,6 +195,15 @@ PEOPLE_ODDS = (0.3, 0.3, 0.2, 0.2)
 # the forward) agree to far less; a second BN update would move the
 # statistics by ~10% (momentum 0.1)
 REMAT_REL = 1e-3
+# phase 8: the committed JPEG fixture; the host-rate pipeline cycles its 32
+# images HOST_COPIES times under distinct names (COCO's ~2.3 people per
+# image, so dedup packs as on COCO)
+FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data_torch_jpeg")
+DET_DIR = os.path.join(FIXTURE, "det")
+DET_IMAGES, DET_JSON = os.path.join(DET_DIR, "images"), os.path.join(DET_DIR, "detections.json")
+DET_GT = os.path.join(DET_DIR, "person_keypoints.json")
+DET_BATCH, DET_SLOTS, DET_PASSES = 128, 64, 4
+HOST_COPIES, HOST_EPOCHS = 8, 3
 
 
 def log(*a):
@@ -772,14 +811,17 @@ def painted_rgb(path):
 
 @contextlib.contextmanager
 def painter_installed():
-    orig = data_pipeline._imread_rgb
+    """The pipelines read every image through the painter: no native loader
+    (its files do not exist), _imread_rgb painted."""
+    orig, orig_loader = data_pipeline._imread_rgb, data_pipeline._native_loader
     data_pipeline._imread_rgb = painted_rgb
+    data_pipeline._native_loader = lambda use_native, num_threads: None
     log("phase 7: a seeded numpy painter stands in for simple_pose_torch.data.pipeline."
-        "_imread_rgb (noise images keyed by file name; no JPEG decoder is assumed)")
+        "_imread_rgb (noise images keyed by file name; real JPEGs are phase 8's)")
     try:
         yield
     finally:
-        data_pipeline._imread_rgb = orig
+        data_pipeline._imread_rgb, data_pipeline._native_loader = orig, orig_loader
 
 
 def state_tensors(state):
@@ -945,6 +987,205 @@ def run_solver_path(workdir, card, step_rate, device=None):
     return launches, rates
 
 
+# ---------------------------------------------------------------------------
+# phase 8: real JPEGs through the native loader
+# ---------------------------------------------------------------------------
+
+
+def build_native_loader():
+    """Phase 8a: build this machine's JPEG loader (data/native.py: libjpeg's
+    native/canvas_loader.cc where jpeglib.h is found, else the port's
+    csrc/jpeg_canvas.cc) and report the toolchain and what it links."""
+    decoder = native.decoder_name()
+    path, seconds = native.build_loader(decoder)
+    gxx = subprocess.run([native.CXX, "--version"], capture_output=True, text=True,
+                         check=True).stdout.splitlines()[0]
+    macros = subprocess.run([native.CXX, "-E", "-dM", "-x", "c++", "-"], capture_output=True,
+                            text=True, input="#include <cstdio>\n#include <jpeglib.h>\n").stdout
+    version = re.search(r"#define JPEG_LIB_VERSION (\d+)", macros)
+    turbo = re.search(r"#define LIBJPEG_TURBO_VERSION (\S+)", macros)
+    ldd = subprocess.run(["ldd", path], capture_output=True, text=True, check=True).stdout
+    facts = {"decoder": decoder, "source": os.path.relpath(native.SOURCES[decoder][0]),
+             "library": os.path.relpath(path), "build_s": seconds, "toolchain": gxx,
+             "jpeglib_h": bool(version),
+             "JPEG_LIB_VERSION": int(version.group(1)) if version else None,
+             "LIBJPEG_TURBO_VERSION": turbo.group(1) if turbo else None,
+             "linked": [ln.split("(")[0].strip() for ln in ldd.splitlines() if "=>" in ln]}
+    log("phase 8a, native loader: " + json.dumps(facts))
+    assert decoder == "baseline" or any("libjpeg" in ln for ln in facts["linked"])
+    # The committed CRC32s are libjpeg-turbo's decode, which the port's
+    # decoder repeats; another libjpeg may round its IDCT otherwise.
+    return facts, decoder == "baseline" or turbo is not None or (
+        version is not None and int(version.group(1)) == 62)
+
+
+def check_fixture_decode(exact_expected):
+    """Phase 8b: the 48 committed JPEGs against their CRC32s; a missing file
+    raises FileNotFoundError."""
+    with open(os.path.join(FIXTURE, "decoded_crc32.json")) as f:
+        want = json.load(f)
+    rels = sorted(want)
+    loader = native.NativeCanvasLoader(8)
+    t0 = time.perf_counter()
+    canvases, hs, ws = loader.load_batch([os.path.join(FIXTURE, r) for r in rels], CANVAS)
+    seconds = time.perf_counter() - t0
+    dims = [r for r, h, w in zip(rels, hs, ws) if (h, w) != (want[r]["height"], want[r]["width"])]
+    crc = [r for r, c, h, w in zip(rels, canvases, hs, ws)
+           if zlib.crc32(np.ascontiguousarray(c[:h, :w]).tobytes()) != want[r]["crc32"]]
+    try:
+        loader.load_batch([os.path.join(FIXTURE, rels[0]), os.path.join(FIXTURE, "missing.jpg")],
+                          CANVAS)
+        missing = "no error"
+    except FileNotFoundError as e:
+        missing = f"FileNotFoundError: {e}"
+    out = {"decoder": loader.decoder, "images": len(rels), "crc32_equal": len(rels) - len(crc),
+           "dims_equal": len(rels) - len(dims), "decode_s": seconds, "missing_file": missing}
+    log("phase 8b, fixture decode: " + json.dumps(out))
+    assert not dims, dims
+    assert missing.startswith("FileNotFoundError"), missing
+    assert exact_expected, "this libjpeg is neither libjpeg-turbo nor 6b: no reference for it"
+    assert not crc, f"decoded pixels differ from the committed CRC32s: {crc}"
+    return out
+
+
+def cycled_fixture(workdir):
+    """The fixture's keypoints set cycled HOST_COPIES times: symlinks under
+    new names and ids, so that each copy is an image of its own."""
+    with open(DET_GT) as f:
+        gt = json.load(f)
+    img_root = os.path.join(workdir, "cycled")
+    os.makedirs(img_root)
+    images, anns = [], []
+    for k in range(HOST_COPIES):
+        for im in gt["images"]:
+            name = f"{k * 1000 + im['id']:012d}.jpg"
+            os.symlink(os.path.join(DET_IMAGES, im["file_name"]), os.path.join(img_root, name))
+            images.append({**im, "id": k * 1000 + im["id"], "file_name": name})
+        anns += [{**a, "id": k * 1000 + a["id"], "image_id": k * 1000 + a["image_id"]}
+                 for a in gt["annotations"]]
+    ann_path = os.path.join(workdir, "cycled.json")
+    with open(ann_path, "w") as f:
+        json.dump({**gt, "images": images, "annotations": anns}, f)
+    return load_coco_keypoints(img_root, ann_path)
+
+
+def native_host_rates(workdir, painter_rate):
+    """Phase 8c: host-only batches/s of the training pipeline on JPEGs."""
+    records = cycled_fixture(workdir)
+    rates = {"records": len(records), "painter_batches_per_s_phase7": painter_rate}
+    for threads in (8, 1):
+        pipe = data_pipeline.PosePipeline(records, TRAIN_BATCH, input_shape=INPUT_SHAPE,
+                                          output_shape=HEAT_HW[::-1], canvas=CANVAS,
+                                          num_threads=threads, use_native=True,
+                                          dedup_canvases=DET_SLOTS, seed=1024)
+        calls = native.NativeCanvasLoader.load_batch.calls
+        t0 = time.perf_counter()
+        n = sum(1 for epoch in range(HOST_EPOCHS) for _ in pipe.epoch(epoch))
+        dt = time.perf_counter() - t0
+        decoded = native.NativeCanvasLoader.load_batch.calls - calls
+        assert decoded == n, f"{decoded} of {n} batches decoded natively"
+        rates[f"native_{threads}_threads_batches_per_s"] = n / dt
+        rates[f"native_{threads}_threads_batches"] = n
+    return rates
+
+
+def _no_cv2(path):
+    raise RuntimeError(f"data/pipeline._imread_rgb called for {path}: the cv2 path was taken")
+
+
+def run_detections_path(workdir):
+    """Phase 8d and 8e.  Returns (launches, stats, rates, dark)."""
+    raw, filtered = os.path.join(workdir, "raw.json"), os.path.join(workdir, "filtered.json")
+    records = load_detection_boxes(DET_IMAGES, DET_JSON)
+    plan = data_pipeline.DetBoxPipeline(records, DET_BATCH, canvas=CANVAS, use_native=False,
+                                        dedup_canvases=DET_SLOTS)._pack_epoch(0)
+    batches = len(plan)
+    orig, data_pipeline._imread_rgb = data_pipeline._imread_rgb, _no_cv2
+    try:
+        for fn in (bottleneck_chain, rotate_resample, affine_crop_two_stage):
+            fn.launches = 0
+        native.NativeCanvasLoader.load_batch.calls = 0
+        stats = predicts_by_detections(
+            DET_IMAGES, DET_JSON, DET_GT, CFG, None, batch_size=DET_BATCH,
+            input_shape=INPUT_SHAPE, flip_test=True, out_path=raw, canvas=CANVAS, amp="auto",
+            fused_layer1=True, filtered_out_path=filtered)
+        launches = {"bottleneck_chain": bottleneck_chain.launches,
+                    "rotate_resample": rotate_resample.launches,
+                    "rotate_resample_crop": affine_crop_two_stage.launches,
+                    "load_batch_calls": native.NativeCanvasLoader.load_batch.calls,
+                    "batches": batches}
+        stats = {k: float(v) for k, v in stats.items()}
+        with open(raw) as f, open(filtered) as g:
+            n_raw, n_filtered = len(json.load(f)), len(json.load(g))
+        log(f"phase 8d, detections: launches {launches}; {n_raw} raw predictions, "
+            f"{n_filtered} after OKS-NMS; stats (seeded random weights) {json.dumps(stats)}")
+        assert launches["bottleneck_chain"] == 2 * batches, launches
+        assert launches["load_batch_calls"] >= batches, launches
+        assert launches["rotate_resample_crop"] == 0 and launches["rotate_resample"] == 0
+        assert n_raw == len(records) and n_filtered <= n_raw
+        assert all(np.isfinite(list(stats.values()))) and 0.0 <= stats["AP"] <= 1.0
+        again = rescore_and_filter(raw, DET_GT, out_path=os.path.join(workdir, "again.json"))
+        assert {k: float(v) for k, v in again.items()} == stats, (again, stats)
+
+        pipe = data_pipeline.DetBoxPipeline(records, DET_BATCH, input_shape=INPUT_SHAPE,
+                                            output_shape=HEAT_HW[::-1], canvas=CANVAS,
+                                            dedup_canvases=DET_SLOTS, use_native=True)
+        ev = PoseEvaluator(CFG, None, INPUT_SHAPE, amp="auto", fused_layer1=True,
+                           flip_test=True)
+
+        def one_pass():
+            crops = 0
+            for batch in pipe.epoch(0):
+                host = {k: v.cpu().numpy() for k, v in ev(batch).items()}
+                assert host["kps"].shape == (DET_BATCH, 17, 2)
+                crops += int((batch["valid"] > 0.5).sum())
+            return crops
+
+        one_pass()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        crops = sum(one_pass() for _ in range(DET_PASSES))
+        dt = time.perf_counter() - t0
+        rates = {"crops_per_s_from_jpeg_files": crops / dt, "crops": crops, "seconds": dt,
+                 "passes": DET_PASSES, "batches_per_pass": batches,
+                 "timed": "DetBoxPipeline epochs (native decode of 32 JPEGs per pass, "
+                          "packing, affines) + per batch: H2D of 64 canvases, crop, 2 "
+                          "forwards (K2), gauss_taylor decode, D2H; not rescoring or COCO eval"}
+
+        batch = next(iter(pipe.epoch(0)))
+        dark_ev = PoseEvaluator(CFG, None, INPUT_SHAPE, decoder="dark_original", amp="auto",
+                                fused_layer1=True, flip_test=True)
+        want = {k: v.cpu().numpy() for k, v in ev(batch).items()}
+        got = {k: v.cpu().numpy() for k, v in dark_ev(batch).items()}
+        valid = batch["valid"] > 0.5
+        d = np.abs(got["kps"] - want["kps"]).max(-1)[valid]
+        dark = {"finite": bool(np.isfinite(got["kps"]).all()),
+                "conf_equal": bool(np.array_equal(got["conf"], want["conf"])),
+                "kps_vs_gauss_taylor_median_px": float(np.median(d)),
+                "kps_vs_gauss_taylor_max_px": float(d.max())}
+        log("phase 8e, dark_original: " + json.dumps(dark))
+        assert dark["finite"] and dark["conf_equal"], dark
+    finally:
+        data_pipeline._imread_rgb = orig
+    return launches, stats, rates, dark
+
+
+def run_jpeg_path(card, painter_rate):
+    """Phase 8."""
+    loader, exact_expected = build_native_loader()
+    decode = check_fixture_decode(exact_expected)
+    with tempfile.TemporaryDirectory() as workdir:
+        host = native_host_rates(workdir, painter_rate)
+        log(f"phase 8c, host batches/s of PosePipeline on JPEGs (native loader, batch "
+            f"{TRAIN_BATCH}, {DET_SLOTS} canvas slots of {CANVAS}^2, training augmentation) "
+            f"on {card}: " + json.dumps(host))
+        launches, stats, rates, dark = run_detections_path(workdir)
+    log(f"phase 8d, detections crops/s from JPEG files (bf16, fused_layer1, flip-test, batch "
+        f"{DET_BATCH}) on {card}: " + json.dumps(rates))
+    return {"card": card, "loader": loader, "decode": decode, "host": host,
+            "launches": launches, "stats": stats, "rates": rates, "dark_original": dark}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -991,6 +1232,8 @@ def main() -> int:
             os.chdir(cwd)
     remat = check_remat({**data_dev, "joints": torch.from_numpy(data["joints"]).cuda()})
     log("remat: " + json.dumps({"card": card, **remat}))
+    jpeg = run_jpeg_path(card, solver["host_only_batches_per_s"])
+    log("phase 8: " + json.dumps(jpeg))
 
     main_row = timing[f"b{BATCH}_bf16"]
     kernels = [{
@@ -999,6 +1242,7 @@ def main() -> int:
         "source": "simple_pose_torch/csrc/bottleneck_chain.cu",
         "replaces": "simple_pose_tpu/ops/pallas_bottleneck.py:88",
         "launches": launches["bottleneck_chain"],
+        "launches_detections": jpeg["launches"]["bottleneck_chain"],
         "max_abs_err": report["bf16"]["max_abs_err"],
         "ms": main_row["kernel_ms"],
         "kernel_ms": main_row["kernel_ms"],

@@ -1,0 +1,179 @@
+"""Write the JPEG fixture of the PyTorch port's tests and chip smoke run.
+
+    python scripts/make_torch_jpeg_fixtures.py [--out tests/data_torch_jpeg]
+
+Needs cv2 (to paint and encode); everything else is numpy from fixed seeds.
+It writes:
+
+  det/images/{id:012d}.jpg    32 painted 640x480 images, 4:4:4 quality 90,
+                              1-4 skeleton-like people each
+  det/person_keypoints.json   their COCO person-keypoints ground truth
+  det/detections.json         a COCO detection-results list: 1-3 jittered
+                              boxes per person with scores, a few false
+                              positives and a few non-person entries, so
+                              that OKS-NMS has work (176 person boxes)
+  overfit/imgs/*.jpg,         the painted-marker overfit set (16 images of
+  overfit/ann.json            tests/util_synth.make_synth_coco, seed 0)
+  decoded_crc32.json          per JPEG: height, width and the CRC32 of its
+                              decoded RGB pixels, decoded by the port's
+                              native loader (this machine's libjpeg)
+
+The JSON files are a function of the seeds alone (tests regenerate and
+compare them); the JPEG bytes depend on the encoder's libjpeg.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import zlib
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+DET_SEED, OVERFIT_SEED = 2024, 0
+DET_IMAGES, DET_WH, OVERFIT_IMAGES = 32, (640, 480), 16
+PEOPLE_ODDS = (0.3, 0.3, 0.2, 0.2)  # 1-4 people per image, mean 2.3
+JPEG_QUALITY = 90
+
+# a front-facing skeleton in units of the person's spread s: COCO joint
+# order (nose, then left/right pairs), x to the person's left
+_LAYOUT = [(0.0, -2.4), (0.45, -2.6), (-0.45, -2.6), (1.0, -2.3), (-1.0, -2.3),
+           (1.1, -1.2), (-1.1, -1.2), (1.7, -0.2), (-1.7, -0.2), (1.9, 0.8), (-1.9, 0.8),
+           (0.6, 0.6), (-0.6, 0.6), (0.7, 1.7), (-0.7, 1.7), (0.8, 2.8), (-0.8, 2.8)]
+_LIMBS = [(5, 7), (7, 9), (6, 8), (8, 10), (11, 13), (13, 15), (12, 14), (14, 16),
+          (5, 6), (11, 12), (5, 11), (6, 12), (0, 5), (0, 6)]
+
+
+def _r2(x) -> float:
+    return round(float(x), 2)
+
+
+def detection_set(seed: int = DET_SEED):
+    """(gt, dets, scenes): the ground truth, the detection results and what
+    to paint per image, all drawn from one numpy generator."""
+    rng = np.random.default_rng(seed)
+    w, h = DET_WH
+    images, anns, dets, scenes = [], [], [], []
+    for img_id in range(1, DET_IMAGES + 1):
+        images.append({"id": img_id, "width": w, "height": h,
+                       "file_name": f"{img_id:012d}.jpg"})
+        scene = {"bg": rng.integers(30, 200, (2, 3)).tolist(), "people": []}
+        for _ in range(1 + int(rng.choice(4, p=PEOPLE_ODDS))):
+            s = rng.uniform(12.0, 40.0)
+            cx, cy = rng.uniform(2.2 * s, w - 2.2 * s), rng.uniform(3.0 * s, h - 3.0 * s)
+            jit = rng.normal(0.0, 0.1, (17, 2)).clip(-0.25, 0.25)
+            kp = np.zeros((17, 3))
+            kp[:, 0] = np.clip(cx + (np.array([p[0] for p in _LAYOUT]) + jit[:, 0]) * s, 1, w - 2)
+            kp[:, 1] = np.clip(cy + (np.array([p[1] for p in _LAYOUT]) + jit[:, 1]) * s, 1, h - 2)
+            kp[:, 2] = 2
+            kp[:, :2] = np.round(kp[:, :2], 2)
+            x0, y0 = max(0.0, kp[:, 0].min() - 0.4 * s), max(0.0, kp[:, 1].min() - 0.4 * s)
+            x1, y1 = min(w - 1.0, kp[:, 0].max() + 0.4 * s), min(h - 1.0, kp[:, 1].max() + 0.4 * s)
+            box = [_r2(x0), _r2(y0), _r2(x1 - x0), _r2(y1 - y0)]
+            anns.append({"id": len(anns) + 1, "image_id": img_id, "category_id": 1,
+                         "iscrowd": 0, "keypoints": kp.reshape(-1).tolist(),
+                         "num_keypoints": 17, "area": _r2(box[2] * box[3]), "bbox": box})
+            scene["people"].append({"kp": kp[:, :2].tolist(), "s": _r2(s),
+                                    "color": rng.integers(60, 256, 3).tolist()})
+            for k in range(1 + int(rng.integers(0, 3))):  # 1-3 detections
+                sigma = 0.04 if k == 0 else 0.15
+                dx0, dy0, dx1, dy1 = rng.normal(0.0, sigma, 4) * np.array([box[2], box[3]] * 2)
+                bx0, by0 = max(0.0, x0 + dx0), max(0.0, y0 + dy0)
+                bx1, by1 = min(w - 1.0, x1 + dx1), min(h - 1.0, y1 + dy1)
+                score = rng.uniform(0.75, 0.99) if k == 0 else rng.uniform(0.2, 0.8)
+                dets.append({"image_id": img_id, "category_id": 1, "score": _r2(score),
+                             "bbox": [_r2(bx0), _r2(by0), _r2(bx1 - bx0), _r2(by1 - by0)]})
+        for _ in range(int(rng.integers(0, 3))):  # false positives
+            bw, bh = rng.uniform(30, 200), rng.uniform(60, 300)
+            bx, by = rng.uniform(0, w - bw), rng.uniform(0, h - bh)
+            dets.append({"image_id": img_id, "category_id": 1, "score": _r2(rng.uniform(0.05, 0.5)),
+                         "bbox": [_r2(bx), _r2(by), _r2(bw), _r2(bh)]})
+        if img_id % 8 == 0:  # a non-person detection, which the loader skips
+            dets.append({"image_id": img_id, "category_id": 3, "score": 0.9,
+                         "bbox": [10.0, 10.0, 50.0, 40.0]})
+        scenes.append(scene)
+    gt = {"images": images, "annotations": anns,
+          "categories": [{"id": 1, "name": "person"}]}
+    return gt, dets, scenes
+
+
+def paint(scene, wh=DET_WH):
+    """One scene as a BGR uint8 image: a vertical gradient background, then
+    each person's limbs in its colour and its joints as discs."""
+    import cv2 as cv
+
+    w, h = wh
+    top, bottom = np.array(scene["bg"], np.float32)
+    t = np.linspace(0.0, 1.0, h, dtype=np.float32)[:, None, None]
+    img = np.ascontiguousarray(np.broadcast_to(top + (bottom - top) * t, (h, w, 3)))
+    img = img.astype(np.uint8)
+    for p in scene["people"]:
+        pts = [(int(round(x)), int(round(y))) for x, y in p["kp"]]
+        thick = max(2, int(p["s"] / 6))
+        for a, b in _LIMBS:
+            cv.line(img, pts[a], pts[b], tuple(p["color"]), thick)
+        for j, pt in enumerate(pts):
+            hue = np.uint8([[[int(j * 180 / 17), 255, 255]]])
+            color = tuple(int(v) for v in cv.cvtColor(hue, cv.COLOR_HSV2BGR)[0, 0])
+            cv.circle(img, pt, max(2, int(p["s"] / 5)), color, -1)
+    return img
+
+
+def decode_records(paths):
+    """{relative path: (height, width, crc32 of the RGB pixels)} decoded by
+    the port's native loader."""
+    from simple_pose_torch.data.native import NativeCanvasLoader
+
+    loader = NativeCanvasLoader(4)
+    out = {}
+    for rel, path in paths:
+        canvas, hh, ww = loader.load_batch([path], 640)
+        pix = np.ascontiguousarray(canvas[0, :hh[0], :ww[0]])
+        out[rel] = (int(hh[0]), int(ww[0]), zlib.crc32(pix.tobytes()))
+    return out
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default=os.path.join(REPO, "tests", "data_torch_jpeg"))
+    args = ap.parse_args(argv)
+    import cv2 as cv
+
+    sys.path.insert(0, REPO)
+    from tests.util_synth import make_synth_coco
+
+    det = os.path.join(args.out, "det")
+    os.makedirs(os.path.join(det, "images"), exist_ok=True)
+    gt, dets, scenes = detection_set()
+    params = [cv.IMWRITE_JPEG_QUALITY, JPEG_QUALITY,
+              cv.IMWRITE_JPEG_SAMPLING_FACTOR, cv.IMWRITE_JPEG_SAMPLING_FACTOR_444]
+    paths = []
+    for im, scene in zip(gt["images"], scenes):
+        path = os.path.join(det, "images", im["file_name"])
+        cv.imwrite(path, paint(scene), params)
+        paths.append((f"det/images/{im['file_name']}", path))
+    with open(os.path.join(det, "person_keypoints.json"), "w") as f:
+        json.dump(gt, f)
+    with open(os.path.join(det, "detections.json"), "w") as f:
+        json.dump(dets, f)
+
+    img_root, _, _ = make_synth_coco(os.path.join(args.out, "overfit"),
+                                     num_images=OVERFIT_IMAGES, seed=OVERFIT_SEED,
+                                     paint_markers=True)
+    for name in sorted(os.listdir(img_root)):
+        paths.append((f"overfit/imgs/{name}", os.path.join(img_root, name)))
+
+    decoded = decode_records(paths)
+    with open(os.path.join(args.out, "decoded_crc32.json"), "w") as f:
+        json.dump({rel: {"height": v[0], "width": v[1], "crc32": v[2]}
+                   for rel, v in decoded.items()}, f, indent=0, sort_keys=True)
+    n_person = sum(d["category_id"] == 1 for d in dets)
+    print(f"{len(paths)} JPEGs, {len(gt['annotations'])} people, {n_person} person boxes "
+          f"({len(dets)} detections) under {args.out}")
+
+
+if __name__ == "__main__":
+    main()

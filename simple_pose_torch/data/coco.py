@@ -1,7 +1,7 @@
 """COCO person-keypoints annotation loading (host side, no pycocotools).
 
-Numpy copy of simple_pose_tpu/data/coco.py (pose records only), kept so the
-port imports nothing of the JAX package.
+Numpy copy of simple_pose_tpu/data/coco.py (pose records and detector
+boxes), kept so the port imports nothing of the JAX package.
 
 Record filtering mirrors datasets/coco.py:74-107 (__load_in): clip the box to
 the image, drop zero-area/degenerate boxes, drop annotations without
@@ -18,7 +18,8 @@ from typing import List
 
 import numpy as np
 
-__all__ = ["PoseRecord", "load_coco_keypoints", "JOINT_PAIRS"]
+__all__ = ["PoseRecord", "DetBoxRecord", "load_coco_keypoints", "load_detection_boxes",
+           "JOINT_PAIRS"]
 
 # left/right joint index pairs for horizontal flip (datasets/coco.py:26)
 JOINT_PAIRS = ((1, 2), (3, 4), (5, 6), (7, 8), (9, 10), (11, 12), (13, 14), (15, 16))
@@ -31,6 +32,16 @@ class PoseRecord:
     height: int
     box: List[float]  # xyxy
     joints: np.ndarray  # [17, 3] float32, vis binarized
+    img_id: int
+
+
+@dataclass
+class DetBoxRecord:
+    """A detector-produced person box (datasets/naive_data.py:14-30)."""
+
+    img_path: str
+    box: List[float]  # xyxy
+    score: float
     img_id: int
 
 
@@ -84,4 +95,23 @@ def load_coco_keypoints(img_root: str, ann_path: str, debug: int = 0,
             records.append(PoseRecord(file_path, width, height, [x1, y1, x2, y2], joints, img_id))
             if debug and len(records) >= debug:
                 return records
+    return records
+
+
+def load_detection_boxes(img_root: str, det_json_path: str, debug: int = 0) -> List[DetBoxRecord]:
+    """Load a COCO detection-results JSON (person category only), mirroring
+    datasets/naive_data.py:85-102: each image resolves to
+    ``{img_root}/{image_id:012d}.jpg``; ``debug`` keeps the first N boxes."""
+    with open(det_json_path) as rf:
+        data = json.load(rf)
+    records: List[DetBoxRecord] = []
+    for item in data:
+        if item.get("category_id", 1) != 1:
+            continue
+        x, y, w, h = item["bbox"]
+        img_id = item["image_id"]
+        file_path = os.path.join(img_root, "{0:012d}.jpg".format(img_id))
+        records.append(DetBoxRecord(file_path, [x, y, x + w, y + h], item["score"], img_id))
+        if debug and len(records) >= debug:
+            break
     return records

@@ -1,8 +1,9 @@
 """Host input pipeline: JPEG decode and tiny matrix math only; the crop,
 augmentation warp, target encoding and normalization run on the device.
 
-Port of simple_pose_tpu/data/pipeline.py:44-411 (``PosePipeline``, training
-and eval), without the native libjpeg loader.  Per sample the host:
+Port of simple_pose_tpu/data/pipeline.py:44-471 (``PosePipeline`` for
+training and eval, ``DetBoxPipeline`` for detector boxes).  Per sample the
+host:
 
   1. decodes the JPEG and pastes it (RGB) into a fixed uint8 canvas at the
      origin -- no interpolation on the host, so the device bilinear crop is
@@ -16,25 +17,35 @@ and eval), without the native libjpeg loader.  Per sample the host:
   3. transforms joints into heatmap space (affine_transform_batch parity).
 
 A batch is {canvas u8 [B,S,S,3], trans f32 [B,2,3], joints f32 [B,17,3],
-trans_inv f32 [B,2,3], img_id i64 [B], valid f32 [B]}; with canvas dedup the
-canvas is [U,S,S,3] and ``canvas_idx`` i32 [B] picks each crop's canvas.
-Decoding runs in a thread pool (cv2 releases the GIL) with a bounded prefetch
-window; each process takes a stride of the epoch permutation.  Images are
-read only through :func:`_imread_rgb`, which imports cv2 when called.
+trans_inv f32 [B,2,3], img_id i64 [B], valid f32 [B]}, plus area/score f32
+[B] for detector boxes; with canvas dedup the canvas is [U,S,S,3] and
+``canvas_idx`` i32 [B] picks each crop's canvas.  Batches are built in a
+thread pool with a bounded prefetch window; each process takes a stride of
+the epoch permutation.
+
+Decoding: ``.jpg``/``.jpeg`` files go through the native loader
+(data/native.py: libjpeg, or where it is absent the port's decoder with
+libjpeg's arithmetic; one batched ctypes call that releases the
+interpreter lock) when the pipeline has one; anything else goes through
+:func:`_imread_rgb`, which imports cv2 when called.  ``use_native=True``
+raises where the loader cannot be built, ``False`` never builds it, and
+``None`` takes it where it builds and says once which decoder it took.
 """
 
 from __future__ import annotations
 
 import queue
+import sys
 import threading
 from typing import Iterator, Optional, Sequence
 
 import numpy as np
 
-from simple_pose_torch.data.coco import JOINT_PAIRS, PoseRecord
+from simple_pose_torch.data import native
+from simple_pose_torch.data.coco import JOINT_PAIRS, DetBoxRecord, PoseRecord
 from simple_pose_torch.ops import affine as A
 
-__all__ = ["PosePipeline", "RGB_MEAN"]
+__all__ = ["PosePipeline", "DetBoxPipeline", "RGB_MEAN"]
 
 # normalization parity quirk: mean subtract only, NO std divide
 # (datasets/coco.py:134-136)
@@ -161,6 +172,35 @@ def _paste(canvas, img):
     canvas[:ch, :cw] = img[:ch, :cw]
 
 
+_decoder_reported = threading.Event()
+
+
+def _native_loader(use_native: Optional[bool], num_threads: int):
+    """The pipeline's native loader: None where ``use_native`` is False or,
+    with ``use_native=None``, where the loader does not build here."""
+    if use_native is False:
+        return None
+    if use_native:
+        return native.NativeCanvasLoader(num_threads)
+    try:
+        loader = native.NativeCanvasLoader(num_threads)
+    except (RuntimeError, OSError) as e:
+        if not _decoder_reported.is_set():
+            _decoder_reported.set()
+            print(f"PosePipeline: decoding with cv2; the native loader is unavailable ({e})",
+                  file=sys.stderr)
+        return None
+    if not _decoder_reported.is_set():
+        _decoder_reported.set()
+        print(f"PosePipeline: decoding JPEGs with the native loader ({loader.decoder})",
+              file=sys.stderr)
+    return loader
+
+
+def _all_jpeg(paths) -> bool:
+    return all(p.lower().endswith((".jpg", ".jpeg")) for p in paths)
+
+
 class PosePipeline:
     """Training/val batches from PoseRecords.
 
@@ -169,6 +209,8 @@ class PosePipeline:
     :param dedup_canvases: canvas slots per batch (0 = one canvas per crop)
     :param dedup_buckets: per-device buckets the slots and crops are packed
         into, so a device's crops index only its own canvases
+    :param use_native: decode JPEGs with the native loader (True: or raise;
+        None: where it builds; False: never)
     """
 
     def __init__(self, records: Sequence[PoseRecord], batch_size: int,
@@ -176,7 +218,8 @@ class PosePipeline:
                  augment: bool = True, shuffle: bool = True, seed: int = 1024,
                  num_threads: int = 8, prefetch: int = 4,
                  process_index: int = 0, process_count: int = 1,
-                 drop_last: bool = True, dedup_canvases: int = 0, dedup_buckets: int = 1,
+                 drop_last: bool = True, use_native: Optional[bool] = None,
+                 dedup_canvases: int = 0, dedup_buckets: int = 1,
                  aug_scale=(0.7, 1.3), aug_rot=(-40, 40), aug_flip=True):
         self.records = list(records)
         self.batch_size = batch_size
@@ -203,6 +246,7 @@ class PosePipeline:
                                     or self.dedup_canvases % self.dedup_buckets):
             raise ValueError(f"batch_size {batch_size} and dedup_canvases {dedup_canvases} "
                              f"must divide into {self.dedup_buckets} buckets")
+        self._native = _native_loader(use_native, num_threads)
 
     def batches_per_epoch(self) -> int:
         # every process must produce the SAME number of batches (they take
@@ -225,6 +269,21 @@ class PosePipeline:
     def _geometry(self, ridx: int, epoch: int):
         rng = np.random.default_rng((self.seed, epoch, int(ridx)))
         return self.transform(self.records[ridx], rng, self.augment)
+
+    # per-record scalar extras of dedup batches (DetBoxPipeline: area and
+    # score); their keys are listed in ``extra_keys``
+    extra_keys: tuple = ()
+
+    def _extra_fields(self, ridx: int) -> dict:
+        return {}
+
+    def _load_into(self, canvases, paths):
+        """Decode ``paths`` into ``canvases[:len(paths)]`` (zeroed slots)."""
+        if self._native is not None and paths and _all_jpeg(paths):
+            canvases[:len(paths)] = self._native.load_batch(paths, self.canvas)[0]
+        else:
+            for slot, path in zip(canvases, paths):
+                _paste(slot, _imread_rgb(path))
 
     # -- canvas dedup packing ------------------------------------------------
 
@@ -306,11 +365,11 @@ class PosePipeline:
                 "trans_inv": np.zeros((bs, 2, 3), dtype=np.float32),
                 "img_id": np.zeros((bs,), dtype=np.int64),
                 "valid": np.zeros((bs,), dtype=np.float32),
+                **{key: np.zeros((bs,), dtype=np.float32) for key in self.extra_keys},
             }
             k = 0
             for b, (canv, crops) in enumerate(plans[bi]):
-                for ci, path in enumerate(canv):
-                    _paste(batch["canvas"][b * cap_canv + ci], _imread_rgb(path))
+                self._load_into(batch["canvas"][b * cap_canv:(b + 1) * cap_canv], canv)
                 for ci, ridx in crops:
                     batch["canvas_idx"][k] = ci  # bucket-LOCAL slot index
                     if ridx is not None:
@@ -318,6 +377,8 @@ class PosePipeline:
                             self._geometry(ridx, epoch))
                         batch["img_id"][k] = self.records[ridx].img_id
                         batch["valid"][k] = 1.0
+                        for key, val in self._extra_fields(ridx).items():
+                            batch[key][k] = val
                     else:  # padded slot: identity crop, zero joints
                         batch["trans"][k] = batch["trans_inv"][k] = ident
                     k += 1
@@ -345,9 +406,9 @@ class PosePipeline:
                 "img_id": np.zeros((bs,), dtype=np.int64),
                 "valid": np.zeros((bs,), dtype=np.float32),
             }
+            self._load_into(batch["canvas"], [self.records[r].img_path for r in idxs])
             for k, ridx in enumerate(idxs):
                 rec = self.records[ridx]
-                _paste(batch["canvas"][k], _imread_rgb(rec.img_path))
                 batch["trans"][k], batch["joints"][k], batch["trans_inv"][k] = (
                     self._geometry(ridx, epoch))
                 batch["img_id"][k] = rec.img_id
@@ -356,3 +417,57 @@ class PosePipeline:
 
         return iter(_Prefetcher(make_batch, self.batches_per_epoch(), self.num_threads,
                                 self.prefetch))
+
+
+class DetBoxPipeline(PosePipeline):
+    """Eval batches from detector boxes (datasets/naive_data.py BasicTransform:
+    identity augmentation), with each instance's area = scale_w * scale_h of
+    its box and its detector score.  JAX data/pipeline.py:414-471."""
+
+    extra_keys = ("area", "score")
+
+    def __init__(self, records: Sequence[DetBoxRecord], batch_size: int, **kw):
+        kw.setdefault("augment", False)
+        kw.setdefault("shuffle", False)
+        kw.setdefault("drop_last", False)
+        pose_records = [PoseRecord(r.img_path, 0, 0, r.box, np.zeros((17, 3), np.float32),
+                                   r.img_id) for r in records]
+        super().__init__(pose_records, batch_size, **kw)
+        self.det_records = list(records)
+
+    def _center_scale(self, ridx: int):
+        x1, y1, x2, y2 = self.det_records[int(ridx)].box
+        return A.box_to_center_scale(x1, y1, x2 - x1, y2 - y1, self.transform.w_h_ratio)
+
+    def _geometry(self, ridx: int, epoch: int):
+        center, scale = self._center_scale(ridx)
+        trans, _ = A.get_affine_transform(center, scale, 0, self.transform.input_shape)
+        _, trans_inv = A.get_affine_transform(center, scale, 0, self.transform.output_shape)
+        joints = np.zeros((self.num_joints, 3), dtype=np.float32)
+        return trans.astype(np.float32), joints, np.asarray(trans_inv, np.float32)
+
+    def _extra_fields(self, ridx: int) -> dict:
+        _, scale = self._center_scale(ridx)
+        return {"area": scale[0] * scale[1], "score": self.det_records[int(ridx)].score}
+
+    def epoch(self, epoch: int = 0):
+        if self.dedup_canvases:  # the extras flow through _extra_fields
+            return self._dedup_epoch(epoch)
+        return self._detbox_epoch(epoch)
+
+    def _detbox_epoch(self, epoch: int):
+        # the parent's batching of this process's epoch order, so that area
+        # and score stay aligned with the crops (padding repeats the last)
+        order = self._epoch_order(epoch)
+        bs = self.batch_size
+        for bi, batch in enumerate(super().epoch(epoch)):
+            idxs = order[bi * bs:(bi + 1) * bs]
+            if len(idxs) < bs:
+                filler = idxs[-1:] if len(idxs) else (order[-1:] if len(order) else np.array([0]))
+                idxs = np.concatenate([idxs, np.repeat(filler, bs - len(idxs))])
+            batch["area"] = np.zeros((bs,), dtype=np.float32)
+            batch["score"] = np.zeros((bs,), dtype=np.float32)
+            for k, ridx in enumerate(idxs):
+                for key, val in self._extra_fields(ridx).items():
+                    batch[key][k] = val
+            yield batch

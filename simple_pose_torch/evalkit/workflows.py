@@ -1,13 +1,20 @@
-"""Evaluation workflows: the serving path and GT-box eval.
+"""Evaluation workflows: the serving path, GT-box and detector-box eval.
 
-Port of simple_pose_tpu/evalkit/workflows.py:53-72, 146-316, 359-389.
+Port of simple_pose_tpu/evalkit/workflows.py:53-72, 146-474.
 
-  * PoseEvaluator   -> batched crop -> forward -> (flip-test) -> decode, on
-                       one device; with ``fused_layer1`` layer1 runs as the
-                       folded Bottleneck-chain kernel (ops/bottleneck_chain)
-  * predicts_by_gt  -> eval.py:30-66: GT-box eval on the keypoints val set,
-                       COCO AP through metrics/cocoeval
-  * kps_to_dicts    -> COCO result dicts
+  * PoseEvaluator          -> batched crop -> forward -> (flip-test) ->
+                              decode, on one device; with ``fused_layer1``
+                              layer1 runs as the folded Bottleneck-chain
+                              kernel (ops/bottleneck_chain); decoder
+                              'dark_original' decodes on the host
+  * predicts_by_gt         -> eval.py:30-66: GT-box eval on the keypoints
+                              val set, COCO AP through metrics/cocoeval
+  * predicts_by_detections -> eval.py:101-150: eval on a person-detection
+                              JSON, then rescore_and_filter
+  * rescore_and_filter     -> eval.py:153-197: per-image rescoring
+                              (box score * mean(kp conf > 0.2)) + OKS-NMS
+                              at 0.9, then COCO AP
+  * kps_to_dicts           -> COCO result dicts
 
 Flip-test forwards the horizontally flipped crop, flips the heatmaps back,
 swaps left/right channels, shifts them one pixel right (the SimpleBaselines
@@ -15,30 +22,39 @@ convention) and averages.  ``weights`` is a reference .pth checkpoint
 (``['ema']`` if present) or an in-memory state_dict under the reference's
 key names; none means the seeded init.
 
-The detections and rescore workflows, decode_dark_original, quantization and
-the multi-device mesh are not ported yet (ROADMAP.md).
+Quantization, the detector and the multi-device mesh are not ported yet
+(ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import json
+from collections import defaultdict
 from typing import Union
 
 import numpy as np
 import torch
 
-from simple_pose_torch.data.coco import JOINT_PAIRS, load_coco_keypoints
-from simple_pose_torch.data.pipeline import RGB_MEAN, PosePipeline
+from simple_pose_torch.data.coco import JOINT_PAIRS, load_coco_keypoints, load_detection_boxes
+from simple_pose_torch.data.pipeline import RGB_MEAN, DetBoxPipeline, PosePipeline
 from simple_pose_torch.metrics.cocoeval import evaluate_map
 from simple_pose_torch.models.registry import build_from_cfg, resolve_amp_dtype
 from simple_pose_torch.ops.bottleneck_chain import fold_bottleneck_blocks, prepare_blocks
-from simple_pose_torch.ops.decode import decode_basic, decode_gauss_taylor, instance_scores
+from simple_pose_torch.ops.decode import (
+    decode_basic,
+    decode_dark_original,
+    decode_gauss_taylor,
+    instance_scores,
+)
+from simple_pose_torch.ops.oks import oks_nms
 from simple_pose_torch.ops.warp import affine_crop_separable
 from simple_pose_torch.utils.device import resolve_device
 
-__all__ = ["PoseEvaluator", "predicts_by_gt", "kps_to_dicts", "load_model_variables"]
+__all__ = ["PoseEvaluator", "predicts_by_gt", "predicts_by_detections", "rescore_and_filter",
+           "kps_to_dicts", "load_model_variables"]
 
-_DECODERS = {"basic": decode_basic, "gauss_taylor": decode_gauss_taylor}
+_DECODERS = {"basic": decode_basic, "gauss_taylor": decode_gauss_taylor,
+             "dark_original": None}  # None: decoded on the host
 
 
 def _flip_perm(num_joints: int):
@@ -64,10 +80,12 @@ def kps_to_dicts(kps, conf, scores, img_ids, out_list):
 
 
 def load_model_variables(model_cfg: dict, weights: Union[str, dict, None] = None,
-                         dtype=None, device="cpu"):
+                         dtype=None, device=None):
     """Build the eval model (init seeded with 0) and load ``weights``: a torch .pth
     (reference layout, ``['ema']`` key if present) or a state_dict.  Returns
-    the module in eval mode on ``device``; its state_dict is the variables."""
+    the module in eval mode on ``device`` (None means CUDA, which raises
+    where no GPU is present); its state_dict is the variables."""
+    device = resolve_device(device)
     model = build_from_cfg(model_cfg, dtype=dtype)
     if weights is not None:
         if isinstance(weights, str):
@@ -92,6 +110,9 @@ class PoseEvaluator:
     :param amp: 'auto' (bf16 on CUDA, f32 on the CPU), True or False
     :param fused_layer1: fold eval-mode BN into layer1's Bottleneck chain
         and run it through ops/bottleneck_chain (the CUDA kernel on a GPU)
+    :param decoder: 'basic' or 'gauss_taylor' on the device, or
+        'dark_original': the heatmaps come to the host and
+        ops/decode.decode_dark_original decodes them in numpy
     """
 
     def __init__(self, model_cfg: dict, weights: Union[str, dict, None] = None,
@@ -99,9 +120,7 @@ class PoseEvaluator:
                  flip_test: bool = False, amp="auto", fused_layer1: bool = False,
                  device=None):
         if decoder not in _DECODERS:
-            raise NotImplementedError(
-                f"decoder {decoder!r}: only {sorted(_DECODERS)} are ported "
-                "(decode_dark_original: ROADMAP.md, 'Modules still to port')")
+            raise ValueError(f"decoder {decoder!r}; expected one of {sorted(_DECODERS)}")
         self.device = resolve_device(device)
         self.crop_shape = (input_shape[1], input_shape[0])
         self.dtype = resolve_amp_dtype(amp, self.device)
@@ -153,22 +172,32 @@ class PoseEvaluator:
         optional canvas_idx [B]} as numpy arrays or tensors.  Returns device
         tensors {kps [B,J,2], conf [B,J,1], scores [B]}."""
         heat = self.heatmaps(batch)
+        if self._decode is None:  # dark_original, on the host (JAX workflows.py:302-316)
+            trans_inv = torch.as_tensor(batch["trans_inv"]).cpu().numpy()
+            kps, conf = decode_dark_original(heat.cpu().numpy(), trans_inv)
+            scores = conf[..., 0].mean(-1) + conf[..., 0].max(-1)
+            return {"kps": torch.from_numpy(kps), "conf": torch.from_numpy(conf),
+                    "scores": torch.from_numpy(scores)}
         kps, conf = self._decode(heat, self._to_device(batch["trans_inv"]))
         return {"kps": kps, "conf": conf, "scores": instance_scores(conf)}
 
 
+def _dedup_plan(batch_size: int, dedup: bool) -> dict:
+    """One canvas per image, batch_size // 2 canvas slots in one bucket: the
+    JAX package's single-device plan (evalkit/workflows.py:319-332)."""
+    return {"dedup_canvases": max(1, batch_size // 2)} if dedup else {}
+
+
 def predicts_by_gt(img_root, ann_path, model_cfg, weights=None, batch_size=32,
                    input_shape=(192, 256), decoder="gauss_taylor", flip_test=False,
-                   out_path="test_gt_kpt.json", canvas=640, debug=0, amp="auto",
+                   out_path="test_gt_kpt.json", canvas=640, debug=0, dedup=True, amp="auto",
                    fused_layer1=False, device=None):
     """GT-box eval (eval.py:30-66).  Returns the stats dict."""
     records = load_coco_keypoints(img_root, ann_path, debug=debug)
-    # one canvas per image, batch_size // 2 canvas slots (the JAX package's
-    # single-device plan, evalkit/workflows.py:319-332)
     pipe = PosePipeline(records, batch_size, input_shape=input_shape,
                         output_shape=(input_shape[0] // 4, input_shape[1] // 4),
                         canvas=canvas, augment=False, shuffle=False, drop_last=False,
-                        dedup_canvases=max(1, batch_size // 2))
+                        **_dedup_plan(batch_size, dedup))
     ev = PoseEvaluator(model_cfg, weights, input_shape, decoder, flip_test, amp=amp,
                        fused_layer1=fused_layer1, device=device)
     results = []
@@ -180,3 +209,78 @@ def predicts_by_gt(img_root, ann_path, model_cfg, weights=None, batch_size=32,
     with open(out_path, "w") as wf:
         json.dump(results, wf)
     return evaluate_map(out_path, ann_path)
+
+
+def predicts_by_detections(img_root, det_json_path, gt_ann_path, model_cfg, weights=None,
+                           batch_size=32, input_shape=(192, 256), decoder="gauss_taylor",
+                           flip_test=False, out_path="predicts_kps_temp.json", canvas=640,
+                           in_vis_thre=0.2, oks_thre=0.9, debug=0, dedup=True, amp="auto",
+                           fused_layer1=False, device=None,
+                           filtered_out_path="filter_kps_predicts.json"):
+    """Detector-box eval + OKS-NMS rescoring (eval.py:101-150 + 153-197).
+
+    Writes the raw predictions to ``out_path`` and the rescored, filtered
+    ones to ``filtered_out_path``.  Returns the stats dict of the latter."""
+    records = load_detection_boxes(img_root, det_json_path, debug=debug)
+    pipe = DetBoxPipeline(records, batch_size, input_shape=input_shape,
+                          output_shape=(input_shape[0] // 4, input_shape[1] // 4),
+                          canvas=canvas, **_dedup_plan(batch_size, dedup))
+    ev = PoseEvaluator(model_cfg, weights, input_shape, decoder, flip_test, amp=amp,
+                       fused_layer1=fused_layer1, device=device)
+    predictions = []
+    for batch in pipe.epoch(0):
+        out = {k: v.cpu().numpy() for k, v in ev(batch).items() if k != "scores"}
+        for b in np.flatnonzero(batch["valid"] > 0.5):
+            predictions.append({
+                "kps": np.concatenate([out["kps"][b], out["conf"][b]], -1).reshape(-1).tolist(),
+                "area": float(batch["area"][b]),
+                "score": float(batch["score"][b]),
+                "img_id": int(batch["img_id"][b]),
+            })
+    with open(out_path, "w") as wf:
+        json.dump(predictions, wf)
+    return rescore_and_filter(out_path, gt_ann_path, in_vis_thre, oks_thre, filtered_out_path)
+
+
+def rescore_and_filter(predictions, gt_ann_path, in_vis_thre=0.2, oks_thre=0.9,
+                       out_path="filter_kps_predicts.json"):
+    """Per-image rescoring + greedy OKS-NMS (temp_read_in_and_filter parity,
+    eval.py:153-197): each pose scores box score x the mean of its joint
+    confidences above ``in_vis_thre``, then OKS-NMS at ``oks_thre``.
+    ``predictions`` is a path or the list itself.  Writes the kept poses as
+    COCO results to ``out_path`` and returns their stats dict."""
+    if isinstance(predictions, str):
+        with open(predictions) as rf:
+            predictions = json.load(rf)
+    by_img = defaultdict(list)
+    for p in predictions:
+        by_img[p["img_id"]].append(p)
+
+    filtered = []
+    for img_id, img_kpts in by_img.items():
+        kpts_list, score_list, area_list = [], [], []
+        for n_p in img_kpts:
+            kpt_item = np.array(n_p["kps"]).reshape(-1, 3)
+            kpt_scores = kpt_item[:, -1]
+            valid = kpt_scores > in_vis_thre
+            kpt_score = kpt_scores[valid].mean() if valid.sum() > 0 else 0.0
+            kpts_list.append(kpt_item)
+            score_list.append(n_p["score"] * kpt_score)
+            area_list.append(n_p["area"])
+        kpts_arr = np.stack(kpts_list, axis=0)
+        scores = np.array(score_list)
+        areas = np.array(area_list)
+        keep = oks_nms(kpts_arr, scores, areas, oks_thre)
+        if len(keep) != 0:
+            kpts_arr = kpts_arr[keep]
+            scores = scores[keep]
+        for kpt, sc in zip(kpts_arr, scores):
+            filtered.append({
+                "image_id": int(img_id),
+                "score": float(sc),
+                "category_id": 1,
+                "keypoints": kpt.reshape(-1).tolist(),
+            })
+    with open(out_path, "w") as wf:
+        json.dump(filtered, wf)
+    return evaluate_map(out_path, gt_ann_path)

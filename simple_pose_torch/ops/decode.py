@@ -1,7 +1,7 @@
 """On-device keypoint decoders: heatmap -> sub-pixel image coordinates.
 
-Port of simple_pose_tpu/ops/decode.py:45-176, 239-242 (reference
-metrics/pose_metrics.py:10-107):
+Port of simple_pose_tpu/ops/decode.py:45-242 (reference
+metrics/pose_metrics.py:10-169):
 
   * heatmap_to_coords      -> argmax and peak value per map
   * decode_basic           -> argmax + 0.25px shift toward the higher
@@ -12,6 +12,9 @@ metrics/pose_metrics.py:10-107):
                               Newton step -H^-1 grad (closed-form 2x2
                               inverse), masked where the Hessian is singular
                               or the peak is too close to the border.
+  * decode_dark_original   -> the reference's DarkPoseOriginalKeyPointDecoder
+                              on the host in numpy (f64 blur, no clamp on
+                              the Taylor step)
 
 All gathers are ``torch.gather`` on the flattened H*W axis; masked updates
 are ``torch.where``.  Everything runs in float32 (the blur in float64).
@@ -28,6 +31,7 @@ __all__ = [
     "heatmap_to_coords",
     "decode_basic",
     "decode_gauss_taylor",
+    "decode_dark_original",
     "apply_trans_inv",
     "instance_scores",
 ]
@@ -164,6 +168,93 @@ def decode_gauss_taylor(heat, trans_inv, ksize: int = 11):
     new_y = torch.clamp(coords[..., 1] + off_y, min=0.0)
     coords = torch.where(update[..., None], torch.stack([new_x, new_y], dim=-1), coords)
     return apply_trans_inv(coords, trans_inv), max_val
+
+
+def _cv2_gaussian_kernel_f64(ksize: int):
+    """cv2.getGaussianKernel(ksize, 0, CV_64F): sigma = 0.3*((k-1)/2-1)+0.8
+    (2.0 at k=11) beyond the fixed tables, a sequential sum and a multiply
+    by its reciprocal, in float64."""
+    if ksize in _SMALL_GAUSSIAN_TAB:
+        return np.asarray(_SMALL_GAUSSIAN_TAB[ksize], dtype=np.float64)
+    sigma = 0.3 * ((ksize - 1) * 0.5 - 1) + 0.8
+    xs = np.arange(ksize, dtype=np.float64) - (ksize - 1) * 0.5
+    k = np.exp((-0.5 / (sigma * sigma)) * xs * xs)
+    total = 0.0
+    for v in k:
+        total += v
+    return k * (1.0 / total)
+
+
+def _blur_zero_padded_f64(heat, ksize):
+    """cv2.GaussianBlur(ksize x ksize, sigma 0) of each float64 map padded
+    with zeros by the kernel radius, kept region only: with the pad equal
+    to the radius no border rule reaches a kept pixel, so this is the
+    separable convolution with zeros outside the map (rows, then columns)."""
+    b, c, h, w = heat.shape
+    k = _cv2_gaussian_kernel_f64(ksize)
+    pad = (ksize - 1) // 2
+    src = np.zeros((b, c, h, w + 2 * pad))
+    src[..., pad:pad + w] = heat
+    rows = sum(k[i] * src[..., i:i + w] for i in range(ksize))
+    src = np.zeros((b, c, h + 2 * pad, w))
+    src[..., pad:pad + h, :] = rows
+    return sum(k[i] * src[..., i:i + h, :] for i in range(ksize))
+
+
+def decode_dark_original(heat, trans_inv, ksize: int = 11):
+    """Host DarkPose decoder, the reference's DarkPoseOriginalKeyPointDecoder
+    (pose_metrics.py:110-169), in numpy without cv2 (JAX ops/decode.py:
+    179-236 blurs with cv2).
+
+    It differs from :func:`decode_gauss_taylor` in two ways: the blur is
+    float64 on a zero-padded map (downcast to float32 before the renorm and
+    the log, as the reference's float32 array does), and the Taylor step is
+    applied without the clamp to >= 0.  Peaks with ``not (1 < px < w-2 and
+    1 < py < h-2)`` keep their argmax.
+
+    :param heat: [B, C, H, W] heatmaps (numpy or a CPU tensor)
+    :param trans_inv: [B, 2, 3] heatmap -> image affines
+    :returns: (keypoints f32 [B, C, 2], peak values f32 [B, C, 1]) as numpy
+    """
+    heat = np.asarray(heat, dtype=np.float32)
+    trans_inv = np.asarray(trans_inv, dtype=np.float32)
+    b, c, h, w = heat.shape
+    flat = heat.reshape(b, c, -1)
+    peak_idx = flat.argmax(-1)
+    max_val = flat.max(-1)
+    coords = np.stack([(peak_idx % w).astype(np.float32),
+                       np.floor(peak_idx / w).astype(np.float32)], axis=-1)
+    coords *= (max_val > 0)[..., None]
+
+    blurred = _blur_zero_padded_f64(heat.astype(np.float64), ksize).astype(np.float32)
+    with np.errstate(divide="ignore", invalid="ignore"):  # an all-zero map: 0/0, never read
+        blurred *= max_val[..., None, None] / blurred.max(axis=(-2, -1), keepdims=True)
+        logmaps = np.log(np.maximum(blurred, np.float32(1e-10)))
+
+    px, py = coords[..., 0].astype(np.int64), coords[..., 1].astype(np.int64)
+    refine = (1 < px) & (px < w - 2) & (1 < py) & (py < h - 2)
+    pxc, pyc = np.clip(px, 2, w - 3), np.clip(py, 2, h - 3)
+    bi, ci = np.indices((b, c))
+
+    def lm(dx, dy):
+        return logmaps[bi, ci, pyc + dy, pxc + dx]
+
+    gx = 0.5 * (lm(1, 0) - lm(-1, 0))
+    gy = 0.5 * (lm(0, 1) - lm(0, -1))
+    gxx = 0.25 * (lm(2, 0) - 2 * lm(0, 0) + lm(-2, 0))
+    gxy = 0.25 * (lm(1, 1) - lm(1, -1) - lm(-1, 1) + lm(-1, -1))
+    gyy = 0.25 * (lm(0, 2) - 2 * lm(0, 0) + lm(0, -2))
+    det = gxx * gyy - gxy * gxy
+    step = refine & (det != 0.0)
+    safe = np.where(step, det, np.float32(1.0))
+    with np.errstate(invalid="ignore"):  # taps of skipped peaks may be nan
+        off_x = -(gyy * gx - gxy * gy) / safe
+        off_y = -(-gxy * gx + gxx * gy) / safe
+    coords[..., 0] = np.where(step, coords[..., 0] + off_x, coords[..., 0])
+    coords[..., 1] = np.where(step, coords[..., 1] + off_y, coords[..., 1])
+
+    xyz = np.concatenate([coords, np.ones_like(coords[..., :1])], axis=-1)
+    return np.einsum("bcd,bad->bca", xyz, trans_inv), max_val[..., None]
 
 
 def instance_scores(max_val):

@@ -5,11 +5,12 @@ configures both packages.  Schema mirrors the reference configs
 (configs/dp_fast_pose.yaml:1-30): data / model / optim / val sections plus
 model_name.  ``mesh`` (the JAX package's device mesh) is carried for schema
 parity; the port trains on one device until DDP is ported (ROADMAP.md).
-``yaml`` is imported only when a path is given.
+``yaml`` is imported only for a path that does not end in ``.json``.
 """
 
 from __future__ import annotations
 
+import json
 from dataclasses import dataclass, field
 from typing import List, Tuple
 
@@ -121,10 +122,13 @@ def _merge(dc, d: dict):
 
 def load_config(path_or_dict) -> TrainConfig:
     if isinstance(path_or_dict, str):
-        import yaml
-
         with open(path_or_dict) as rf:
-            raw = yaml.safe_load(rf)
+            if path_or_dict.endswith(".json"):  # no PyYAML needed
+                raw = json.load(rf)
+            else:
+                import yaml
+
+                raw = yaml.safe_load(rf)
     else:
         raw = dict(path_or_dict)
     cfg = TrainConfig()

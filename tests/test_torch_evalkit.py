@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from simple_pose_torch.convert.from_jax import flax_to_torch_state
-from simple_pose_torch.evalkit.workflows import PoseEvaluator, predicts_by_gt
+from simple_pose_torch.evalkit.workflows import PoseEvaluator, load_model_variables, predicts_by_gt
 from simple_pose_tpu.evalkit import workflows as jwf
 from tests.util_synth import make_synth_coco
 
@@ -84,8 +84,19 @@ def test_evaluator_device_rules():
         PoseEvaluator(R18, None, (64, 64))
     with pytest.raises(ValueError, match="foldable"):
         PoseEvaluator(R18, None, (64, 64), fused_layer1=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PoseEvaluator(R18, None, (64, 64), decoder="dark_original", device="cpu")
+    with pytest.raises(ValueError, match="dark_original"):
+        PoseEvaluator(R18, None, (64, 64), decoder="dark_origin", device="cpu")
+    assert PoseEvaluator(R18, None, (64, 64), decoder="dark_original", device="cpu")._decode is None
+
+
+def test_load_model_variables_device_rule():
+    """None means CUDA, as in every entry point of the port."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the no-GPU rule")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        load_model_variables(R18)
+    model = load_model_variables(R18, device="cpu")
+    assert not model.training and {p.device.type for p in model.parameters()} == {"cpu"}
 
 
 def test_eval_cli_gt(tmp_path):
@@ -105,19 +116,33 @@ def test_eval_cli_gt(tmp_path):
 
 _GUARD = r"""
 import importlib, pkgutil, sys
-for name in ("jax", "jaxlib", "flax", "simple_pose_tpu"):
+for name in ("jax", "jaxlib", "flax", "simple_pose_tpu", "cv2"):
     sys.modules[name] = None  # any import of these now raises ImportError
+import numpy as np
 import simple_pose_torch
 mods = [m.name for m in pkgutil.walk_packages(simple_pose_torch.__path__, "simple_pose_torch.")]
 for m in mods:
     importlib.import_module(m)
 import chip_smoke
+# the native path reads JPEGs and decodes dark_original without cv2
+from simple_pose_torch.data.coco import load_detection_boxes
+from simple_pose_torch.data.pipeline import DetBoxPipeline
+from simple_pose_torch.ops.decode import decode_dark_original
+det = "tests/data_torch_jpeg/det"
+recs = load_detection_boxes(det + "/images", det + "/detections.json", debug=8)
+batch = next(iter(DetBoxPipeline(recs, 8, use_native=True, dedup_canvases=4).epoch(0)))
+assert batch["canvas"].shape == (4, 640, 640, 3) and batch["canvas"].any()
+kps, conf = decode_dark_original(np.random.default_rng(0).random((2, 17, 64, 48)),
+                                 batch["trans_inv"][:2])
+assert np.isfinite(kps).all()
 print(len(mods))
 """
 
 
 def test_port_imports_nothing_of_jax():
+    """No module of the port and no part of chip_smoke.py imports jax or the
+    JAX package, and nothing of the native JPEG path imports cv2."""
     proc = subprocess.run([sys.executable, "-c", _GUARD], cwd=REPO, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 15
+    assert int(proc.stdout.split()[-1]) >= 17

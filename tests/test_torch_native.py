@@ -1,0 +1,268 @@
+"""The port's native JPEG loader (simple_pose_torch/data/native.py) against the
+JAX package's binding and cv2, the port's PosePipeline(use_native=True)
+against the JAX pipeline's, and the committed JPEG fixture
+(tests/data_torch_jpeg, scripts/make_torch_jpeg_fixtures.py)."""
+
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+import zlib
+
+import cv2 as cv
+import numpy as np
+import pytest
+
+from simple_pose_torch.data import coco as tcoco
+from simple_pose_torch.data import native
+from simple_pose_torch.data import pipeline as tpipe
+from simple_pose_tpu.data import coco as jcoco
+from simple_pose_tpu.data import native as jnative
+from simple_pose_tpu.data import pipeline as jpipe
+from tests.util_synth import make_synth_coco
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FIXTURE = os.path.join(REPO, "tests", "data_torch_jpeg")
+SAMPLING = {"420": cv.IMWRITE_JPEG_SAMPLING_FACTOR_420,
+            "444": cv.IMWRITE_JPEG_SAMPLING_FACTOR_444}
+
+
+def _smooth(rng, h, w, c):
+    small = rng.uniform(0, 255, (max(2, h // 8), max(2, w // 8), c)).astype(np.float32)
+    img = cv.resize(small, (w, h), interpolation=cv.INTER_CUBIC)
+    return np.clip(img + rng.normal(0, 8, img.shape if img.ndim == 3 else (h, w)), 0, 255
+                   ).astype(np.uint8)
+
+
+# (height, width, colour, sampling) of each JPEG, decoded into a 128 canvas
+JPEGS = {
+    "420": (96, 120, True, "420"),
+    "444": (100, 90, True, "444"),
+    "gray": (80, 110, False, None),
+    "larger_than_canvas": (150, 200, True, "444"),
+}
+
+
+def _write_jpeg(path, case, seed):
+    h, w, colour, sampling = JPEGS[case]
+    img = _smooth(np.random.default_rng(seed), h, w, 3 if colour else 1)
+    params = [cv.IMWRITE_JPEG_QUALITY, 90]
+    if sampling:
+        params += [cv.IMWRITE_JPEG_SAMPLING_FACTOR, SAMPLING[sampling]]
+    assert cv.imwrite(path, img, params)
+
+
+@pytest.mark.parametrize("case", sorted(JPEGS))
+def test_loader_matches_jax_and_cv2(tmp_path, case):
+    paths = []
+    for i in range(3):
+        paths.append(str(tmp_path / f"{case}_{i}.jpg"))
+        _write_jpeg(paths[-1], case, seed=i)
+    got, hs, ws = native.NativeCanvasLoader(2).load_batch(paths, 128)
+    want, jhs, jws = jnative.NativeCanvasLoader(2).load_batch(paths, 128)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(hs, jhs)
+    np.testing.assert_array_equal(ws, jws)
+    h, w = JPEGS[case][:2]
+    assert got.shape == (3, 128, 128, 3) and got.dtype == np.uint8
+    assert (hs == h).all() and (ws == w).all()
+    for i, p in enumerate(paths):
+        ref = cv.imread(p, cv.IMREAD_COLOR)[..., ::-1]  # grayscale promoted to RGB
+        ch, cw = min(h, 128), min(w, 128)
+        np.testing.assert_array_equal(got[i, :ch, :cw], ref[:ch, :cw])
+        assert not got[i, ch:].any() and not got[i, :, cw:].any()
+
+
+def test_loader_missing_file_and_calls(tmp_path):
+    path = str(tmp_path / "a.jpg")
+    _write_jpeg(path, "444", seed=0)
+    loader = native.NativeCanvasLoader(2)
+    before = native.NativeCanvasLoader.load_batch.calls
+    loader.load_batch([path], 64)
+    with pytest.raises(FileNotFoundError, match="nope.jpg"):
+        loader.load_batch([path, str(tmp_path / "nope.jpg")], 64)
+    assert native.NativeCanvasLoader.load_batch.calls == before + 2
+
+
+def test_use_native_raises_when_the_build_fails(tmp_path, monkeypatch, capsys):
+    """use_native=True raises with the compiler's command; None takes cv2 and
+    says so once; nothing is written in place of the library."""
+    monkeypatch.setattr(native, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(native, "CXX", "false")
+    monkeypatch.setattr(tpipe, "_decoder_reported", tpipe.threading.Event())
+    assert not native.native_available()
+    rec = tcoco.PoseRecord("x.jpg", 10, 10, [0, 0, 5, 5], np.zeros((17, 3), np.float32), 1)
+    with pytest.raises(RuntimeError, match="building the native JPEG loader failed.*false"):
+        tpipe.PosePipeline([rec], 1, use_native=True)
+    for _ in range(2):
+        assert tpipe.PosePipeline([rec], 1, use_native=None)._native is None
+    assert capsys.readouterr().err.count("decoding with cv2") == 1
+    assert tpipe.PosePipeline([rec], 1, use_native=False)._native is None
+    assert [f for f in os.listdir(tmp_path / "build") if f.endswith(".so")] == []
+
+
+# (sampling, height, width, quality, restart interval, optimized Huffman)
+BASELINE_CASES = [("444", 37, 53, 90, 0, 0), ("420", 121, 99, 75, 3, 0),
+                  ("420", 17, 2, 100, 0, 1), ("422", 64, 64, 40, 0, 1),
+                  ("440", 33, 47, 95, 2, 0), ("411", 29, 70, 85, 0, 0),
+                  ("gray", 41, 30, 90, 1, 0), ("420", 3, 5, 60, 0, 0)]
+BASELINE_SAMPLING = {**SAMPLING, "422": cv.IMWRITE_JPEG_SAMPLING_FACTOR_422,
+                     "440": cv.IMWRITE_JPEG_SAMPLING_FACTOR_440,
+                     "411": cv.IMWRITE_JPEG_SAMPLING_FACTOR_411}
+
+
+@pytest.fixture
+def baseline_loader(monkeypatch):
+    """The loader of a machine without libjpeg (csrc/jpeg_canvas.cc)."""
+    monkeypatch.setattr(native, "decoder_name", lambda: "baseline")
+    loader = native.NativeCanvasLoader(2)
+    assert loader.decoder == "baseline"
+    return loader
+
+
+@pytest.mark.parametrize("case", range(len(BASELINE_CASES)))
+def test_baseline_decoder_matches_libjpeg(tmp_path, baseline_loader, case):
+    """Bit for bit with libjpeg: smooth and noise images, every sampling
+    layout, odd sizes, restart intervals, optimized tables, a canvas smaller
+    than the image."""
+    sampling, h, w, quality, restart, optimize = BASELINE_CASES[case]
+    rng = np.random.default_rng(case)
+    paths = []
+    for i, noise in enumerate((False, True)):
+        c = 1 if sampling == "gray" else 3
+        img = (rng.integers(0, 256, (h, w, c), dtype=np.uint8) if noise
+               else _smooth(rng, h, w, c))
+        params = [cv.IMWRITE_JPEG_QUALITY, quality, cv.IMWRITE_JPEG_RST_INTERVAL, restart,
+                  cv.IMWRITE_JPEG_OPTIMIZE, optimize]
+        if sampling != "gray":
+            params += [cv.IMWRITE_JPEG_SAMPLING_FACTOR, BASELINE_SAMPLING[sampling]]
+        paths.append(str(tmp_path / f"{i}.jpg"))
+        assert cv.imwrite(paths[-1], img[..., 0] if c == 1 else img, params)
+    for canvas in (128, 32):
+        got = baseline_loader.load_batch(paths, canvas)
+        want = native.NativeCanvasLoader(2).load_batch(paths, canvas)
+        for g, wnt in zip(got, want):
+            np.testing.assert_array_equal(g, wnt)
+
+
+def test_baseline_decoder_fixture_and_limits(tmp_path, baseline_loader):
+    """The committed fixture to its CRC32s; a progressive file and a missing
+    one raise FileNotFoundError."""
+    with open(os.path.join(FIXTURE, "decoded_crc32.json")) as f:
+        want = json.load(f)
+    rels = sorted(want)
+    canvases, hs, ws = baseline_loader.load_batch([os.path.join(FIXTURE, r) for r in rels], 640)
+    for rel, canvas, h, w in zip(rels, canvases, hs, ws):
+        assert (h, w) == (want[rel]["height"], want[rel]["width"]), rel
+        assert zlib.crc32(np.ascontiguousarray(canvas[:h, :w]).tobytes()) == want[rel]["crc32"], rel
+    progressive = str(tmp_path / "p.jpg")
+    cv.imwrite(progressive, _smooth(np.random.default_rng(0), 40, 40, 3),
+               [cv.IMWRITE_JPEG_PROGRESSIVE, 1])
+    for bad in (progressive, str(tmp_path / "nope.jpg")):
+        with pytest.raises(FileNotFoundError, match=os.path.basename(bad)):
+            baseline_loader.load_batch([bad], 64)
+
+
+_BUILD = r"""
+import sys
+from simple_pose_torch.data import native
+native.BUILD_DIR = sys.argv[1]
+path, seconds = native.build_loader()
+native.NativeCanvasLoader(1)
+print(path)
+"""
+
+
+def test_concurrent_builds_share_one_library(tmp_path):
+    """Four processes start the build at once: one compiles under the file
+    lock, the others wait and load its library."""
+    env = {**os.environ, "PYTHONPATH": REPO}
+    procs = [subprocess.Popen([sys.executable, "-c", _BUILD, str(tmp_path)], cwd=REPO, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for _ in range(4)]
+    outs = [p.communicate(timeout=120) for p in procs]
+    assert all(p.returncode == 0 for p in procs), [o[1] for o in outs]
+    assert len({o[0].strip() for o in outs}) == 1
+    assert [f for f in os.listdir(tmp_path) if f.endswith(".so")] == [
+        os.path.basename(outs[0][0].strip())]
+    assert not [f for f in os.listdir(tmp_path) if f.endswith(".tmp")]
+
+
+PEOPLE = [1, 3, 1, 4, 2, 1, 1, 3, 2, 1]  # 19 records on 10 images
+
+MODES = {
+    "eval_plain": dict(augment=False, shuffle=False, drop_last=False),
+    "train_augment": dict(),
+    "train_dedup": dict(dedup_canvases=2),
+}
+
+
+@pytest.fixture(scope="module")
+def records(tmp_path_factory):
+    root = tmp_path_factory.mktemp("coco")
+    img_root, ann_path, _ = make_synth_coco(str(root), num_images=len(PEOPLE),
+                                            people_per_image=PEOPLE, seed=3)
+    return (jcoco.load_coco_keypoints(img_root, ann_path),
+            tcoco.load_coco_keypoints(img_root, ann_path))
+
+
+@pytest.mark.parametrize("mode", sorted(MODES))
+def test_native_pipeline_matches_jax(records, mode, monkeypatch):
+    """use_native=True in both packages: every batch equal key for key, and
+    the port decodes through the loader alone (cv2's reader raises)."""
+    jrecs, trecs = records
+
+    def no_cv2(path):
+        raise AssertionError(f"cv2 path taken for {path}")
+
+    monkeypatch.setattr(tpipe, "_imread_rgb", no_cv2)
+    kw = dict(batch_size=4, input_shape=(64, 64), output_shape=(16, 16), canvas=192, seed=7,
+              num_threads=2, use_native=True, **MODES[mode])
+    jp, tp = jpipe.PosePipeline(jrecs, **kw), tpipe.PosePipeline(trecs, **kw)
+    before = native.NativeCanvasLoader.load_batch.calls
+    for epoch in (0, 1):
+        want, got = list(jp.epoch(epoch)), list(tp.epoch(epoch))
+        assert len(got) == len(want) > 0
+        for bw, bt in zip(want, got):
+            assert set(bt) == set(bw)
+            for k in bw:
+                assert bt[k].dtype == bw[k].dtype and bt[k].shape == bw[k].shape, k
+                np.testing.assert_array_equal(bt[k], bw[k], err_msg=f"{mode} {epoch} {k}")
+    assert native.NativeCanvasLoader.load_batch.calls - before >= 2 * len(got)
+
+
+def _load_script():
+    spec = importlib.util.spec_from_file_location(
+        "make_torch_jpeg_fixtures", os.path.join(REPO, "scripts", "make_torch_jpeg_fixtures.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_fixture_decodes_to_committed_crc32():
+    with open(os.path.join(FIXTURE, "decoded_crc32.json")) as f:
+        want = json.load(f)
+    assert len(want) == 48
+    rels = sorted(want)
+    canvases, hs, ws = native.NativeCanvasLoader(4).load_batch(
+        [os.path.join(FIXTURE, r) for r in rels], 640)
+    for rel, canvas, h, w in zip(rels, canvases, hs, ws):
+        assert (h, w) == (want[rel]["height"], want[rel]["width"]), rel
+        assert zlib.crc32(np.ascontiguousarray(canvas[:h, :w]).tobytes()) == want[rel]["crc32"], rel
+
+
+def test_fixture_json_regenerates(tmp_path):
+    """The committed JSON files are what the script makes from its seeds."""
+    script = _load_script()
+    gt, dets, _ = script.detection_set()
+    with open(os.path.join(FIXTURE, "det", "person_keypoints.json")) as f:
+        assert json.load(f) == json.loads(json.dumps(gt))
+    with open(os.path.join(FIXTURE, "det", "detections.json")) as f:
+        assert json.load(f) == json.loads(json.dumps(dets))
+    _, ann_path, _ = make_synth_coco(str(tmp_path), num_images=script.OVERFIT_IMAGES,
+                                     seed=script.OVERFIT_SEED, paint_markers=True)
+    with open(os.path.join(FIXTURE, "overfit", "ann.json")) as f, open(ann_path) as g:
+        assert json.load(f) == json.load(g)
+    n_person = sum(d["category_id"] == 1 for d in dets)
+    assert 32 == len(gt["images"]) and 150 <= n_person <= 250

@@ -251,3 +251,21 @@ def test_train_cli_one_epoch(coco, tmp_path):
     assert "eval epoch:1|" in proc.stdout
     ckpt = torch.load(tmp_path / "w" / "pose_resnet_dconv_last.pth")
     assert ckpt["epoch"] == 0 and ckpt["step"] == 3
+
+
+_JSON_CFG = r"""
+import sys
+sys.modules["yaml"] = None  # the card's machine has no PyYAML
+from simple_pose_torch.train.config import load_config
+cfg = load_config(sys.argv[1])
+print(cfg.data.batch_size, cfg.model.name, cfg.seed)
+"""
+
+
+def test_load_config_reads_json_without_yaml(coco, tmp_path):
+    cfg_path = tmp_path / "tiny.json"
+    cfg_path.write_text(json.dumps(_cfg(coco, tmp_path / "w")))
+    proc = subprocess.run([sys.executable, "-c", _JSON_CFG, str(cfg_path)], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["8", "resnet18", "11"]
