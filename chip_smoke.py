@@ -85,7 +85,23 @@ raises, and the script exits non-zero without a result line):
         the same stats; then crops/s from JPEG files over 4 passes after a
         warm one;
      e. decoder='dark_original' on one batch of d: finite keypoints, conf
-        equal to gauss_taylor's.
+        equal to gauss_taylor's;
+  9. the other two pose families, at full width:
+     a. K2 at HRNet-W32's layer1 (4 Bottleneck blocks, no SE, a projection
+        in block 0, BN folded from seeded statistics) against its plain
+        version as in phase 3, timed at batch 32 and 128 beside the plain
+        version and the port's own cuDNN layer1; ResNet-50-DUC's 3-block
+        no-SE layer1 likewise at batch 32;
+     b. phase 4's checks and rates for HRNet-W32, HRNet-W48 and
+        configs/fast_pose_duc.yaml's ResNet-50-DUC (K2 twice per batch, the
+        crop kernels never);
+     c. phase 6's training path with configs/hrnet_w32.yaml's model and
+        optimizer (3 warm-up and 10 timed steps at batch 128, the crop kernel
+        once per step), then its f32 step card vs CPU;
+     d. PoseSolver with HRNet-W32 on phase 7's synthetic COCO: one epoch,
+        validation on, every loss finite, the _best checkpoint into
+        PoseEvaluator(pose_hrnet) with no missing and no unexpected keys.
+     Each of its numbers is printed on a line of its own with the card.
 
 The line before the last holds the kernels' JSON; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -119,6 +135,7 @@ from simple_pose_torch.evalkit.workflows import (
     rescore_and_filter,
 )
 from simple_pose_torch.metrics.cocoeval import evaluate_map
+from simple_pose_torch.models.hrnet import build_hrnet
 from simple_pose_torch.models.resnet import build_resnet
 from simple_pose_torch.ops import affine as A
 from simple_pose_torch.ops.bottleneck_chain import (
@@ -204,6 +221,25 @@ DET_IMAGES, DET_JSON = os.path.join(DET_DIR, "images"), os.path.join(DET_DIR, "d
 DET_GT = os.path.join(DET_DIR, "person_keypoints.json")
 DET_BATCH, DET_SLOTS, DET_PASSES = 128, 64, 4
 HOST_COPIES, HOST_EPOCHS = 8, 3
+# phase 9: the other two pose families.  Serving: HRNet-W32, HRNet-W48 and
+# configs/fast_pose_duc.yaml's ResNet-50-DUC (no SE); training:
+# configs/hrnet_w32.yaml as a dict
+HRNET_CFG = {"type": "pose_hrnet", "name": "w32", "num_joints": 17}
+FAMILY_CFGS = {
+    "hrnet_w32": HRNET_CFG,
+    "hrnet_w48": {"type": "pose_hrnet", "name": "w48", "num_joints": 17},
+    "resnet50_duc": {"type": "pose_resnet_duc", "name": "resnet50", "num_joints": 17,
+                     "reduction": False},
+}
+HRNET_TRAIN_CFG = {
+    "model_name": "hrnet_w32_tpu",
+    "data": {"batch_size": 128, "canvas": CANVAS, "input_shape": list(INPUT_SHAPE)},
+    "model": {**HRNET_CFG, "pretrained": ""},
+    "optim": {"optimizer": "adam", "lr": 0.001, "amp": True, "milestones": [120, 160],
+              "epochs": 180, "gamma": 0.1, "schedule": "multistep", "ema": True},
+    "seed": 1024,
+}
+HRNET_TRAIN_TIMED = 10
 
 
 def log(*a):
@@ -224,6 +260,17 @@ def cuda_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def launch_counts() -> dict:
+    return {"bottleneck_chain": bottleneck_chain.launches,
+            "rotate_resample": rotate_resample.launches,
+            "rotate_resample_crop": affine_crop_two_stage.launches}
+
+
+def zero_launch_counts():
+    for fn in (bottleneck_chain, rotate_resample, affine_crop_two_stage):
+        fn.launches = 0
+
+
 def card_line() -> str:
     proc = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
@@ -236,10 +283,9 @@ def card_line() -> str:
 # ---------------------------------------------------------------------------
 
 
-def flagship_layer1():
-    """The flagship model's layer1 modules with seeded non-trivial BN
-    statistics and affines (numpy RNG), on the card."""
-    model = build_resnet("resnet50", se=True)
+def seeded_layer1(model):
+    """``model``'s layer1 modules with seeded non-trivial BN statistics and
+    affines (numpy RNG), on the card, in eval mode."""
     rng = np.random.default_rng(0)
     with torch.no_grad():
         for m in model.layer1.modules():
@@ -275,7 +321,10 @@ def errors(got, want):
     return d.max().item(), d.max().item() / scale, d.mean().item() / scale
 
 
-def check_chain_kernel(layer1):
+def check_chain_kernel(layer1, label="layer1 chain", batches=(BATCH, THROUGHPUT_BATCH)):
+    """``layer1``'s folded chain through the kernel against its plain version
+    at batch 32 (bf16 and f32), then timed at ``batches`` beside the plain
+    version and ``layer1`` itself (cuDNN)."""
     folded = fold_bottleneck_blocks(list(layer1))
     rng = np.random.default_rng(1)
     x32 = torch.from_numpy(np.abs(rng.normal(0, 1, (BATCH, 64, 64, 48))).astype(np.float32)).cuda()
@@ -290,13 +339,13 @@ def check_chain_kernel(layer1):
         assert torch.isfinite(got.float()).all()
         max_abs, max_rel, mean_rel = errors(got, want)
         tol_max, tol_mean = TOL[name]
-        log(f"layer1 chain {name}: max|d| {max_abs:.3e}  max rel {max_rel:.3e} (< {tol_max})"
+        log(f"{label} {name}: max|d| {max_abs:.3e}  max rel {max_rel:.3e} (< {tol_max})"
             f"  mean rel {mean_rel:.3e} (< {tol_mean})")
         assert max_rel < tol_max and mean_rel < tol_mean, f"chain kernel disagrees ({name})"
         report[name] = {"max_abs_err": max_abs, "max_rel_err": max_rel, "mean_rel_err": mean_rel}
 
     timing = {}
-    for batch in (BATCH, THROUGHPUT_BATCH):
+    for batch in batches:
         xb = torch.from_numpy(np.abs(rng.normal(0, 1, (batch, 64, 64, 48))).astype(np.float32))
         xb = xb.cuda()
         for name, dt in DTYPES.items():
@@ -320,7 +369,7 @@ def check_chain_kernel(layer1):
                 "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
             }
             timing[f"b{batch}_{name}"] = row
-            log(f"layer1 chain b{batch} {name}: " + json.dumps(row))
+            log(f"{label} b{batch} {name}: " + json.dumps(row))
     return report, timing
 
 
@@ -358,9 +407,10 @@ def synthetic_batch(rng, n, first_id):
     return batch, images, anns
 
 
-def run_main_path(workdir):
+def run_main_path(workdir, cfg=CFG, label="main path"):
+    """Phase 4 (and 9b for the other families): the serving path of ``cfg``."""
     rng = np.random.default_rng(2)
-    ev = PoseEvaluator(CFG, None, INPUT_SHAPE, amp="auto", fused_layer1=True, flip_test=True)
+    ev = PoseEvaluator(cfg, None, INPUT_SHAPE, amp="auto", fused_layer1=True, flip_test=True)
     assert ev.dtype == torch.bfloat16
     batches, images, anns = [], [], []
     for bi in range(NUM_BATCHES):
@@ -369,16 +419,18 @@ def run_main_path(workdir):
         images += im
         anns += an
 
-    bottleneck_chain.launches = 0
+    zero_launch_counts()
     t0 = time.perf_counter()
     outs = [{k: v.cpu().numpy() for k, v in ev(b).items()} for b in batches]
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {"bottleneck_chain": bottleneck_chain.launches}
-    log(f"main path: {NUM_BATCHES} batches of {BATCH} in {seconds:.3f} s (first call "
+    launches = launch_counts()
+    log(f"{label}: {NUM_BATCHES} batches of {BATCH} in {seconds:.3f} s (first call "
         f"included); launches {launches}")
-    expected = NUM_BATCHES * 2  # one chain call per forward; flip-test forwards twice
-    assert launches["bottleneck_chain"] == expected, (launches, expected)
+    # one chain call per forward; flip-test forwards twice; no crop kernel
+    expected = {"bottleneck_chain": NUM_BATCHES * 2, "rotate_resample": 0,
+                "rotate_resample_crop": 0}
+    assert launches == expected, (launches, expected)
     results = []
     for b, out in zip(batches, outs):
         assert out["kps"].shape == (BATCH, 17, 2) and out["conf"].shape == (BATCH, 17, 1)
@@ -394,25 +446,31 @@ def run_main_path(workdir):
         json.dump(results, f)
     stats = {k: float(v) for k, v in evaluate_map(res_path, gt_path).items()}
     assert len(results) == NUM_BATCHES * BATCH and all(np.isfinite(list(stats.values())))
-    log("COCO stats (seeded random weights, synthetic GT): " + json.dumps(stats))
+    assert 0.0 <= stats["AP"] <= 1.0
+    log(f"{label} COCO stats (seeded random weights, synthetic GT): " + json.dumps(stats))
 
     # fused vs unfused heatmaps on the same crops, bf16
-    unfused = PoseEvaluator(CFG, None, INPUT_SHAPE, amp="auto", fused_layer1=False,
+    unfused = PoseEvaluator(cfg, None, INPUT_SHAPE, amp="auto", fused_layer1=False,
                             flip_test=True)
     hf, hu = ev.heatmaps(batches[0]), unfused.heatmaps(batches[0])
     assert hf.shape == (BATCH, 17, 64, 48) and torch.isfinite(hf).all()
     _, max_rel, mean_rel = errors(hf, hu)
-    log(f"fused vs unfused heatmaps (bf16): max rel {max_rel:.3e} (< {FUSED_HEAT_TOL[0]})"
-        f"  mean rel {mean_rel:.3e} (< {FUSED_HEAT_TOL[1]})")
+    log(f"{label} fused vs unfused heatmaps (bf16): max rel {max_rel:.3e} "
+        f"(< {FUSED_HEAT_TOL[0]})  mean rel {mean_rel:.3e} (< {FUSED_HEAT_TOL[1]})")
+    # where the gap comes from: each bf16 path against the unfused f32 one
+    h32 = PoseEvaluator(cfg, None, INPUT_SHAPE, amp=False, flip_test=True).heatmaps(batches[0])
+    log(f"{label} against f32 heatmaps (max rel, mean rel): fused {errors(hf, h32)[1:]}, "
+        f"unfused {errors(hu, h32)[1:]}")
     assert max_rel < FUSED_HEAT_TOL[0] and mean_rel < FUSED_HEAT_TOL[1]
+    del unfused, hf, hu, h32
 
     # f32 on the card (the kernel) vs the CPU plain path, 2 crops
     small = {k: v[:2] for k, v in batches[0].items()}
     kw = dict(amp=False, fused_layer1=True, flip_test=True)
-    h_gpu = PoseEvaluator(CFG, None, INPUT_SHAPE, **kw).heatmaps(small).cpu()
-    h_cpu = PoseEvaluator(CFG, None, INPUT_SHAPE, device="cpu", **kw).heatmaps(small)
+    h_gpu = PoseEvaluator(cfg, None, INPUT_SHAPE, **kw).heatmaps(small).cpu()
+    h_cpu = PoseEvaluator(cfg, None, INPUT_SHAPE, device="cpu", **kw).heatmaps(small)
     _, max_rel, _ = errors(h_gpu, h_cpu)
-    log(f"f32 card vs CPU heatmaps: max rel {max_rel:.3e} (< {F32_HEAT_REL})")
+    log(f"{label} f32 card vs CPU heatmaps: max rel {max_rel:.3e} (< {F32_HEAT_REL})")
     assert max_rel < F32_HEAT_REL
 
     # serving throughput at batch 128 (4 x 32 canvases in one batch)
@@ -698,11 +756,11 @@ def _trees(state):
     return tree
 
 
-def check_f32_step(data):
+def check_f32_step(data, train_cfg=TRAIN_CFG):
     """One f32 step on 2 crops on the card (the whole-crop kernel, cuDNN with
     TF32 off) against the same step on the CPU (the plain versions), from the
     same state."""
-    cfg = copy.deepcopy(TRAIN_CFG)
+    cfg = copy.deepcopy(train_cfg)
     cfg["optim"]["amp"] = False
     step = make_train_step(HEAT_HW, CROP_HW, amp=False, crop_impl="kernel")
     cpu = init_train_state(cfg, device="cpu")
@@ -731,8 +789,10 @@ def check_f32_step(data):
     return {"loss_rel": loss_rel, "worst_tree_ratio": ratios[worst], "worst_tensor": worst}
 
 
-def run_train_path(data_dev, data):
-    state = init_train_state(TRAIN_CFG)
+def run_train_path(data_dev, data, train_cfg=TRAIN_CFG, timed=TRAIN_TIMED):
+    """Phase 6 (and 9c): TRAIN_WARMUP + ``timed`` bf16 steps of ``train_cfg``
+    at batch 128."""
+    state = init_train_state(train_cfg)
     assert state.model.dtype == torch.bfloat16
     step = make_train_step(HEAT_HW, CROP_HW, amp=True, crop_impl="kernel", ema=True,
                            encoding="unbiased")
@@ -740,8 +800,7 @@ def run_train_path(data_dev, data):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    for fn in (bottleneck_chain, rotate_resample, affine_crop_two_stage):
-        fn.launches = 0
+    zero_launch_counts()
     losses, accs = [], []
     for _ in range(TRAIN_WARMUP):
         state, m = step(state, batch)
@@ -749,26 +808,24 @@ def run_train_path(data_dev, data):
         accs.append(m["acc"])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(TRAIN_TIMED):
+    for _ in range(timed):
         state, m = step(state, batch)
         losses.append(m["loss"])
         accs.append(m["acc"])
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {"bottleneck_chain": bottleneck_chain.launches,
-                "rotate_resample": rotate_resample.launches,
-                "rotate_resample_crop": affine_crop_two_stage.launches}
+    launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     losses = torch.stack(losses).float().cpu().numpy()
     accs = torch.stack(accs).float().cpu().numpy()
     log(f"train path: launches {launches}; loss per step {[float(x) for x in losses]}; "
         f"acc per step {[float(x) for x in accs]}")
-    assert launches["rotate_resample_crop"] == TRAIN_WARMUP + TRAIN_TIMED, launches
-    assert launches["rotate_resample"] == 0, launches
+    assert launches["rotate_resample_crop"] == TRAIN_WARMUP + timed, launches
+    assert launches["rotate_resample"] == 0 and launches["bottleneck_chain"] == 0, launches
     assert np.isfinite(losses).all() and np.isfinite(accs).all()
-    assert state.step == TRAIN_WARMUP + TRAIN_TIMED
-    rate = TRAIN_TIMED * TRAIN_BATCH / seconds
-    return launches, {"crops_per_s": rate, "ms_per_step": seconds / TRAIN_TIMED * 1e3,
+    assert state.step == TRAIN_WARMUP + timed
+    rate = timed * TRAIN_BATCH / seconds
+    return launches, {"crops_per_s": rate, "ms_per_step": seconds / timed * 1e3,
                       "max_memory_allocated_gib": peak / 2**30,
                       "losses": [float(x) for x in losses]}
 
@@ -907,20 +964,41 @@ def check_remat(batch):
     return out
 
 
-def run_solver_path(workdir, card, step_rate, device=None):
-    """Phase 7.  ``step_rate``: phase 6's bare-step crops/s, printed beside."""
+def solver_cfg(workdir, train_cfg, epochs):
+    """``train_cfg`` on synthetic COCO written to ``workdir`` (the painter
+    stands in for its images), ``epochs`` epochs, validation every epoch."""
     rng = np.random.default_rng(7)
     img_root = os.path.join(workdir, "images")  # never read: the painter stands in
     train_ann, val_ann = os.path.join(workdir, "train.json"), os.path.join(workdir, "val.json")
     n_train = write_synth_coco(train_ann, SOLVER_TRAIN_IMAGES, 1, rng)
     n_val = write_synth_coco(val_ann, SOLVER_VAL_IMAGES, 100001, rng)
-    cfg = copy.deepcopy(TRAIN_CFG)
+    cfg = copy.deepcopy(train_cfg)
     cfg["data"].update(train_ann_path=train_ann, val_ann_path=val_ann, train_img_root=img_root,
                        val_img_root=img_root, num_workers=8)
-    cfg["optim"]["epochs"] = 2
+    cfg["optim"]["epochs"] = epochs
     cfg["val"] = {"interval": 1, "weight_path": os.path.join(workdir, "weights")}
     log(f"solver data: {n_train} train instances on {SOLVER_TRAIN_IMAGES} images, {n_val} val "
         f"instances on {SOLVER_VAL_IMAGES} images")
+    return cfg
+
+
+def check_best_loads(solver, model_cfg, device):
+    """The solver's _best checkpoint loads into PoseEvaluator with no missing
+    and no unexpected keys."""
+    best = solver.checkpoint_path(f"{model_cfg['type']}_best")
+    assert os.path.exists(solver.checkpoint_path()) and os.path.exists(best), best
+    ema = torch.load(best, map_location="cpu")["ema"]
+    ev = PoseEvaluator(model_cfg, best, INPUT_SHAPE, amp="auto", device=device)
+    want = set(ev.model.state_dict())
+    missing, unexpected = len(want - set(ema)), len(set(ema) - want)
+    log(f"PoseEvaluator(weights={os.path.basename(best)}): {missing} missing, "
+        f"{unexpected} unexpected keys")
+    assert missing == 0 and unexpected == 0
+
+
+def run_solver_path(workdir, card, step_rate, device=None):
+    """Phase 7.  ``step_rate``: phase 6's bare-step crops/s, printed beside."""
+    cfg = solver_cfg(workdir, TRAIN_CFG, 2)
 
     record = {"losses": [], "epochs": [], "val": []}
     solver = PoseSolver(cfg, device=device)
@@ -932,8 +1010,7 @@ def run_solver_path(workdir, card, step_rate, device=None):
     host_batches = sum(1 for _ in solver.train_pipe.epoch(0))  # the device untouched
     host_rate = host_batches / (time.perf_counter() - t0)
 
-    for fn in (bottleneck_chain, rotate_resample, affine_crop_two_stage):
-        fn.launches = 0
+    zero_launch_counts()
     solver.run()
     steps_first = solver.state.step
     saved = state_tensors(solver.state)
@@ -952,9 +1029,7 @@ def run_solver_path(workdir, card, step_rate, device=None):
     assert step_devices == {"cpu"}, step_devices
     instrument(resumed, record)
     resumed.run(resume=True)
-    launches = {"bottleneck_chain": bottleneck_chain.launches,
-                "rotate_resample": rotate_resample.launches,
-                "rotate_resample_crop": affine_crop_two_stage.launches}
+    launches = launch_counts()
     steps = resumed.state.step
     steps_epoch3 = record["epochs"][-1]["steps"]
     losses = torch.stack(record["losses"]).float().cpu().numpy()
@@ -967,16 +1042,8 @@ def run_solver_path(workdir, card, step_rate, device=None):
     assert np.isfinite(losses).all()
     assert len(record["val"]) == 3 and all(0.0 <= v["AP"] <= 1.0 for v in record["val"])
 
-    last, best = resumed.checkpoint_path(), resumed.checkpoint_path("pose_resnet_dconv_best")
-    assert os.path.exists(last) and os.path.exists(best), (last, best)
-    ema = torch.load(best, map_location="cpu")["ema"]
-    ev = PoseEvaluator(CFG, best, INPUT_SHAPE, amp="auto", device=device)
-    want = set(ev.model.state_dict())
-    missing, unexpected = len(want - set(ema)), len(set(ema) - want)
-    log(f"PoseEvaluator(weights={os.path.basename(best)}): {missing} missing, "
-        f"{unexpected} unexpected keys")
-    assert missing == 0 and unexpected == 0
-    del resumed, ev
+    check_best_loads(resumed, CFG, device)
+    del resumed
 
     rates = {"card": card, "solver_epochs": record["epochs"],
              "validate": record["val"],
@@ -1102,16 +1169,13 @@ def run_detections_path(workdir):
     batches = len(plan)
     orig, data_pipeline._imread_rgb = data_pipeline._imread_rgb, _no_cv2
     try:
-        for fn in (bottleneck_chain, rotate_resample, affine_crop_two_stage):
-            fn.launches = 0
+        zero_launch_counts()
         native.NativeCanvasLoader.load_batch.calls = 0
         stats = predicts_by_detections(
             DET_IMAGES, DET_JSON, DET_GT, CFG, None, batch_size=DET_BATCH,
             input_shape=INPUT_SHAPE, flip_test=True, out_path=raw, canvas=CANVAS, amp="auto",
             fused_layer1=True, filtered_out_path=filtered)
-        launches = {"bottleneck_chain": bottleneck_chain.launches,
-                    "rotate_resample": rotate_resample.launches,
-                    "rotate_resample_crop": affine_crop_two_stage.launches,
+        launches = {**launch_counts(),
                     "load_batch_calls": native.NativeCanvasLoader.load_batch.calls,
                     "batches": batches}
         stats = {k: float(v) for k, v in stats.items()}
@@ -1186,6 +1250,122 @@ def run_jpeg_path(card, painter_rate):
             "launches": launches, "stats": stats, "rates": rates, "dark_original": dark}
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the other pose families (HRNet-W32/W48, ResNet-50-DUC)
+# ---------------------------------------------------------------------------
+
+
+def report_numbers(card, prefix, values):
+    """Each number of the flat dict ``values`` on a line of its own, with the
+    card's name and power limit."""
+    for k, v in values.items():
+        log(f"{prefix} {k}: {v} ({card})")
+
+
+def run_hrnet_solver(workdir, device=None):
+    """Phase 9d: PoseSolver with configs/hrnet_w32.yaml's model on phase 7's
+    synthetic COCO, one epoch, validation on."""
+    cfg = solver_cfg(workdir, HRNET_TRAIN_CFG, 1)
+    record = {"losses": [], "epochs": [], "val": []}
+    solver = PoseSolver(cfg, device=device)
+    instrument(solver, record)
+    solver.best_ap = -1.0  # seeded weights score AP 0: the first validation writes _best
+    zero_launch_counts()
+    solver.run()
+    launches = launch_counts()
+    losses = torch.stack(record["losses"]).float().cpu().numpy()
+    log(f"phase 9d, solver (HRNet-W32): launches {launches}; loss per step "
+        f"{[float(x) for x in losses]}; val {json.dumps(record['val'])}")
+    steps = solver.state.step
+    assert launches == {"bottleneck_chain": 0, "rotate_resample": 0,
+                        "rotate_resample_crop": steps}, launches
+    assert steps == len(losses) > 0 and np.isfinite(losses).all()
+    assert len(record["val"]) == 1 and 0.0 <= record["val"][0]["AP"] <= 1.0
+    check_best_loads(solver, HRNET_CFG, device)
+    return launches, {"epoch": record["epochs"][0], "validate": record["val"][0]}
+
+
+def run_other_families(card, data, data_dev):
+    """Phase 9.  Returns {family: (K2 errors, K2 timing, serving launches)}
+    for the kernels' JSON line."""
+    # a. K2 at HRNet's 4-block layer1 and ResNet-50-DUC's 3-block one: no SE,
+    # a projection in block 0
+    t0 = time.perf_counter()
+    chains = {
+        "hrnet_w32": check_chain_kernel(seeded_layer1(build_hrnet("w32")),
+                                        "phase 9a, hrnet_w32 layer1 chain"),
+        "resnet50_duc": check_chain_kernel(seeded_layer1(build_resnet("resnet50", head="duc")),
+                                           "phase 9a, resnet50_duc layer1 chain",
+                                           batches=(BATCH,)),
+    }
+    for fam, (_, timing) in chains.items():
+        for key, row in timing.items():
+            report_numbers(card, f"phase 9a, {fam} layer1 chain {key}",
+                           {k: row[k] for k in ("kernel_ms", "plain_ms", "library_ms",
+                                                "bound_ms")})
+    log(f"phase 9a: {time.perf_counter() - t0:.1f} s")
+
+    # b. serving each family, fused_layer1 and flip-test, as phase 4
+    t0 = time.perf_counter()
+    serving = {}
+    with tempfile.TemporaryDirectory() as workdir:
+        for fam, cfg in FAMILY_CFGS.items():
+            launches, stats, rates = run_main_path(workdir, cfg, f"phase 9b, {fam}")
+            serving[fam] = launches
+            report_numbers(card, f"phase 9b, {fam} serving crops/s at batch {THROUGHPUT_BATCH}",
+                           rates)
+            report_numbers(card, f"phase 9b, {fam} COCO", {"AP": stats["AP"]})
+            torch.cuda.empty_cache()
+    log(f"phase 9b: {time.perf_counter() - t0:.1f} s")
+
+    # c. training HRNet-W32 at batch 128, then one f32 step card vs CPU
+    t0 = time.perf_counter()
+    _, train = run_train_path(data_dev, data, HRNET_TRAIN_CFG, HRNET_TRAIN_TIMED)
+    report_numbers(card, f"phase 9c, hrnet_w32 train at batch {TRAIN_BATCH}",
+                   {k: train[k] for k in ("crops_per_s", "ms_per_step",
+                                          "max_memory_allocated_gib")})
+    f32_step = check_f32_step(data, HRNET_TRAIN_CFG)
+    report_numbers(card, "phase 9c, hrnet_w32 f32 step card vs CPU",
+                   {k: f32_step[k] for k in ("loss_rel", "worst_tree_ratio")})
+    torch.cuda.empty_cache()
+    log(f"phase 9c: {time.perf_counter() - t0:.1f} s")
+
+    # d. the entry point: one PoseSolver epoch of HRNet-W32
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as workdir, painter_installed():
+        cwd = os.getcwd()
+        os.chdir(workdir)  # validate writes its results JSON to the working directory
+        try:
+            _, solver = run_hrnet_solver(workdir)
+        finally:
+            os.chdir(cwd)
+    report_numbers(card, "phase 9d, hrnet_w32 solver epoch",
+                   {"crops_per_s": solver["epoch"]["crops_per_s"],
+                    "seconds": solver["epoch"]["seconds"],
+                    "validate_seconds": solver["validate"]["seconds"]})
+    log(f"phase 9d: {time.perf_counter() - t0:.1f} s")
+    return {fam: (*chains[fam], serving[fam]["bottleneck_chain"]) for fam in chains}
+
+
+def k2_row(name, launches, report, row):
+    """A K2 row of the kernels' JSON line."""
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": "simple_pose_torch/csrc/bottleneck_chain.cu",
+        "replaces": "simple_pose_tpu/ops/pallas_bottleneck.py:88",
+        "launches": launches,
+        "max_abs_err": report["bf16"]["max_abs_err"],
+        "ms": row["kernel_ms"],
+        "kernel_ms": row["kernel_ms"],
+        "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"],
+        "library_ms": row["library_ms"],
+        "errors": report,
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1204,7 +1384,7 @@ def main() -> int:
     log("build: " + ", ".join(f"{k} nvcc {v[1]:.1f} s" for k, v in builds.items())
         + f" (phase {time.perf_counter() - t0:.1f} s)")
 
-    report, timing = check_chain_kernel(flagship_layer1())
+    report, timing = check_chain_kernel(seeded_layer1(build_resnet("resnet50", se=True)))
     with tempfile.TemporaryDirectory() as workdir:
         launches, stats, rates = run_main_path(workdir)
     log(f"serving crops/s at batch {THROUGHPUT_BATCH} (bf16, fused_layer1, flip-test) "
@@ -1234,24 +1414,16 @@ def main() -> int:
     log("remat: " + json.dumps({"card": card, **remat}))
     jpeg = run_jpeg_path(card, solver["host_only_batches_per_s"])
     log("phase 8: " + json.dumps(jpeg))
+    families = run_other_families(card, data, data_dev)
 
-    main_row = timing[f"b{BATCH}_bf16"]
-    kernels = [{
-        "name": "bottleneck_chain",
-        "route": "cuda",
-        "source": "simple_pose_torch/csrc/bottleneck_chain.cu",
-        "replaces": "simple_pose_tpu/ops/pallas_bottleneck.py:88",
-        "launches": launches["bottleneck_chain"],
-        "launches_detections": jpeg["launches"]["bottleneck_chain"],
-        "max_abs_err": report["bf16"]["max_abs_err"],
-        "ms": main_row["kernel_ms"],
-        "kernel_ms": main_row["kernel_ms"],
-        "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"],
-        "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"],
-        "errors": report,
-    }]
+    kernels = [{**k2_row("bottleneck_chain", launches["bottleneck_chain"], report,
+                         timing[f"b{BATCH}_bf16"]),
+                "launches_detections": jpeg["launches"]["bottleneck_chain"]}]
+    for fam, (fam_report, fam_timing, fam_launches) in families.items():
+        kernels.append({**k2_row(f"bottleneck_chain ({fam} layer1)", fam_launches, fam_report,
+                                 fam_timing[f"b{BATCH}_bf16"]),
+                        "main_path": f"phase 9b: PoseEvaluator({fam}, fused_layer1, flip-test)",
+                        "timing": fam_timing})
     rot_row = rot_timing[f"b{TRAIN_BATCH}_bf16"]
     kernels.append({
         "name": "rotate_resample",

@@ -1,10 +1,12 @@
 """Where the time of the port's training step goes, on one CUDA card.
 
-    python scripts/profile_torch_train.py [--batch 128] [--steps 3]
+    python scripts/profile_torch_train.py [--batch 128] [--steps 3] \
+        [--config fast_pose|hrnet_w32]
 
-Builds the flagship training step of chip_smoke.py (configs/fast_pose.yaml's
-ResNet-50-DConv+SE, 256x192, Adam, EMA, bf16 autocast, the whole-crop kernel)
-on seeded data, warms it up, then traces ``--steps`` steps with
+Builds a training step of chip_smoke.py (``fast_pose``, the default:
+configs/fast_pose.yaml's ResNet-50-DConv+SE; ``hrnet_w32``:
+configs/hrnet_w32.yaml's HRNet-W32; both 256x192, Adam, EMA, bf16 autocast,
+the whole-crop kernel) on seeded data, warms it up, then traces ``--steps`` steps with
 torch.profiler.  Prints, as JSON lines: the card (nvidia-smi name and power
 limit), the step time on the host clock, the device busy time per step
 (the union of kernel intervals) and its share of the step, and the kernels
@@ -30,9 +32,10 @@ from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from chip_smoke import CROP_HW, HEAT_HW, TRAIN_CFG, train_inputs  # noqa: E402
+from chip_smoke import CROP_HW, HEAT_HW, HRNET_TRAIN_CFG, TRAIN_CFG, train_inputs  # noqa: E402
 from simple_pose_torch.train.solver import init_train_state, make_train_step  # noqa: E402
 
+CONFIGS = {"fast_pose": TRAIN_CFG, "hrnet_w32": HRNET_TRAIN_CFG}
 GROUPS = (  # first match wins; matched against the lower-cased kernel name
     ("crop_k1", ("rotate_resample",)),
     ("crop_stage1_gemm", ("sgemm", "gemm_f32", "simt")),
@@ -69,6 +72,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=128)
     ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--config", choices=sorted(CONFIGS), default="fast_pose")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_train: no CUDA device", file=sys.stderr)
@@ -78,7 +82,7 @@ def main() -> int:
                           check=True).stdout.strip().splitlines()[0]
     data = train_inputs(np.random.default_rng(5), args.batch)
     batch = {k: torch.from_numpy(v).cuda() for k, v in data.items()}
-    state = init_train_state(TRAIN_CFG)
+    state = init_train_state(CONFIGS[args.config])
     step = make_train_step(HEAT_HW, CROP_HW, amp=True, crop_impl="kernel")
     for _ in range(3):
         state, _ = step(state, batch)
@@ -100,7 +104,8 @@ def main() -> int:
         g = group_of(e.name)
         by_group[g] = by_group.get(g, 0.0) + us
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
-    print(json.dumps({"card": card, "batch": args.batch, "steps": args.steps,
+    print(json.dumps({"card": card, "config": args.config, "batch": args.batch,
+                      "steps": args.steps,
                       "step_ms_host": step_us / 1e3, "device_busy_ms_per_step": busy / 1e3,
                       "device_busy_share": busy / step_us,
                       "kernel_launches_per_step": len(kernels) / args.steps}))

@@ -1,20 +1,31 @@
 """JAX-package variables -> torch state_dict (the inverse of
-simple_pose_tpu/convert/torch2flax.py for the ResNet family), and a JAX
-TrainState -> the port's TrainState (``load_jax_train_state``).
+simple_pose_tpu/convert/torch2flax.py for the ResNet and HRNet families),
+and a JAX TrainState -> the port's TrainState (``load_jax_train_state``).
 
 ``flax_to_torch_state`` turns a numpy pytree ``{'params': ...,
-'batch_stats': ...}`` of a flax PoseResNet into a state_dict under the
-reference's key names (torch2flax.py:45-80), so the same weights run in both
-packages:
+'batch_stats': ...}`` of a flax PoseResNet (dconv or DUC head) or PoseHRNet
+into a state_dict under the reference's key names (torch2flax.py:45-117),
+so the same weights run in both packages:
 
   * conv kernel          HWIO -> OIHW   (transpose 3, 2, 0, 1)
   * conv-transpose       HWIO' -> IOHW  (transpose 2, 3, 0, 1)
   * batchnorm            scale/bias -> weight/bias, mean/var ->
                          running_mean/running_var, plus num_batches_tracked 0
-  * names                layer{s}_{i} -> layer{s}.{i}, downsample_conv/_bn ->
-                         downsample.0/.1, se/fc1|fc2 -> se.fc.0|.2,
-                         deconv_{i} -> deconv_layers.{3i}, deconv_bn_{i} ->
-                         deconv_layers.{3i+1}
+  * ResNet names         layer{s}_{i} -> layer{s}.{i}, deconv_{i} ->
+                         deconv_layers.{3i}, deconv_bn_{i} ->
+                         deconv_layers.{3i+1}, duc_{i}/{conv,bn} ->
+                         duc_layers.{i}.{conv,bn}
+  * HRNet names          layer1_m0_b0_{i} -> layer1.{i},
+                         stage{s}_m{m}_b{b}_{i} -> stage{s}.{m}.branches.{b}.{i},
+                         transition{t}_{i}[_{j}][_bn] ->
+                         transition{t}.{i}[.{j}].{0|1},
+                         stage{s}_m{m}_fuse_{i}_{j}[_{k}][_bn] ->
+                         stage{s}.{m}.fuse_layers.{i}.{j}[.{k}].{0|1}
+  * inside a block       downsample_conv/_bn -> downsample.0/.1,
+                         se/fc1|fc2 -> se.fc.0|.2
+
+The two families' flax names are disjoint apart from ``conv1``, ``bn1`` and
+``final_layer``, which map alike, so no family argument is needed.
 """
 
 from __future__ import annotations
@@ -28,32 +39,62 @@ __all__ = ["flax_to_torch_state", "load_jax_train_state"]
 
 _BN_LEAF = {"scale": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var"}
 
+# flax residual-block name -> torch module path of the block
+_BLOCK_NAMES = (
+    (re.compile(r"layer1_m0_b0_(\d+)"), "layer1.{0}"),
+    (re.compile(r"stage(\d+)_m(\d+)_b(\d+)_(\d+)"), "stage{0}.{1}.branches.{2}.{3}"),
+    (re.compile(r"layer(\d+)_(\d+)"), "layer{0}.{1}"),
+)
+# flax conv or BN name -> torch Sequential path; the ``_bn`` suffix is index 1
+_SEQ_NAMES = (
+    (re.compile(r"transition(\d+)_(\d+)(?:_(\d+))?"), "transition{0}.{1}"),
+    (re.compile(r"stage(\d+)_m(\d+)_fuse_(\d+)_(\d+)(?:_(\d+))?"),
+     "stage{0}.{1}.fuse_layers.{2}.{3}"),
+)
+
+
+def _block_sub(blk, path):
+    """A module inside a residual block -> (torch path, kind)."""
+    sub = path[1]
+    if sub in ("conv1", "conv2", "conv3"):
+        return f"{blk}.{sub}", "conv"
+    if sub in ("bn1", "bn2", "bn3"):
+        return f"{blk}.{sub}", "bn"
+    if sub == "downsample_conv":
+        return f"{blk}.downsample.0", "conv"
+    if sub == "downsample_bn":
+        return f"{blk}.downsample.1", "bn"
+    if sub == "se":
+        return f"{blk}.se.fc.{0 if path[2] == 'fc1' else 2}", "conv"
+    raise KeyError(f"no torch counterpart for flax module {'/'.join(path)}")
+
 
 def _module_key(path) -> tuple:
     """flax module path -> (torch module path, kind in conv|deconv|bn)."""
     head = path[0]
-    m = re.fullmatch(r"layer(\d+)_(\d+)", head)
-    if m:
-        blk = f"layer{m.group(1)}.{m.group(2)}"
-        sub = path[1]
-        if sub in ("conv1", "conv2", "conv3"):
-            return f"{blk}.{sub}", "conv"
-        if sub in ("bn1", "bn2", "bn3"):
-            return f"{blk}.{sub}", "bn"
-        if sub == "downsample_conv":
-            return f"{blk}.downsample.0", "conv"
-        if sub == "downsample_bn":
-            return f"{blk}.downsample.1", "bn"
-        if sub == "se":
-            return f"{blk}.se.fc.{0 if path[2] == 'fc1' else 2}", "conv"
-    if head in ("conv1", "final_layer"):
+    for pattern, fmt in _BLOCK_NAMES:
+        m = pattern.fullmatch(head)
+        if m:
+            return _block_sub(fmt.format(*m.groups()), path)
+    bn = head.endswith("_bn")
+    base = head[:-3] if bn else head
+    for pattern, fmt in _SEQ_NAMES:
+        m = pattern.fullmatch(base)
+        if m:
+            chain = m.groups()[-1]
+            seq = fmt.format(*m.groups()) + ("" if chain is None else f".{chain}")
+            return f"{seq}.{1 if bn else 0}", "bn" if bn else "conv"
+    if head in ("conv1", "conv2", "final_layer"):
         return head, "conv"
-    if head == "bn1":
+    if head in ("bn1", "bn2"):
         return head, "bn"
     m = re.fullmatch(r"deconv_(bn_)?(\d+)", head)
     if m:
         idx = 3 * int(m.group(2)) + (1 if m.group(1) else 0)
         return f"deconv_layers.{idx}", "bn" if m.group(1) else "deconv"
+    m = re.fullmatch(r"duc_(\d+)", head)
+    if m and path[1] in ("conv", "bn"):
+        return f"duc_layers.{m.group(1)}.{path[1]}", path[1]
     raise KeyError(f"no torch counterpart for flax module {'/'.join(path)}")
 
 
@@ -66,7 +107,8 @@ def _leaves(tree, prefix=()):
 
 
 def flax_to_torch_state(variables) -> dict:
-    """:param variables: flax PoseResNet variables (numpy or jax arrays)
+    """:param variables: flax PoseResNet or PoseHRNet variables (numpy or jax
+        arrays)
     :returns: {reference key: torch f32 tensor}"""
     state = {}
     for coll in ("params", "batch_stats"):

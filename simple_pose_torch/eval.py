@@ -5,6 +5,8 @@ workflows of the repo's eval.py).
         --ann data/annotations/person_keypoints_val2017.json \
         --model-name resnet50 --reduction --weights fast_pose.pth \
         [--fused-layer1] [--flip-test] [--no-amp] [--device cpu]
+    python -m simple_pose_torch.eval gt ... --model-type pose_hrnet --model-name w32
+    python -m simple_pose_torch.eval gt ... --model-type pose_resnet_duc --model-name resnet50
     python -m simple_pose_torch.eval detections --img-root data/val2017 \
         --ann data/annotations/person_keypoints_val2017.json \
         --dets COCO_val2017_detections_AP_H_56_person.json --weights fast_pose.pth \

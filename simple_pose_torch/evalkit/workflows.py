@@ -139,7 +139,7 @@ class PoseEvaluator:
                     "foldable Bottleneck layer1 (BasicBlock trunks and grouped convs "
                     "don't qualify)")
             self._layer1_folded = prepare_blocks(
-                fold_bottleneck_blocks(list(self.model.layer1)),
+                fold_bottleneck_blocks([self.model.get_submodule(n) for n in names]),
                 self.dtype or torch.float32)
 
     def _to_device(self, v):

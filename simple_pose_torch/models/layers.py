@@ -12,6 +12,10 @@ torch op in flax; here they are the torch ops themselves:
   * SELayer                   -> nets/commons.py:4-18: mean -> 1x1 conv ->
                                  ReLU -> 1x1 conv -> sigmoid, both convs with
                                  bias, reduction 1; module path ``se.fc.{0,2}``
+  * DUC                       -> nets/commons.py:21-43: 3x3 conv -> BN ->
+                                 ReLU -> nn.PixelShuffle (the JAX
+                                 ``pixel_shuffle`` keeps torch's channel
+                                 order); module paths ``conv`` and ``bn``
 
 Init (``init_weights``): head layers normal(0.001) (HEAD_INIT), body convs He
 fan-out normal (BODY_INIT), conv biases 0, BN weight 1 and bias 0 -- the
@@ -27,7 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["conv", "conv3x3", "conv1x1", "batch_norm", "BatchNorm2d", "SELayer",
+__all__ = ["conv", "conv3x3", "conv1x1", "batch_norm", "BatchNorm2d", "SELayer", "DUC",
            "BODY_INIT", "HEAD_INIT", "init_weights"]
 
 
@@ -111,6 +115,21 @@ class SELayer(nn.Module):
 
     def forward(self, x):
         return x * self.fc(x.mean(dim=(2, 3), keepdim=True))
+
+
+class DUC(nn.Module):
+    """Dense upsampling conv: 3x3 conv -> BN -> ReLU -> PixelShuffle
+    (nets/commons.py:21-43): [B, Cin, H, W] -> [B, planes / r^2, rH, rW]."""
+
+    def __init__(self, inplanes: int, planes: int, upscale: int = 2):
+        super().__init__()
+        self.conv = conv3x3(inplanes, planes)
+        self.bn = batch_norm(planes)
+        self.relu = nn.ReLU(inplace=True)
+        self.pixel_shuffle = nn.PixelShuffle(upscale)
+
+    def forward(self, x):
+        return self.pixel_shuffle(self.relu(self.bn(self.conv(x))))
 
 
 @torch.no_grad()

@@ -2,10 +2,11 @@
 
 Port of simple_pose_tpu/models/registry.py.  Config schema mirrors the
 reference YAML ``model`` section:
-  type: pose_resnet_dconv (pose_resnet_duc and pose_hrnet are not ported yet)
-  name: resnet18..resnet152 / resnext / wide_resnet
+  type: pose_resnet_dconv | pose_resnet_duc | pose_hrnet
+  name: resnet18..resnet152 / resnext / wide_resnet (resnet types)
+        w32 | w48 (hrnet)
   num_joints: 17
-  reduction: bool (SE attention)
+  reduction: bool (SE attention, resnet types only)
   remat: bool (recompute each residual block in backward)
 """
 
@@ -13,15 +14,13 @@ from __future__ import annotations
 
 import torch
 
+from simple_pose_torch.models.hrnet import build_hrnet
 from simple_pose_torch.models.resnet import RESNET_SPECS, build_resnet
 
 __all__ = ["build_model", "build_from_cfg", "MODEL_TYPES", "resolve_amp_dtype"]
 
 MODEL_TYPES = ("pose_resnet_dconv", "pose_resnet_duc", "pose_hrnet")
-_NOT_PORTED = {
-    "pose_resnet_duc": "the DUC head",
-    "pose_hrnet": "HRNet",
-}
+_RESNET_HEADS = {"pose_resnet_dconv": "dconv", "pose_resnet_duc": "duc"}
 
 
 def resolve_amp_dtype(amp, device) -> "torch.dtype | None":
@@ -42,14 +41,13 @@ def build_model(model_type: str, name: str = "resnet50", num_joints: int = 17,
     (BatchNorm on batch statistics) when ``train`` and in eval mode
     otherwise.  remat: checkpoint each residual block in training (memory
     for FLOPs)."""
-    if model_type == "pose_resnet_dconv":
+    if model_type in _RESNET_HEADS:
         model = build_resnet(name, num_joints=num_joints, se=reduction, dtype=dtype, seed=seed,
-                             remat=remat)
+                             remat=remat, head=_RESNET_HEADS[model_type])
         return model.train(train)
-    if model_type in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{model_type}: {_NOT_PORTED[model_type]} is not ported yet "
-            "(ROADMAP.md, 'Modules still to port')")
+    if model_type == "pose_hrnet":
+        model = build_hrnet(name, num_joints=num_joints, dtype=dtype, seed=seed, remat=remat)
+        return model.train(train)
     raise KeyError(f"unknown model type {model_type!r}; choose from {MODEL_TYPES} "
                    f"(resnet names: {sorted(RESNET_SPECS)})")
 

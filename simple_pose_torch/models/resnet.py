@@ -1,12 +1,19 @@
-"""Pose ResNet, SimpleBaselines deconv head (NCHW nn.Module).
+"""Pose ResNet with the SimpleBaselines deconv head or the DUC head (NCHW
+nn.Module).
 
-Port of simple_pose_tpu/models/resnet.py (head='dconv'): a torchvision-style
-ResNet trunk (BasicBlock/Bottleneck, groups/width, optional SE) and
-3 x [ConvTranspose k4 s2 -> BN -> ReLU] to 256 channels, then a 1x1 conv to
-num_joints (pose_resnet_dconv.py:230-249, 173-178).  Module paths are the
-reference's state_dict keys (``layer1.0.conv1``, ``layer1.0.downsample.0``,
-``layer1.0.se.fc.0``, ``deconv_layers.N``, ``final_layer``), so a reference
-checkpoint loads with ``load_state_dict``.
+Port of simple_pose_tpu/models/resnet.py: a torchvision-style ResNet trunk
+(BasicBlock/Bottleneck, groups/width, optional SE), then a head:
+
+  * 'dconv': 3 x [ConvTranspose k4 s2 -> BN -> ReLU] to 256 channels, then a
+    1x1 conv to num_joints (pose_resnet_dconv.py:230-249, 173-178);
+  * 'duc': PixelShuffle(2), DUC(1024), DUC(512) (each a 3x3 conv, BN, ReLU
+    and PixelShuffle(2)), then a 3x3 conv to num_joints (the JAX
+    resnet.py:182-188).
+
+Module paths are the reference's state_dict keys (``layer1.0.conv1``,
+``layer1.0.downsample.0``, ``layer1.0.se.fc.0``, ``deconv_layers.N``,
+``duc_layers.{1,2}.{conv,bn}``, ``final_layer``), so a reference checkpoint
+loads with ``load_state_dict``.
 
 Parity quirk preserved: SE goes only into a stage's first block, and only
 when that block carries a downsample projection (pose_resnet_dconv.py:
@@ -22,7 +29,8 @@ only the block's input and recomputes its activations in backward.  flax's
 batch_stats update is functional, so its recompute moves nothing; here the
 recompute runs BatchNorm's forward a second time, and it would move the
 running statistics twice.  The recompute therefore runs with the block's
-BatchNorm updates off (``_stats_frozen``).
+BatchNorm updates off (``_stats_frozen``).  :func:`checkpointed` is that
+rule for any chain of blocks; models/hrnet.py uses it too.
 """
 
 from __future__ import annotations
@@ -36,6 +44,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from simple_pose_torch.models.layers import (
+    DUC,
     BatchNorm2d,
     SELayer,
     batch_norm,
@@ -46,7 +55,8 @@ from simple_pose_torch.models.layers import (
 )
 from simple_pose_torch.ops.bottleneck_chain import bottleneck_chain
 
-__all__ = ["PoseResNet", "BasicBlock", "Bottleneck", "RESNET_SPECS", "build_resnet"]
+__all__ = ["PoseResNet", "BasicBlock", "Bottleneck", "RESNET_SPECS", "build_resnet",
+           "checkpointed"]
 
 
 class BasicBlock(nn.Module):
@@ -104,6 +114,7 @@ class Bottleneck(nn.Module):
 class PoseResNet(nn.Module):
     """:param block: 'basic' | 'bottleneck'
     :param layers: blocks per stage, e.g. (3, 4, 6, 3) for resnet50
+    :param head: 'dconv' | 'duc'
     :param se: SE attention in stage-leading blocks (the reference
         ``reduction`` flag)
     :param dtype: compute dtype (None = f32, or torch.bfloat16)
@@ -115,10 +126,9 @@ class PoseResNet(nn.Module):
                  width_per_group: int = 64, se: bool = False,
                  dtype: Optional[torch.dtype] = None, remat: bool = False):
         super().__init__()
-        if head != "dconv":
-            raise NotImplementedError(
-                f"head {head!r}: the DUC head is not ported yet (ROADMAP.md, "
-                "'Modules still to port')")
+        if head not in ("dconv", "duc"):
+            raise ValueError(f"unknown head {head!r}")
+        self.head = head
         self.block = block
         self.layers = tuple(layers)
         self.groups = groups
@@ -142,13 +152,19 @@ class PoseResNet(nn.Module):
                 stage.append(block_cls(inplanes, planes, **kwargs))
                 inplanes = planes * block_cls.expansion
             setattr(self, f"layer{stage_idx}", nn.Sequential(*stage))
-        deconv = []
-        for _ in range(3):
-            deconv += [nn.ConvTranspose2d(inplanes, 256, 4, stride=2, padding=1, bias=False),
-                       batch_norm(256), nn.ReLU(inplace=True)]
-            inplanes = 256
-        self.deconv_layers = nn.Sequential(*deconv)
-        self.final_layer = conv(256, num_joints, 1, bias=True)
+        if head == "dconv":
+            deconv = []
+            for _ in range(3):
+                deconv += [nn.ConvTranspose2d(inplanes, 256, 4, stride=2, padding=1, bias=False),
+                           batch_norm(256), nn.ReLU(inplace=True)]
+                inplanes = 256
+            self.deconv_layers = nn.Sequential(*deconv)
+            self.final_layer = conv(256, num_joints, 1, bias=True)
+        else:
+            # duc_layers.0 is the parameterless PixelShuffle (torch2flax.py:74-77)
+            self.duc_layers = nn.Sequential(nn.PixelShuffle(2), DUC(inplanes // 4, 1024),
+                                            DUC(1024 // 4, 512))
+            self.final_layer = conv(512 // 4, num_joints, 3, padding=1, bias=True)
 
     def layer1_block_names(self):
         """Module paths of layer1's blocks for ops/bottleneck_chain's fold;
@@ -173,19 +189,29 @@ class PoseResNet(nn.Module):
                 x = self._stage(self.layer1, x)
             for stage in (self.layer2, self.layer3, self.layer4):
                 x = self._stage(stage, x)
-            return self.final_layer(self.deconv_layers(x))
+            head = self.deconv_layers if self.head == "dconv" else self.duc_layers
+            return self.final_layer(head(x))
 
     def _stage(self, stage, x):
-        if not (self.remat and self.training and torch.is_grad_enabled()):
-            return stage(x)
-        for block in stage:
-            # The non-reentrant checkpoint recomputes under the autocast
-            # state of the forward (it records and re-enters it), so the
-            # recompute runs in the same dtypes.  Blocks draw no random
-            # numbers, so no RNG state is kept.
-            x = checkpoint(block, x, use_reentrant=False, preserve_rng_state=False,
-                           context_fn=functools.partial(_recompute_contexts, block))
+        return checkpointed(stage, x) if self.remat and self.training else stage(x)
+
+
+def checkpointed(blocks, x):
+    """``blocks`` (an iterable of modules) applied in turn, each one
+    rematerialized in backward when gradients are on, with its BatchNorm
+    updates off in the recompute."""
+    if not torch.is_grad_enabled():
+        for block in blocks:
+            x = block(x)
         return x
+    for block in blocks:
+        # The non-reentrant checkpoint recomputes under the autocast
+        # state of the forward (it records and re-enters it), so the
+        # recompute runs in the same dtypes.  Blocks draw no random
+        # numbers, so no RNG state is kept.
+        x = checkpoint(block, x, use_reentrant=False, preserve_rng_state=False,
+                       context_fn=functools.partial(_recompute_contexts, block))
+    return x
 
 
 @contextlib.contextmanager
@@ -223,11 +249,11 @@ RESNET_SPECS = {
 
 
 def build_resnet(name: str, num_joints: int = 17, se: bool = False, dtype=None,
-                 seed: int = 0, remat: bool = False) -> PoseResNet:
+                 seed: int = 0, remat: bool = False, head: str = "dconv") -> PoseResNet:
     """A PoseResNet with weights drawn from ``torch.Generator().manual_seed(seed)``
     (on the CPU; move it to a device afterwards)."""
     block, layers, extra = RESNET_SPECS[name]
-    model = PoseResNet(block=block, layers=layers, num_joints=num_joints, se=se,
+    model = PoseResNet(block=block, layers=layers, head=head, num_joints=num_joints, se=se,
                        dtype=dtype, remat=remat, **extra)
     init_weights(model, torch.Generator().manual_seed(seed), head_modules=[model.final_layer])
     return model.eval()

@@ -54,6 +54,20 @@ def _chain_np(seed=0, batch=3, h=16, w=12, cin=16, width=8, cout=32):
     return x, blocks
 
 
+def _no_se_chain_np(rng, n_blocks, cin, width, cout):
+    """HRNet's and ResNet-50-DUC's layer1 pattern: a projection block without
+    SE, then identity blocks, none with SE; weights fan-in scaled, so every
+    block keeps its size."""
+    blocks = [_rand_block(rng, cin, width, cout, True, False)]
+    blocks += [_rand_block(rng, cout, width, cout, False, False) for _ in range(n_blocks - 1)]
+    for blk in blocks:
+        for k in ("w1", "w3", "wd"):
+            if k in blk:
+                blk[k] *= 4.0 / np.sqrt(blk[k].shape[0])
+        blk["w2"] *= 10.0 / np.sqrt(9 * blk["w2"].shape[2])
+    return blocks
+
+
 def _torch_blocks(blocks, device="cpu"):
     return [{k: torch.from_numpy(v).to(device) for k, v in b.items()} for b in blocks]
 
@@ -86,6 +100,26 @@ def test_reference_matches_pallas(dtype):
         assert err.max() < F32_ATOL, err.max()
     else:
         scale = np.abs(want).max()
+        assert err.max() < BF16_MAX_REL * scale and err.mean() < BF16_MEAN_REL * scale, (
+            err.max(), err.mean(), scale)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("n_blocks", [3, 4])
+def test_reference_matches_pallas_no_se_chain(dtype, n_blocks):
+    """3 and 4 blocks, a projection without SE in block 0 (ResNet-50-DUC's and
+    HRNet's layer1 pattern, at narrow widths)."""
+    rng = np.random.default_rng(20 + n_blocks)
+    blocks = _no_se_chain_np(rng, n_blocks, 16, 8, 32)
+    x = rng.normal(0, 1, (2, 12, 10, 16)).astype(np.float32)
+    want = _pallas(x, blocks, dtype)
+    cd = {"f32": torch.float32, "bf16": torch.bfloat16}[dtype]
+    got = bottleneck_chain(_nchw(x), _torch_blocks(blocks), compute_dtype=cd)
+    err = np.abs(got.permute(0, 2, 3, 1).numpy() - want)
+    scale = np.abs(want).max()
+    if dtype == "f32":
+        assert err.max() < 1e-5 * scale, (err.max(), scale)
+    else:
         assert err.max() < BF16_MAX_REL * scale and err.mean() < BF16_MEAN_REL * scale, (
             err.max(), err.mean(), scale)
 
@@ -249,5 +283,18 @@ def test_kernel_layer1_widths_cuda(cuda_device, x_dtype, cd):
             if k in blk:
                 blk[k] *= 4.0 / np.sqrt(blk[k].shape[0])
         blk["w2"] *= 10.0 / np.sqrt(9 * blk["w2"].shape[2])
+    x = rng.normal(0, 1, (2, 64, 48, 64)).astype(np.float32)
+    _check_cuda_chain(cuda_device, x, blocks, x_dtype, cd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_dtype,cd", [("f32", "f32"), ("bf16", "bf16"), ("f32", "bf16")])
+@pytest.mark.parametrize("n_blocks", [3, 4])
+def test_kernel_no_se_layer1_cuda(cuda_device, x_dtype, cd, n_blocks):
+    """HRNet's 4-block and ResNet-50-DUC's 3-block layer1 at their widths
+    (64 -> 64 -> 256, no SE, a projection in block 0), batch 2 at 64x48:
+    the projection's direct write and the f32 carry over 3 launches."""
+    rng = np.random.default_rng(14 + n_blocks)
+    blocks = _no_se_chain_np(rng, n_blocks, 64, 64, 256)
     x = rng.normal(0, 1, (2, 64, 48, 64)).astype(np.float32)
     _check_cuda_chain(cuda_device, x, blocks, x_dtype, cd)

@@ -114,6 +114,24 @@ def test_eval_cli_gt(tmp_path):
     assert "AP" in stats and len(json.load(open(out))) == 3
 
 
+@pytest.mark.parametrize("model", [("pose_hrnet", "w32"), ("pose_resnet_duc", "resnet50")])
+def test_eval_cli_gt_other_families(tmp_path, model):
+    """``--model-type pose_hrnet --model-name w32`` and ``pose_resnet_duc``
+    with the fused layer1 and flip-test, end to end on the CPU."""
+    img_root, ann_path, _ = make_synth_coco(str(tmp_path / "coco"), num_images=2)
+    out = tmp_path / "gt.json"
+    proc = subprocess.run(
+        [sys.executable, "-m", "simple_pose_torch.eval", "gt", "--img-root", img_root,
+         "--ann", ann_path, "--model-type", model[0], "--model-name", model[1],
+         "--fused-layer1", "--flip-test", "--batch-size", "2", "--input-w", "64",
+         "--input-h", "64", "--device", "cpu", "--out", str(out)],
+        cwd=REPO, capture_output=True, text=True, timeout=300,
+        env={**os.environ, "OMP_NUM_THREADS": "1"})
+    assert proc.returncode == 0, proc.stderr
+    stats = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert "AP" in stats and len(json.load(open(out))) == 2
+
+
 _GUARD = r"""
 import importlib, pkgutil, sys
 for name in ("jax", "jaxlib", "flax", "simple_pose_tpu", "cv2"):

@@ -102,9 +102,9 @@ def test_layer1_block_names_and_registry():
     assert build_resnet("resnet50").layer1_block_names() == ["layer1.0", "layer1.1", "layer1.2"]
     assert build_resnet("resnet18").layer1_block_names() is None  # BasicBlock
     assert build_resnet("resnext50_32x4d").layer1_block_names() is None  # grouped
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model("pose_hrnet", "w32")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model("pose_resnet_duc", "resnet50")
+    hrnet = build_model("pose_hrnet", "w32")
+    assert hrnet.layer1_block_names() == ["layer1.0", "layer1.1", "layer1.2", "layer1.3"]
+    duc = build_model("pose_resnet_duc", "resnet50")
+    assert duc.head == "duc" and duc.layer1_block_names() == ["layer1.0", "layer1.1", "layer1.2"]
     with pytest.raises(KeyError):
         build_model("nope")
