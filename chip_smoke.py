@@ -1,6 +1,6 @@
 """Chip smoke test of the PyTorch + CUDA port: drives the serving path, the
-training step and the training solver on one CUDA card and holds every
-kernel against its plain PyTorch version.
+training step, the training solver and the detect -> pose programs on one
+CUDA card and holds every kernel against its plain PyTorch version.
 
     python3 chip_smoke.py
 
@@ -102,6 +102,29 @@ raises, and the script exits non-zero without a result line):
         validation on, every loss finite, the _best checkpoint into
         PoseEvaluator(pose_hrnet) with no missing and no unexpected keys.
      Each of its numbers is printed on a line of its own with the card.
+ 10. the person detector and the detect -> pose programs at full width:
+     seeded YOLOv5-l and YOLOv4-l, a 640^2 letterbox from 1280^2 BGR
+     canvases (the native loader, flipped, with the replicated border; the
+     cv2 path made to raise), conf 0.001 (seeded scores sit at the prior),
+     the fixture's 32 JPEGs, ResNet-50-DConv+SE 256x192 for pose:
+     a. each detector in f32 on the card against the CPU on the same
+        weights and letterboxed batch of 2 (boxes 1e-2 px, scores 1e-5),
+        then bf16 against f32 within the JAX package's amp bound;
+     b. NMS on the card against the CPU on the same pred (the fused
+        program's max_det 16 and gen-dets' 300, merge): equal keep masks,
+        dets 1e-5 px + 1e-6 relative; its time alone at batch 8;
+     c. gen_detections (eval gen-dets) at batch 8: images/s of a timed
+        pass after a warm one, boxes written;
+     d. detect_then_pose (eval e2e) with fused_layer1 and flip-test, the
+        launch counters zeroed just before and read just after: K2 twice
+        per pose batch; then crops/s of a second run;
+     e. fused_eval (eval fused) at batch 8 x max_people 16 for YOLOv5-l and
+        YOLOv4-l: images/s, crops/s, the valid boxes per image, peak
+        memory, CUDA-event ms of the letterbox, detector, NMS, multi-crop,
+        pose forward and decode on one batch; for YOLOv5-l the f32 pose
+        stage on the card against the CPU on the same boxes;
+     f. fused_eval with rect=True (the fixture's 640x480 run in a 640x512
+        bucket): images/s beside e.
 
 The line before the last holds the kernels' JSON; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -124,12 +147,24 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 import simple_pose_torch.data.pipeline as data_pipeline
 from simple_pose_torch.data import native
 from simple_pose_torch.data.coco import load_coco_keypoints, load_detection_boxes
+from simple_pose_torch.detector.nms import non_max_suppression
+from simple_pose_torch.detector.wrapper import (
+    YOLOv5Detector,
+    _geom_to_arrays,
+    image_batches,
+    letterbox_params,
+    read_canvases,
+)
+from simple_pose_torch.evalkit.fused import FusedDetectPose, fused_eval
 from simple_pose_torch.evalkit.workflows import (
     PoseEvaluator,
+    detect_then_pose,
+    gen_detections,
     kps_to_dicts,
     predicts_by_detections,
     rescore_and_filter,
@@ -144,6 +179,7 @@ from simple_pose_torch.ops.bottleneck_chain import (
     fold_bottleneck_blocks,
     prepare_blocks,
 )
+from simple_pose_torch.ops.decode import decode_basic
 from simple_pose_torch.ops.rotate_resample import (
     _rotate_resample_crop_cuda,
     affine_crop_two_stage,
@@ -240,6 +276,30 @@ HRNET_TRAIN_CFG = {
     "seed": 1024,
 }
 HRNET_TRAIN_TIMED = 10
+# phase 10: the person detector and the detect -> pose programs at full
+# width: YOLOv5-l / YOLOv4-l, 640^2 letterbox from 1280^2 canvases, seeded
+# init, on the phase-8 fixture.  The seeded head scores at its prior
+# (obj ~1.2e-3 at stride 8, ~2e-2 at stride 32), so everything runs at conf
+# 0.001: at 0.25 a seeded detector finds no one.
+DET_CANVAS, DET_SIZE, DET_CONF, DET_IOU = 1280, 640, 0.001, 0.5
+FUSED_BATCH, MAX_PEOPLE, DET_PARITY_BATCH = 8, 16, 2
+DET_FAMILIES = ("yolov5", "yolov4")
+# f32 detector card (cuDNN, TF32 off) vs CPU: boxes in input px, scores
+DET_F32_TOL = (1e-2, 1e-5)
+# bf16 vs f32: the JAX package's own amp bound (tests/test_detector.py:
+# 358-375): median box px, mean score
+DET_AMP_TOL = (1.0, 5e-3)
+# NMS card vs CPU on one pred: dets in px plus a relative part (merged
+# boxes are weighted means whose sums add in other orders)
+NMS_TOL = (1e-5, 1e-6)
+# timed passes over the fixture per workflow (each after a warm batch); the
+# fused runs take turns within each round
+TIMED_PASSES, E2E_PASSES = 5, 3
+FUSED_RUNS = {"yolov5": ("yolov5", False), "yolov5_rect": ("yolov5", True),
+              "yolov4": ("yolov4", False)}
+# decode_basic's keypoints on two heatmaps of one crop agree to rounding
+# where neither the peak nor its neighbour differences are tied (untied())
+KPS_UNTIED_TOL = 1e-3
 
 
 def log(*a):
@@ -258,6 +318,20 @@ def cuda_ms(fn, iters=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def busy_us(events) -> float:
+    """Union of the device events' [start, end) intervals, in us."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    total, cur_s, cur_e = 0.0, None, None
+    for s, e in spans:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    return total + (cur_e - cur_s if cur_e is not None else 0.0)
 
 
 def launch_counts() -> dict:
@@ -1347,6 +1421,365 @@ def run_other_families(card, data, data_dev):
     return {fam: (*chains[fam], serving[fam]["bottleneck_chain"]) for fam in chains}
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the person detector and the detect -> pose programs
+# ---------------------------------------------------------------------------
+
+
+def fixture_canvases(n):
+    """The fixture's first ``n`` JPEGs as the detector reads them: BGR
+    canvases with the replicated border, through the native loader."""
+    names = sorted(f for f in os.listdir(DET_IMAGES) if f.endswith(".jpg"))[:n]
+    return read_canvases([os.path.join(DET_IMAGES, f) for f in names], DET_CANVAS,
+                         native.NativeCanvasLoader(8))
+
+
+def detector_kw(family, **kw):
+    return dict(scale_name="l", scale_size=(DET_SIZE, DET_SIZE), conf_thresh=DET_CONF,
+                iou_thresh=DET_IOU, canvas=DET_CANVAS, model_family=family, **kw)
+
+
+@torch.no_grad()
+def check_detector(family, canvases, shapes):
+    """10a: the f32 detector on the card against the CPU on the same seeded
+    weights and letterboxed batch, then bf16 against f32 on the card."""
+    geom = [letterbox_params(h, w, (DET_SIZE, DET_SIZE)) for h, w in shapes]
+    trans, region = _geom_to_arrays(geom)
+    args = [torch.from_numpy(a) for a in (canvases, trans, region)]
+    preds = {}
+    for name, kw in (("cpu_f32", dict(amp=False, device="cpu")), ("f32", dict(amp=False)),
+                     ("bf16", dict(amp="auto"))):
+        det = YOLOv5Detector(**detector_kw(family, **kw))
+        preds[name] = det.forward(*(a.to(det.device) for a in args), DET_SIZE, DET_SIZE).cpu()
+        del det
+    ref, p32, p16 = preds["cpu_f32"], preds["f32"], preds["bf16"]
+    out = {"box_err_f32_vs_cpu_px": (p32[..., :4] - ref[..., :4]).abs().max().item(),
+           "score_err_f32_vs_cpu": (p32[..., 4:] - ref[..., 4:]).abs().max().item(),
+           "box_median_bf16_vs_f32_px": (p16[..., :4] - p32[..., :4]).abs().median().item(),
+           "score_mean_bf16_vs_f32": (p16[..., 4:] - p32[..., 4:]).abs().mean().item(),
+           "pred_shape": list(p16.shape), "finite": bool(torch.isfinite(p16).all())}
+    assert out["finite"] and out["box_err_f32_vs_cpu_px"] <= DET_F32_TOL[0], out
+    assert out["score_err_f32_vs_cpu"] <= DET_F32_TOL[1], out
+    assert out["box_median_bf16_vs_f32_px"] < DET_AMP_TOL[0], out
+    assert out["score_mean_bf16_vs_f32"] < DET_AMP_TOL[1], out
+    return out
+
+
+def check_nms(pred):
+    """10b: NMS on the card against the CPU on the same pred (the fused
+    program's settings and gen-dets'), and its time alone."""
+    out = {}
+    for name, kw in (("fused", dict(max_det=MAX_PEOPLE)), ("gen_dets", dict(max_det=300))):
+        kw = dict(conf_thresh=DET_CONF, iou_thresh=DET_IOU, multi_label=True, merge=True, **kw)
+        gd, gv = non_max_suppression(pred, **kw)
+        cd, cv = non_max_suppression(pred.cpu(), **kw)
+        gd, gv = gd.cpu(), gv.cpu()
+        err = ((gd - cd).abs() - NMS_TOL[1] * cd.abs()).max().item()
+        out[name] = {"keep_equal": bool(torch.equal(gv, cv)),
+                     "dets_max_abs_err_px": (gd - cd).abs().max().item(),
+                     "valid_per_image": gv.sum(-1).tolist(),
+                     "ms": cuda_ms(lambda: non_max_suppression(pred, **kw), iters=10, warmup=2)}
+        assert out[name]["keep_equal"] and err <= NMS_TOL[0], (name, out[name])
+    return out
+
+
+def pass_rates(seconds, units):
+    """``units`` per second in each timed pass, and their median, min, max."""
+    rates = [units / s for s in seconds]
+    return {"median": float(np.median(rates)), "min": min(rates), "max": max(rates),
+            "per_pass": rates}
+
+
+def timed_passes(fn, passes):
+    """Host seconds of each of ``passes`` calls of ``fn``, each from a
+    synchronised card; the last call's result."""
+    seconds = []
+    for _ in range(passes):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = fn()
+        seconds.append(time.perf_counter() - t0)
+    return seconds, result
+
+
+def run_gen_dets(workdir, family="yolov5"):
+    """10c: gen_detections over the fixture, a warm batch then
+    TIMED_PASSES timed passes."""
+    det = YOLOv5Detector(**detector_kw(family))
+    out_path = os.path.join(workdir, "person_detections.json")
+    kw = dict(detector=det, out_path=out_path, batch_size=FUSED_BATCH, canvas=DET_CANVAS,
+              use_native=True)
+    gen_detections(DET_IMAGES, DET_GT, debug=FUSED_BATCH, **kw)
+    seconds, results = timed_passes(lambda: gen_detections(DET_IMAGES, DET_GT, **kw),
+                                    TIMED_PASSES)
+    with open(DET_GT) as f:
+        n_images = len(json.load(f)["images"])
+    per_image = np.bincount([r["image_id"] for r in results])[1:]
+    assert len(per_image) == n_images and per_image.min() > 0
+    return {"images_per_s": pass_rates(seconds, n_images), "seconds": seconds,
+            "images": n_images, "boxes_written": len(results),
+            "boxes_per_image_min": int(per_image.min()),
+            "boxes_per_image_max": int(per_image.max()),
+            "timed": "native decode + BGR flip and border, H2D, letterbox, YOLOv5-l bf16, "
+                     "NMS (max_det 300, merge), D2H, unletterbox, JSON"}
+
+
+def run_e2e(workdir):
+    """10d: detect_then_pose (eval e2e) with fused_layer1 and flip-test: the
+    counted run, then E2E_PASSES timed ones."""
+    kw = dict(scale_name="l", det_conf=DET_CONF, det_iou=DET_IOU, batch_size=DET_BATCH,
+              input_shape=INPUT_SHAPE, flip_test=True, work_dir=workdir, fused_layer1=True,
+              use_native=True)
+    zero_launch_counts()
+    stats = detect_then_pose(DET_IMAGES, DET_GT, CFG, None, None, **kw)
+    launches = launch_counts()
+    det_json = os.path.join(workdir, "person_detections.json")
+    records = load_detection_boxes(DET_IMAGES, det_json)
+    batches = len(data_pipeline.DetBoxPipeline(
+        records, DET_BATCH, canvas=CANVAS, use_native=False,
+        dedup_canvases=DET_BATCH // 2)._pack_epoch(0))
+    stats = {k: float(v) for k, v in stats.items()}
+    log(f"phase 10d, e2e: launches {launches}; {len(records)} detections in {batches} pose "
+        f"batches; stats (seeded random weights) {json.dumps(stats)}")
+    assert launches["bottleneck_chain"] == 2 * batches, (launches, batches)
+    assert launches["rotate_resample_crop"] == 0 and launches["rotate_resample"] == 0
+    assert all(np.isfinite(list(stats.values()))) and 0.0 <= stats["AP"] <= 1.0
+    seconds, _ = timed_passes(lambda: detect_then_pose(DET_IMAGES, DET_GT, CFG, None, None, **kw),
+                              E2E_PASSES)
+    return launches, batches, stats, {
+        "crops_per_s": pass_rates(seconds, len(records)), "crops": len(records),
+        "seconds": seconds,
+        "timed": "gen-dets (YOLOv5-l bf16) + predicts_by_detections (ResNet-50-DConv+SE "
+                 f"bf16, fused_layer1, flip-test, batch {DET_BATCH}) + rescoring + COCO eval"}
+
+
+@torch.no_grad()
+def stage_times(fused, canvases, shapes):
+    """CUDA-event ms of each step of the two stages on one batch."""
+    args = fused.prepare(canvases, shapes)
+    th, tw = args[-2:]
+    x = fused.letterbox(*args[:3], th, tw)
+    pred = fused.detector.model(x)
+    det = fused.detect(*args)
+    xp, trans_inv = fused.crops(args[0], det["boxes"])
+    heat = fused.pose_forward(xp)
+    ms = {"letterbox": cuda_ms(lambda: fused.letterbox(*args[:3], th, tw)),
+          "detector_forward": cuda_ms(lambda: fused.detector.model(x)),
+          "nms": cuda_ms(lambda: fused.nms(pred), iters=10, warmup=2),
+          "multi_crop": cuda_ms(lambda: fused.crops(args[0], det["boxes"])),
+          "pose_forward": cuda_ms(lambda: fused.pose_forward(xp)),
+          "decode": cuda_ms(lambda: fused._decode(heat, trans_inv))}
+    ms["whole_batch"] = cuda_ms(lambda: fused(canvases, shapes), iters=5, warmup=1)
+    return ms, pred, det
+
+
+def untied(heat, err):
+    """[N, J] bool: the maps whose decode_basic keypoint no per-pixel change
+    of at most ``err`` can move: the peak clear of the second-highest pixel,
+    and (where decode_basic shifts) both neighbour differences clear of
+    zero, by more than 2 * err."""
+    n, j, h, w = heat.shape
+    flat = heat.float().reshape(n, j, h * w)
+    top2 = flat.topk(2, dim=-1).values
+    idx = flat.argmax(-1)
+    y, x = idx // w, idx % w
+    xc, yc = x.clamp(1, w - 2), y.clamp(1, h - 2)
+    v = torch.gather(flat, -1, torch.stack([yc * w + xc + 1, yc * w + xc - 1,
+                                            (yc + 1) * w + xc, (yc - 1) * w + xc], -1))
+    shifts = (x > 1) & (x < w - 1) & (y > 1) & (y < h - 1)
+    margin = torch.minimum((v[..., 0] - v[..., 1]).abs(), (v[..., 2] - v[..., 3]).abs())
+    return (top2[..., 0] - top2[..., 1] > 2 * err) & (~shifts | (margin > 2 * err))
+
+
+def compare_pose(got, want):
+    """Heatmaps and confidences relative to max|want|; decode_basic's
+    keypoints on the untied maps, and the program's own (gauss_taylor)
+    keypoints on all of them."""
+    (xg, hg, kg, bg, cg), (xw, hw, kw, bw, cw) = got, want
+    err, heat_max_rel, heat_mean_rel = errors(hg, hw)
+    keep = untied(hw, err)
+    d = (kg - kw).abs().amax(-1)
+    db = (bg - bw).abs().amax(-1)[keep]
+    return {"crop_max_abs_err": (xg.float() - xw.float()).abs().max().item(),
+            "heat_max_rel": heat_max_rel, "heat_mean_rel": heat_mean_rel,
+            "conf_max_rel": errors(cg, cw)[1], "conf_mean_rel": errors(cg, cw)[2],
+            "untied_share": keep.float().mean().item(),
+            "basic_kps_untied_max_px": db.max().item() if db.numel() else None,
+            "kps_median_px": d.median().item(), "kps_max_px": d.max().item(),
+            "kps_share_within_1px": (d < 1.0).float().mean().item()}
+
+
+@torch.no_grad()
+def check_pose_stage(canvases, shapes, boxes):
+    """10e: the pose stage on the same boxes (the first two images): f32 on
+    the card against the CPU, and the card's bf16 program (the one users
+    run: crops written in bf16 before the flip, /255 and the mean, as JAX
+    writes them) against its f32 one.  Crops, heatmaps, confidences,
+    keypoints."""
+    n = 2
+    kw = dict(scale_name="l", det_size=(DET_SIZE, DET_SIZE), input_shape=INPUT_SHAPE,
+              max_people=MAX_PEOPLE, det_conf=DET_CONF, det_iou=DET_IOU, canvas=DET_CANVAS)
+    outs = {}
+    for name, prog_kw in (("card_f32", dict(amp=False)), ("card_bf16", dict(amp="auto")),
+                          ("cpu_f32", dict(amp=False, device="cpu"))):
+        fused = FusedDetectPose(CFG, None, None, **prog_kw, **kw)
+        c = torch.from_numpy(canvases[:n]).to(fused.device)
+        x, trans_inv = fused.crops(c, boxes[:n].to(fused.device))
+        heat = fused.pose_forward(x)
+        kps, conf = fused._decode(heat, trans_inv)
+        basic, _ = decode_basic(heat, trans_inv)
+        outs[name] = [t.cpu() for t in (x, heat, kps, basic, conf)]
+        del fused
+    out = {"f32_card_vs_cpu": compare_pose(outs["card_f32"], outs["cpu_f32"]),
+           "bf16_vs_f32_card": compare_pose(outs["card_bf16"], outs["card_f32"])}
+    f32, bf16 = out["f32_card_vs_cpu"], out["bf16_vs_f32_card"]
+    assert f32["heat_max_rel"] < F32_HEAT_REL and f32["conf_max_rel"] < F32_HEAT_REL, out
+    for key, (tol_max, tol_mean) in (("heat", FUSED_HEAT_TOL), ("conf", FUSED_HEAT_TOL)):
+        assert bf16[f"{key}_max_rel"] < tol_max and bf16[f"{key}_mean_rel"] < tol_mean, out
+    for r in out.values():
+        assert r["untied_share"] > 0 and r["basic_kps_untied_max_px"] <= KPS_UNTIED_TOL, out
+    return out
+
+
+@torch.no_grad()
+def profile_fused_pass(kw):
+    """One fused_eval pass under torch.profiler: the device's busy time
+    (the union of its kernels and copies) over the pass's host window."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fused_eval(DET_IMAGES, DET_GT, CFG, **kw)
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = busy_us(events) / 1e3
+    return {"window_ms": window_ms, "device_busy_ms": busy_ms, "device_events": len(events),
+            "device_idle_share": 1.0 - busy_ms / window_ms if events else None}
+
+
+def host_parts_ms(raw_path, filtered_path):
+    """Host-only parts of one fused_eval pass, each alone: decoding the
+    fixture into batches of canvases, and the rescoring with COCO eval."""
+    with open(DET_GT) as f:
+        images = json.load(f)["images"]
+    loader = native.NativeCanvasLoader(8)
+    t0 = time.perf_counter()
+    for _ in image_batches(DET_IMAGES, images, FUSED_BATCH, DET_CANVAS, loader):
+        pass
+    t1 = time.perf_counter()
+    rescore_and_filter(raw_path, DET_GT, 0.2, 0.9, filtered_path)
+    return {"decode_and_pack": (t1 - t0) * 1e3, "rescore_and_coco_eval":
+            (time.perf_counter() - t1) * 1e3}
+
+
+def run_fused(workdir):
+    """10e/10f: fused_eval over the fixture for each of FUSED_RUNS: a warm
+    batch each, then TIMED_PASSES rounds that run each once (the order
+    turned each round) with each pass's peak memory; one profiled pass and
+    the host-only parts of YOLOv5-l's; then each run's checks and stage
+    times on one batch."""
+    programs = {name: FusedDetectPose(
+        CFG, None, None, scale_name="l", det_size=(DET_SIZE, DET_SIZE),
+        input_shape=INPUT_SHAPE, max_people=MAX_PEOPLE, det_conf=DET_CONF, det_iou=DET_IOU,
+        canvas=DET_CANVAS, detector_family=family, rect=rect)
+        for name, (family, rect) in FUSED_RUNS.items()}
+    kws = {name: dict(fused=fused, batch_size=FUSED_BATCH, input_shape=INPUT_SHAPE,
+                      max_people=MAX_PEOPLE, canvas=DET_CANVAS, use_native=True,
+                      out_path=os.path.join(workdir, f"fused_{name}.json"),
+                      filtered_out_path=os.path.join(workdir, f"fused_{name}_filtered.json"))
+           for name, fused in programs.items()}
+    for kw in kws.values():
+        fused_eval(DET_IMAGES, DET_GT, CFG, debug=FUSED_BATCH, **kw)
+    names = list(kws)
+    seconds = {name: [] for name in names}
+    peak = {name: [0.0, 0.0] for name in names}  # GiB: peak, peak above the resident
+    stats = {}
+    for r in range(TIMED_PASSES):
+        for name in names[r % len(names):] + names[:r % len(names)]:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            resident = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            stats[name] = fused_eval(DET_IMAGES, DET_GT, CFG, **kws[name])
+            seconds[name].append(time.perf_counter() - t0)
+            top = torch.cuda.max_memory_allocated()
+            peak[name] = [max(peak[name][0], top / 2**30),
+                          max(peak[name][1], (top - resident) / 2**30)]
+    profiled = profile_fused_pass(kws["yolov5"])
+    profiled["host_parts_ms"] = host_parts_ms(kws["yolov5"]["out_path"],
+                                              kws["yolov5"]["filtered_out_path"])
+    canvases, shapes = fixture_canvases(FUSED_BATCH)
+    out, first = {}, {}
+    for name, fused in programs.items():
+        with open(kws[name]["out_path"]) as f:
+            preds = json.load(f)
+        per_image = np.bincount([p["img_id"] for p in preds])[1:]
+        s = {k: float(v) for k, v in stats[name].items()}
+        assert all(np.isfinite(list(s.values()))) and 0.0 <= s["AP"] <= 1.0
+        assert all(np.isfinite(p["kps"]).all() for p in preds)
+        ms, pred, det = stage_times(fused, canvases, shapes)
+        if name == "yolov5":
+            first = {"pred": pred, "det": det}
+        out[name] = {
+            "images_per_s": pass_rates(seconds[name], len(per_image)),
+            "crops_per_s": pass_rates(seconds[name], len(preds)), "seconds": seconds[name],
+            "images": len(per_image), "crops": len(preds),
+            "valid_boxes_per_image": per_image.tolist(),
+            "max_memory_allocated_gib": peak[name][0],
+            "max_memory_above_resident_gib": peak[name][1], "stage_ms": ms, "stats": s,
+            "bucket": list(fused._pick_bucket(shapes)) if fused.rect else [DET_SIZE, DET_SIZE],
+            "timed": "fused_eval: native decode + BGR flip and border, H2D, detect stage, "
+                     "pose stage, D2H, rescoring, COCO eval"}
+    out["yolov5"]["profiled_pass"] = profiled
+    del programs, kws
+    return out, first["pred"], first["det"], canvases, shapes
+
+
+def run_detector_path(card):
+    """Phase 10.  Returns the summary for the log and K2's e2e launches."""
+    t_phase = time.perf_counter()
+    orig, data_pipeline._imread_rgb = data_pipeline._imread_rgb, _no_cv2
+    summary = {"card": card}
+    try:
+        canvases, shapes = fixture_canvases(DET_PARITY_BATCH)
+        for family in DET_FAMILIES:
+            t0 = time.perf_counter()
+            summary[f"10a_{family}"] = check_detector(family, canvases, shapes)
+            report_numbers(card, f"phase 10a, {family}-l detector", summary[f"10a_{family}"])
+            log(f"phase 10a, {family}: {time.perf_counter() - t0:.1f} s")
+        with tempfile.TemporaryDirectory() as workdir:
+            t0 = time.perf_counter()
+            summary["10c_gen_dets"] = run_gen_dets(workdir)
+            report_numbers(card, "phase 10c, gen-dets (YOLOv5-l bf16, batch "
+                           f"{FUSED_BATCH}, conf {DET_CONF})", summary["10c_gen_dets"])
+            log(f"phase 10c: {time.perf_counter() - t0:.1f} s")
+            t0 = time.perf_counter()
+            launches, batches, stats, rates = run_e2e(workdir)
+            summary["10d_e2e"] = {"launches": launches, "pose_batches": batches,
+                                  "stats": stats, **rates}
+            report_numbers(card, "phase 10d, e2e (fused_layer1, flip-test)", rates)
+            log(f"phase 10d: {time.perf_counter() - t0:.1f} s")
+            t0 = time.perf_counter()
+            fused_runs, pred, det, b_canvases, b_shapes = run_fused(workdir)
+            summary["10b_nms"] = check_nms(pred)
+            report_numbers(card, f"phase 10b, NMS card vs CPU at batch {FUSED_BATCH}",
+                           summary["10b_nms"])
+            fused_runs["yolov5"]["pose_stage"] = check_pose_stage(b_canvases, b_shapes,
+                                                                  det["boxes"])
+            del pred, det
+            torch.cuda.empty_cache()
+            for name, out in fused_runs.items():
+                key = "10f_fused_rect" if name == "yolov5_rect" else f"10e_fused_{name}"
+                summary[key] = out
+                report_numbers(card, f"phase {key[:3]}, fused {name} at batch {FUSED_BATCH} x "
+                               f"{MAX_PEOPLE}", out)
+            log(f"phase 10e/10f: {time.perf_counter() - t0:.1f} s")
+    finally:
+        data_pipeline._imread_rgb = orig
+    log(f"phase 10: {time.perf_counter() - t_phase:.1f} s")
+    return summary, summary["10d_e2e"]["launches"]["bottleneck_chain"]
+
+
 def k2_row(name, launches, report, row):
     """A K2 row of the kernels' JSON line."""
     return {
@@ -1415,10 +1848,13 @@ def main() -> int:
     jpeg = run_jpeg_path(card, solver["host_only_batches_per_s"])
     log("phase 8: " + json.dumps(jpeg))
     families = run_other_families(card, data, data_dev)
+    detector, e2e_launches = run_detector_path(card)
+    log("phase 10: " + json.dumps(detector))
 
     kernels = [{**k2_row("bottleneck_chain", launches["bottleneck_chain"], report,
                          timing[f"b{BATCH}_bf16"]),
-                "launches_detections": jpeg["launches"]["bottleneck_chain"]}]
+                "launches_detections": jpeg["launches"]["bottleneck_chain"],
+                "launches_e2e": e2e_launches}]
     for fam, (fam_report, fam_timing, fam_launches) in families.items():
         kernels.append({**k2_row(f"bottleneck_chain ({fam} layer1)", fam_launches, fam_report,
                                  fam_timing[f"b{BATCH}_bf16"]),

@@ -32,7 +32,8 @@ from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from chip_smoke import CROP_HW, HEAT_HW, HRNET_TRAIN_CFG, TRAIN_CFG, train_inputs  # noqa: E402
+from chip_smoke import (  # noqa: E402
+    CROP_HW, HEAT_HW, HRNET_TRAIN_CFG, TRAIN_CFG, busy_us, train_inputs)
 from simple_pose_torch.train.solver import init_train_state, make_train_step  # noqa: E402
 
 CONFIGS = {"fast_pose": TRAIN_CFG, "hrnet_w32": HRNET_TRAIN_CFG}
@@ -52,20 +53,6 @@ def group_of(name: str) -> str:
         if any(k in low for k in keys):
             return group
     return "other"
-
-
-def busy_us(events) -> float:
-    """Union of the device kernels' [start, end) intervals, in us."""
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
-    total, cur_s, cur_e = 0.0, None, None
-    for s, e in spans:
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                total += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    return total + (cur_e - cur_s if cur_e is not None else 0.0)
 
 
 def main() -> int:

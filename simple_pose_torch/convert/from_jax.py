@@ -26,6 +26,16 @@ so the same weights run in both packages:
 
 The two families' flax names are disjoint apart from ``conv1``, ``bn1`` and
 ``final_layer``, which map alike, so no family argument is needed.
+
+``detector_flax_to_torch_state`` does the same for the YOLOv5/YOLOv4
+detectors, the inverse of the JAX generic converter
+(torch2flax.py:218-271): the flax scopes there are the torch module paths
+with each Sequential or ModuleList index folded into its parent's name
+(``layer1.0`` -> ``layer1_0``, ``conv1_s.0`` -> ``conv1_s_0``,
+``heads.0`` -> ``heads_0``).  That fold cannot be undone from a name alone
+(``conv1_0`` is an attribute of BottleNeckCSP but ``conv1.0`` of
+BottleNeckCSP2), so the torch model's own keys are folded the same way and
+looked up.
 """
 
 from __future__ import annotations
@@ -35,9 +45,10 @@ import re
 import numpy as np
 import torch
 
-__all__ = ["flax_to_torch_state", "load_jax_train_state"]
+__all__ = ["flax_to_torch_state", "detector_flax_to_torch_state", "load_jax_train_state"]
 
 _BN_LEAF = {"scale": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var"}
+_FLAX_BN_LEAF = {v: k for k, v in _BN_LEAF.items()}
 
 # flax residual-block name -> torch module path of the block
 _BLOCK_NAMES = (
@@ -125,6 +136,53 @@ def flax_to_torch_state(variables) -> dict:
                 state[f"{module}.weight"] = t.permute(*perm).contiguous()
             else:
                 state[f"{module}.bias"] = t
+    return state
+
+
+def _fold_digits(parts):
+    """['backbones', 'layer1', '0', 'conv'] -> ['backbones', 'layer1_0',
+    'conv'] (the JAX converter's _merge_digit_components)."""
+    out = []
+    for p in parts:
+        if p.isdigit() and out:
+            out[-1] = f"{out[-1]}_{p}"
+        else:
+            out.append(p)
+    return out
+
+
+def detector_flax_to_torch_state(variables, model: torch.nn.Module) -> dict:
+    """:param variables: flax YOLOv5 or YOLOv4 variables (numpy or jax arrays)
+    :param model: the port's detector of the same configuration, whose
+        state_dict keys name the result
+    :returns: {reference key: torch f32 tensor}
+    :raises KeyError: where a key of ``model`` has no flax leaf, or a flax
+        leaf no key"""
+    flat = {(coll,) + path: arr for coll in ("params", "batch_stats")
+            for path, arr in _leaves(variables.get(coll, {}))}
+    keys = list(model.state_dict())
+    bn = {k.rsplit(".", 1)[0] for k in keys if k.endswith("running_mean")}
+    state, used = {}, set()
+    for key in keys:
+        prefix, leaf = key.rsplit(".", 1)
+        path = tuple(_fold_digits(prefix.split(".")))
+        if prefix in bn:
+            if leaf == "num_batches_tracked":
+                state[key] = torch.zeros((), dtype=torch.long)
+                continue
+            name = _FLAX_BN_LEAF[leaf]
+            coll = "params" if leaf in ("weight", "bias") else "batch_stats"
+        else:
+            coll, name = "params", "kernel" if leaf == "weight" else "bias"
+        src = (coll,) + path + (name,)
+        if src not in flat:
+            raise KeyError(f"no flax leaf {'/'.join(src)} for {key}")
+        used.add(src)
+        t = torch.from_numpy(np.array(flat[src], dtype=np.float32))
+        state[key] = t.permute(3, 2, 0, 1).contiguous() if t.ndim == 4 else t
+    left = set(flat) - used
+    if left:
+        raise KeyError(f"flax leaves with no torch key: {sorted('/'.join(p) for p in left)[:4]}")
     return state
 
 

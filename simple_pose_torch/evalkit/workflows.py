@@ -15,6 +15,10 @@ Port of simple_pose_tpu/evalkit/workflows.py:53-72, 146-474.
                               (box score * mean(kp conf > 0.2)) + OKS-NMS
                               at 0.9, then COCO AP
   * kps_to_dicts           -> COCO result dicts
+  * gen_detections         -> eval.py:69-98: the person detector over the
+                              val images, written as COCO detection results
+  * detect_then_pose       -> gen_detections chained into
+                              predicts_by_detections (README.md:94-106)
 
 Flip-test forwards the horizontally flipped crop, flips the heatmaps back,
 swaps left/right channels, shifts them one pixel right (the SimpleBaselines
@@ -22,13 +26,14 @@ convention) and averages.  ``weights`` is a reference .pth checkpoint
 (``['ema']`` if present) or an in-memory state_dict under the reference's
 key names; none means the seeded init.
 
-Quantization, the detector and the multi-device mesh are not ported yet
-(ROADMAP.md).
+The fused detect -> pose program is evalkit/fused.py.  Quantization and
+the multi-device mesh are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import json
+import os
 from collections import defaultdict
 from typing import Union
 
@@ -36,7 +41,7 @@ import numpy as np
 import torch
 
 from simple_pose_torch.data.coco import JOINT_PAIRS, load_coco_keypoints, load_detection_boxes
-from simple_pose_torch.data.pipeline import RGB_MEAN, DetBoxPipeline, PosePipeline
+from simple_pose_torch.data.pipeline import RGB_MEAN, DetBoxPipeline, PosePipeline, _native_loader
 from simple_pose_torch.metrics.cocoeval import evaluate_map
 from simple_pose_torch.models.registry import build_from_cfg, resolve_amp_dtype
 from simple_pose_torch.ops.bottleneck_chain import fold_bottleneck_blocks, prepare_blocks
@@ -51,7 +56,7 @@ from simple_pose_torch.ops.warp import affine_crop_separable
 from simple_pose_torch.utils.device import resolve_device
 
 __all__ = ["PoseEvaluator", "predicts_by_gt", "predicts_by_detections", "rescore_and_filter",
-           "kps_to_dicts", "load_model_variables"]
+           "kps_to_dicts", "load_model_variables", "gen_detections", "detect_then_pose"]
 
 _DECODERS = {"basic": decode_basic, "gauss_taylor": decode_gauss_taylor,
              "dark_original": None}  # None: decoded on the host
@@ -216,15 +221,17 @@ def predicts_by_detections(img_root, det_json_path, gt_ann_path, model_cfg, weig
                            flip_test=False, out_path="predicts_kps_temp.json", canvas=640,
                            in_vis_thre=0.2, oks_thre=0.9, debug=0, dedup=True, amp="auto",
                            fused_layer1=False, device=None,
-                           filtered_out_path="filter_kps_predicts.json"):
+                           filtered_out_path="filter_kps_predicts.json", use_native=None):
     """Detector-box eval + OKS-NMS rescoring (eval.py:101-150 + 153-197).
 
     Writes the raw predictions to ``out_path`` and the rescored, filtered
-    ones to ``filtered_out_path``.  Returns the stats dict of the latter."""
+    ones to ``filtered_out_path``.  ``use_native`` as for data/pipeline.
+    Returns the stats dict of the latter."""
     records = load_detection_boxes(img_root, det_json_path, debug=debug)
     pipe = DetBoxPipeline(records, batch_size, input_shape=input_shape,
                           output_shape=(input_shape[0] // 4, input_shape[1] // 4),
-                          canvas=canvas, **_dedup_plan(batch_size, dedup))
+                          canvas=canvas, use_native=use_native,
+                          **_dedup_plan(batch_size, dedup))
     ev = PoseEvaluator(model_cfg, weights, input_shape, decoder, flip_test, amp=amp,
                        fused_layer1=fused_layer1, device=device)
     predictions = []
@@ -284,3 +291,62 @@ def rescore_and_filter(predictions, gt_ann_path, in_vis_thre=0.2, oks_thre=0.9,
     with open(out_path, "w") as wf:
         json.dump(filtered, wf)
     return evaluate_map(out_path, gt_ann_path)
+
+
+def gen_detections(img_root, ann_path, detector=None, out_path="person_detections.json",
+                   batch_size=8, conf_thresh=0.25, iou_thresh=0.5, canvas=1280,
+                   weights_path=None, scale_name="l", debug=0, detector_family="yolov5",
+                   amp="auto", device=None, use_native=None):
+    """Run the person detector over the val images and write COCO detection
+    results (gen_data_by_detector parity, eval.py:69-98, in the standard
+    schema, so the output feeds predicts_by_detections).
+
+    ``detector`` is a detector/wrapper.YOLOv5Detector; without one it is
+    built from the other arguments.  Batches have a fixed size; the last is
+    padded with empty canvases.  JPEGs decode through the native loader
+    (see data/pipeline's ``use_native``).  Returns the result list."""
+    from simple_pose_torch.detector.wrapper import YOLOv5Detector, image_batches
+
+    if detector is None:
+        detector = YOLOv5Detector(weights_path=weights_path, scale_name=scale_name,
+                                  conf_thresh=conf_thresh, iou_thresh=iou_thresh, canvas=canvas,
+                                  model_family=detector_family, amp=amp, device=device)
+    with open(ann_path) as rf:
+        images = json.load(rf)["images"]
+    if debug:
+        images = images[:debug]
+    loader = _native_loader(use_native, 8)
+    results = []
+    for chunk, canvases, shapes in image_batches(img_root, images, batch_size, canvas, loader):
+        for entry, boxes in zip(chunk, detector.predict_batch(canvases, shapes)):
+            for x1, y1, x2, y2, score, _cls in boxes:
+                results.append({
+                    "image_id": entry["id"], "category_id": 1,
+                    "bbox": [float(x1), float(y1), float(x2 - x1), float(y2 - y1)],
+                    "score": float(score),
+                })
+    with open(out_path, "w") as wf:
+        json.dump(results, wf)
+    return results
+
+
+def detect_then_pose(img_root, ann_path, pose_model_cfg, pose_weights=None,
+                     detector_weights=None, scale_name="l", det_conf=0.25, det_iou=0.5,
+                     batch_size=32, input_shape=(192, 256), flip_test=False, work_dir=".",
+                     debug=0, detector_family="yolov5", amp="auto", fused_layer1=False,
+                     decoder="gauss_taylor", device=None, use_native=None):
+    """End-to-end detect -> crop -> pose -> rescoring AP (README.md:94-106):
+    gen_detections into ``work_dir``/person_detections.json, then
+    predicts_by_detections on it, with ``flip_test`` and ``fused_layer1``
+    passed through.  Returns the stats dict."""
+    det_path = os.path.join(work_dir, "person_detections.json")
+    gen_detections(img_root, ann_path, out_path=det_path, conf_thresh=det_conf,
+                   iou_thresh=det_iou, weights_path=detector_weights, scale_name=scale_name,
+                   debug=debug, detector_family=detector_family, amp=amp, device=device,
+                   use_native=use_native)
+    return predicts_by_detections(
+        img_root, det_path, ann_path, pose_model_cfg, weights=pose_weights,
+        batch_size=batch_size, input_shape=input_shape, decoder=decoder, flip_test=flip_test,
+        out_path=os.path.join(work_dir, "predicts_kps_temp.json"), amp=amp,
+        fused_layer1=fused_layer1, device=device, use_native=use_native,
+        filtered_out_path=os.path.join(work_dir, "filter_kps_predicts.json"))
