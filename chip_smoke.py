@@ -1,6 +1,7 @@
 """Chip smoke test of the PyTorch + CUDA port: drives the serving path, the
-training step, the training solver and the detect -> pose programs on one
-CUDA card and holds every kernel against its plain PyTorch version.
+training step, the training solver, the detect -> pose programs, W8A8
+serving and the serving export on one CUDA card and holds every kernel
+against its plain PyTorch version.
 
     python3 chip_smoke.py
 
@@ -125,6 +126,35 @@ raises, and the script exits non-zero without a result line):
         stage on the card against the CPU on the same boxes;
      f. fused_eval with rect=True (the fixture's 640x480 run in a 640x512
         bucket): images/s beside e.
+ 11. W8A8 and the serving export (models/quant.py, evalkit/export.py):
+     a. one quantized forward of a seeded ResNet-50+SE (bf16, 2 crops) and
+        of YOLOv5-l (bf16, one 640^2 image): every conv's int32 product on
+        the card's route (torch._int_mm over the patches) equal to the plain
+        version (float64, cuDNN off), counted; at the serving batch 128 the
+        stem, layer2.1.conv2 (3x3) and layer4.1.conv1 (1x1) timed: the
+        route, torch._int_mm alone, the whole quantized conv, cuDNN's bf16
+        conv, the plain version, and the bound at 1979 TOP/s int8;
+     b. PoseEvaluator(quant='w8a8', bf16, fused_layer1, flip-test) at batch
+        128 with the launch counters zeroed just before and read just after
+        (K2 twice, the int8 route on every other conv, twice), every int8
+        product of that run held against the plain version; crops/s in
+        turns with bf16, dynamic then after calibrate() on two batches; the
+        quantized vs bf16 heatmaps' cosine (> 0.99); f32 card vs CPU on the
+        same static scales for two seeds of 2 crops: the first conv whose
+        x8 differs, its flips and the inputs' difference up to it, the
+        heatmaps' error beside the card's bf16 vs f32 control;
+     c. gen-dets and fused (YOLOv5-l) with quant='w8a8', quant_calib=2 on
+        the fixture (the fused run at batch 8 with every int8 product held
+        against the plain version), then 3 timed passes each on the
+        written scales, beside phase 10's float medians;
+     d. the flagship (bf16, fused_layer1) and its w8a8 version on 11b's
+        scales exported at batch 64 on a 640 canvas, saved, loaded in a
+        fresh process that imports torch and the op registrations only:
+        its outputs against the live evaluator's, artifact bytes, export
+        and load seconds, crops/s loaded and live, the launches of K2 and
+        of the int8 route there; then the f32 w8a8 evaluator traced on the
+        CPU and moved to the card in that process (the int8 route and K2
+        run there) against the live f32 one on the card.
 
 The line before the last holds the kernels' JSON; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -155,11 +185,13 @@ from simple_pose_torch.data.coco import load_coco_keypoints, load_detection_boxe
 from simple_pose_torch.detector.nms import non_max_suppression
 from simple_pose_torch.detector.wrapper import (
     YOLOv5Detector,
+    build_detector,
     _geom_to_arrays,
     image_batches,
     letterbox_params,
     read_canvases,
 )
+from simple_pose_torch.evalkit.export import export_evaluator, save_exported
 from simple_pose_torch.evalkit.fused import FusedDetectPose, fused_eval
 from simple_pose_torch.evalkit.workflows import (
     PoseEvaluator,
@@ -170,7 +202,9 @@ from simple_pose_torch.evalkit.workflows import (
     rescore_and_filter,
 )
 from simple_pose_torch.metrics.cocoeval import evaluate_map
+from simple_pose_torch.models import quant
 from simple_pose_torch.models.hrnet import build_hrnet
+from simple_pose_torch.models.quant import quantized
 from simple_pose_torch.models.resnet import build_resnet
 from simple_pose_torch.ops import affine as A
 from simple_pose_torch.ops.bottleneck_chain import (
@@ -179,7 +213,9 @@ from simple_pose_torch.ops.bottleneck_chain import (
     fold_bottleneck_blocks,
     prepare_blocks,
 )
+from simple_pose_torch.ops import int8_conv as i8
 from simple_pose_torch.ops.decode import decode_basic
+from simple_pose_torch.ops.int8_conv import int8_conv
 from simple_pose_torch.ops.rotate_resample import (
     _rotate_resample_crop_cuda,
     affine_crop_two_stage,
@@ -300,6 +336,30 @@ FUSED_RUNS = {"yolov5": ("yolov5", False), "yolov5_rect": ("yolov5", True),
 # decode_basic's keypoints on two heatmaps of one crop agree to rounding
 # where neither the peak nor its neighbour differences are tied (untied())
 KPS_UNTIED_TOL = 1e-3
+# phase 11: the quantized vs the float heatmaps (JAX's bar,
+# tests/test_quant.py::test_w8a8_model_fidelity).  f32 card vs CPU on the
+# same static scales, two seeds of 2 crops: every conv input up to the
+# first x8 that rounds the other way agrees within QUANT_UPSTREAM_REL
+# (f32 sum order; NVIDIA H100 80GB HBM3 at 700 W measured 2.0e-7 with the
+# first flip at the stem, 1 of 294912 elements, and 6.5e-7 with it at
+# layer2_0/conv1, 8 of 1572864); after it the flips spread to 96-100 of
+# the 100 convs, and the heatmaps part by max 5.4e-2-5.8e-2 and mean
+# 7.9e-3-8.3e-3 relative to max|CPU| (5.5e-2 / 7.8e-3 on a third input),
+# the size the card's own bf16 program sits from its f32 one on the same
+# crops (6.3e-2-7.0e-2 / 8.4e-3-9.4e-3, printed beside).  The bound is
+# 1.4x the largest of those readings.  The artifact loaded in a fresh
+# process against the live evaluator: keypoints px, confidences
+QUANT_COS = 0.99
+QUANT_CARD_CPU_REL = (8e-2, 1.2e-2)
+QUANT_CARD_CPU_SEEDS = (2, 3)
+QUANT_UPSTREAM_REL = 1e-5
+EXPORT_TOL = (1e-3, 1e-5)
+# the f32 program traced on the CPU, moved to the card, against the live
+# evaluator on the card: heatmaps, relative to their max, with cuDNN's
+# deterministic algorithms in both (the f32 deconv head's default one is
+# not: two live runs differed by 8.3e-9 on maps of max 4.7e-6; with them
+# the two programs measured bitwise equal on an NVIDIA H100 at 700 W)
+EXPORT_HEAT_REL = 1e-6
 
 
 def log(*a):
@@ -337,11 +397,12 @@ def busy_us(events) -> float:
 def launch_counts() -> dict:
     return {"bottleneck_chain": bottleneck_chain.launches,
             "rotate_resample": rotate_resample.launches,
-            "rotate_resample_crop": affine_crop_two_stage.launches}
+            "rotate_resample_crop": affine_crop_two_stage.launches,
+            "int8_conv": int8_conv.launches}
 
 
 def zero_launch_counts():
-    for fn in (bottleneck_chain, rotate_resample, affine_crop_two_stage):
+    for fn in (bottleneck_chain, rotate_resample, affine_crop_two_stage, int8_conv):
         fn.launches = 0
 
 
@@ -503,7 +564,7 @@ def run_main_path(workdir, cfg=CFG, label="main path"):
         f"included); launches {launches}")
     # one chain call per forward; flip-test forwards twice; no crop kernel
     expected = {"bottleneck_chain": NUM_BATCHES * 2, "rotate_resample": 0,
-                "rotate_resample_crop": 0}
+                "rotate_resample_crop": 0, "int8_conv": 0}
     assert launches == expected, (launches, expected)
     results = []
     for b, out in zip(batches, outs):
@@ -1352,7 +1413,7 @@ def run_hrnet_solver(workdir, device=None):
         f"{[float(x) for x in losses]}; val {json.dumps(record['val'])}")
     steps = solver.state.step
     assert launches == {"bottleneck_chain": 0, "rotate_resample": 0,
-                        "rotate_resample_crop": steps}, launches
+                        "rotate_resample_crop": steps, "int8_conv": 0}, launches
     assert steps == len(losses) > 0 and np.isfinite(losses).all()
     assert len(record["val"]) == 1 and 0.0 <= record["val"][0]["AP"] <= 1.0
     check_best_loads(solver, HRNET_CFG, device)
@@ -1780,6 +1841,470 @@ def run_detector_path(card):
     return summary, summary["10d_e2e"]["launches"]["bottleneck_chain"]
 
 
+# ---------------------------------------------------------------------------
+# phase 11: W8A8 and the serving export
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def int8_checked(record):
+    """Every int8 product on the card's route inside is held against the
+    plain version on the same tensors (``record`` gets one bool per conv
+    call); the counter stays on ``int8_conv``."""
+    route = i8._int8_conv_cuda
+
+    def checked(x8, w8, stride, padding, dilation, groups):
+        y = route(x8, w8, stride, padding, dilation, groups)
+        record.append(bool(torch.equal(
+            y, i8.int8_conv_reference(x8, w8, stride, padding, dilation, groups))))
+        return y
+
+    i8._int8_conv_cuda = checked
+    try:
+        yield
+    finally:
+        i8._int8_conv_cuda = route
+
+
+@torch.no_grad()
+def check_int8_convs(model, x, label):
+    """11a: one quantized forward of ``model`` with every conv's int32
+    product held against the plain version."""
+    record = []
+    int8_conv.launches = 0
+    with int8_checked(record), quantized(model, "w8a8"):
+        y = model(x)
+    n = len(quant.quantized_convs(model))
+    out = {"convs_checked": len(record), "quantized_convs": n, "all_equal": all(record),
+           "route_calls": int8_conv.launches,
+           "finite": bool(torch.isfinite(y.float()).all())}
+    log(f"phase 11a, {label}: " + json.dumps(out))
+    assert out["all_equal"] and out["finite"] and len(record) == n == out["route_calls"], out
+    return out
+
+
+# 11a's timed convs of the flagship at the serving batch: (module, input NCHW)
+INT8_TIMED = {"stem conv1": ("conv1", (THROUGHPUT_BATCH, 3) + CROP_HW),
+              "layer2.1.conv2 (3x3)": ("layer2.1.conv2", (THROUGHPUT_BATCH, 128, 32, 24)),
+              "layer4.1.conv1 (1x1)": ("layer4.1.conv1", (THROUGHPUT_BATCH, 2048, 8, 6))}
+PEAK_INT8_OPS = 1979e12
+
+
+@torch.no_grad()
+def time_int8_convs(model):
+    """11a: the int8 product (route, and torch._int_mm alone) against its
+    plain version and cuDNN's bf16 conv at the same shape, with the whole
+    quantized conv (quantize, product, dequantize) beside."""
+    rows = {}
+    gen = torch.Generator().manual_seed(11)
+    for label, (name, shape) in INT8_TIMED.items():
+        conv = model.get_submodule(name)
+        x = torch.randn(shape, generator=gen).cuda().relu_()
+        w8, s_w = quant.quantize_weight(conv.weight)
+        x8, _ = quant.quantize_input(x)
+        args = (conv.stride, conv.padding, conv.dilation, conv.groups)
+        y = int8_conv(x8, w8, *args)
+        equal = bool(torch.equal(y, i8.int8_conv_reference(x8, w8, *args)))
+        cols, _, _ = i8._patches(x8, *conv.kernel_size, *args[:3])
+        m, k = cols.shape
+        n = w8.shape[0]
+        kp, np_ = -(-k // 8) * 8, -(-n // 8) * 8
+        a = torch.nn.functional.pad(cols, (0, kp - k))
+        wmat = w8.permute(0, 2, 3, 1).reshape(n, k)
+        wt = torch.nn.functional.pad(wmat, (0, kp - k, 0, np_ - n)).t()
+        xb, wb = x.to(torch.bfloat16), conv.weight.to(torch.bfloat16)
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            w8a8_ms = cuda_ms(lambda: quant.w8a8_conv2d(conv, x, w8, s_w))
+        ops = 2.0 * m * n * k
+        nbytes = x8.numel() + w8.numel() + 4 * y.numel()
+        bound = max(nbytes / PEAK_BYTES, ops / PEAK_INT8_OPS) * 1e3
+        rows[label] = {
+            "x": list(shape), "w": list(w8.shape), "gemm_mnk": [m, n, k], "equal": equal,
+            "route_ms": cuda_ms(lambda: int8_conv(x8, w8, *args)),
+            "int_mm_ms": cuda_ms(lambda: torch._int_mm(a, wt)),
+            "w8a8_conv_ms": w8a8_ms,
+            "cudnn_bf16_ms": cuda_ms(lambda: torch.nn.functional.conv2d(
+                xb, wb, None, *args)),
+            "plain_ms": cuda_ms(lambda: i8.int8_conv_reference(x8, w8, *args), iters=2,
+                                warmup=1),
+            "bound_ms": bound,
+            "bound_by": "bytes" if nbytes / PEAK_BYTES > ops / PEAK_INT8_OPS else "operations"}
+        assert equal, (label, rows[label])
+    return rows
+
+
+def staged_serving_batch(n, seed):
+    batch, _, _ = synthetic_batch(np.random.default_rng(seed), n, 1)
+    return {k: torch.from_numpy(batch[k]).cuda() for k in ("canvas", "trans", "trans_inv")}
+
+
+def serve_rates(evaluators, batch, reps=5, rounds=2):
+    """Crops/s of each evaluator on one device-staged batch, in turns."""
+    seconds = {name: 0.0 for name in evaluators}
+    for ev in evaluators.values():
+        ev(batch)
+    for r in range(rounds):
+        for name, ev in (evaluators.items() if r % 2 == 0 else reversed(evaluators.items())):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                {k: v.cpu() for k, v in ev(batch).items()}
+            torch.cuda.synchronize()
+            seconds[name] += time.perf_counter() - t0
+    n = batch["trans"].shape[0]
+    return {name: rounds * reps * n / t for name, t in seconds.items()}
+
+
+@contextlib.contextmanager
+def conv_inputs(record):
+    """Record each quantized conv's input (f32, on the host) with its key
+    and static scale, in call order."""
+    forward = quant.W8A8._forward
+
+    def recording(self, key, conv, x):
+        s_x = self._static.get(key)
+        record.append((key, x.detach().float().cpu(), None if s_x is None else float(s_x)))
+        return forward(self, key, conv, x)
+
+    quant.W8A8._forward = recording
+    try:
+        yield
+    finally:
+        quant.W8A8._forward = forward
+
+
+def first_divergence(card, cpu):
+    """Where the card's and the CPU's quantized forwards part: per conv in
+    call order, the x8 elements that round the other way and the relative
+    difference of the float inputs.  Returns the first conv with a flip,
+    its flips, and the largest input difference up to and including it."""
+    rows = []
+    for (key, xg, s_x), (key_c, xc, s_c) in zip(card, cpu):
+        assert key == key_c and s_x == s_c, (key, key_c, s_x, s_c)
+        flips = int((quant.quantize_input(xg, s_x)[0] != quant.quantize_input(xc, s_x)[0]).sum())
+        rel = float((xg - xc).abs().max() / xc.abs().max().clamp_min(1e-30))
+        rows.append({"conv": key, "flips": flips, "elements": xc.numel(), "input_rel": rel})
+    assert len(card) == len(cpu) == len(rows) > 0
+    first = next((i for i, r in enumerate(rows) if r["flips"]), len(rows) - 1)
+    return {"convs": len(rows), "first_flip_index": first, **rows[first],
+            "input_rel_up_to_first_flip": max(r["input_rel"] for r in rows[:first + 1]),
+            "convs_with_flips": sum(r["flips"] > 0 for r in rows),
+            "flips_total": sum(r["flips"] for r in rows)}
+
+
+def quant_card_vs_cpu(big, scales, ev_bf16):
+    """11b: the f32 quantized forward on the card against the CPU on the
+    same static scales and 2 crops, for two seeds: where they first part
+    (first_divergence), the heatmaps' max/mean relative error and cosine,
+    and, as the lower-precision control, the card's bf16 quantized
+    heatmaps against its f32 ones on the same crops."""
+    f32 = dict(amp=False, fused_layer1=True, flip_test=True, quant="w8a8", quant_scales=scales)
+    ev_gpu = PoseEvaluator(CFG, None, INPUT_SHAPE, **f32)
+    ev_cpu = PoseEvaluator(CFG, None, INPUT_SHAPE, device="cpu", **f32)
+    out = {}
+    for seed in QUANT_CARD_CPU_SEEDS:
+        two = {k: v[:2].cpu() for k, v in staged_serving_batch(2, seed).items()}
+        rec_gpu, rec_cpu = [], []
+        with conv_inputs(rec_gpu):
+            h_gpu = ev_gpu.heatmaps(two).cpu()
+        with conv_inputs(rec_cpu):
+            h_cpu = ev_cpu.heatmaps(two)
+        h_bf16 = ev_bf16.heatmaps(two).float().cpu()
+        _, mx, mean = errors(h_gpu, h_cpu)
+        _, ctl_mx, ctl_mean = errors(h_bf16, h_gpu)
+        out[f"seed {seed}"] = {
+            "first_divergence": first_divergence(rec_gpu, rec_cpu),
+            "max_rel": mx, "mean_rel": mean,
+            "cos": float(torch.nn.functional.cosine_similarity(h_gpu.flatten(),
+                                                               h_cpu.flatten(), dim=0)),
+            "control_bf16_vs_f32_card_max_rel": ctl_mx,
+            "control_bf16_vs_f32_card_mean_rel": ctl_mean}
+    return out
+
+
+@torch.no_grad()
+def run_quant_serving():
+    """11b: PoseEvaluator(quant='w8a8') at the serving batch, dynamic then
+    calibrated, beside bf16; its counted run, every int8 product held
+    against the plain version; the quantized vs float heatmaps; f32 card
+    vs CPU on the same static scales."""
+    kw = dict(amp="auto", fused_layer1=True, flip_test=True)
+    ev_f = PoseEvaluator(CFG, None, INPUT_SHAPE, **kw)
+    ev_q = PoseEvaluator(CFG, None, INPUT_SHAPE, quant="w8a8", **kw)
+    big = staged_serving_batch(THROUGHPUT_BATCH, 2)
+    layer1 = sum(type(m) is torch.nn.Conv2d for m in ev_q.model.layer1.modules())
+    n_quantized = len(quant.quantized_convs(ev_q.model)) - layer1  # layer1 runs K2
+    record = []
+    zero_launch_counts()
+    with int8_checked(record):
+        out = {k: v.cpu() for k, v in ev_q(big).items()}
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    log(f"phase 11b, quantized serving at batch {THROUGHPUT_BATCH}: launches {launches}; "
+        f"{len(record)} int8 products held against the plain version, all equal: "
+        f"{all(record)}")
+    assert launches["bottleneck_chain"] == 2 and launches["int8_conv"] == 2 * n_quantized, \
+        (launches, n_quantized)
+    assert len(record) == launches["int8_conv"] and all(record), record
+    assert torch.isfinite(out["kps"]).all() and torch.isfinite(out["conf"]).all()
+    small = {k: v[:BATCH] for k, v in big.items()}
+    hq, hf = ev_q.heatmaps(small), ev_f.heatmaps(small)
+    cos = float(torch.nn.functional.cosine_similarity(hq.flatten(), hf.flatten(), dim=0))
+    dynamic = serve_rates({"bf16": ev_f, "w8a8_dynamic": ev_q}, big)
+    calib = [staged_serving_batch(BATCH, seed=20 + i) for i in range(2)]
+    scales = ev_q.calibrate(iter(calib), 2)
+    hs = ev_q.heatmaps(small)
+    cos_static = float(torch.nn.functional.cosine_similarity(hs.flatten(), hf.flatten(), dim=0))
+    static = serve_rates({"bf16": ev_f, "w8a8_static": ev_q}, big)
+    card_cpu = quant_card_vs_cpu(big, scales, ev_q)
+    res = {"launches": launches, "int8_products_checked": len(record),
+           "cos_w8a8_dynamic_vs_bf16": cos, "cos_w8a8_static_vs_bf16": cos_static,
+           "crops_per_s_dynamic": dynamic, "crops_per_s_static": static, "scales": len(scales),
+           "f32_card_vs_cpu": card_cpu}
+    log("phase 11b: " + json.dumps(res))
+    assert cos > QUANT_COS and cos_static > QUANT_COS, res
+    for row in card_cpu.values():
+        assert row["first_divergence"]["input_rel_up_to_first_flip"] < QUANT_UPSTREAM_REL, row
+        assert row["max_rel"] < QUANT_CARD_CPU_REL[0] and \
+            row["mean_rel"] < QUANT_CARD_CPU_REL[1], row
+        assert row["cos"] > QUANT_COS, row
+    return res, scales
+
+
+def run_quant_detector(workdir, float_rates):
+    """11c: gen-dets and fused with --quant w8a8 --quant-calib 2 on the
+    fixture, then timed passes on the saved scales (as --scales), beside
+    phase 10's float medians of the same call."""
+    det_scales = os.path.join(workdir, "det_scales.json")
+    int8_conv.launches = 0
+    det = YOLOv5Detector(**detector_kw("yolov5", quant="w8a8"))
+    kw = dict(out_path=os.path.join(workdir, "q_dets.json"), batch_size=FUSED_BATCH,
+              canvas=DET_CANVAS, use_native=True)
+    gen_detections(DET_IMAGES, DET_GT, detector=det, quant_calib=2,
+                   quant_scales_out=det_scales, **kw)
+    calls = int8_conv.launches
+    det = YOLOv5Detector(**detector_kw("yolov5", quant="w8a8",
+                                       quant_scales=quant.load_scales(det_scales)))
+    seconds, results = timed_passes(lambda: gen_detections(DET_IMAGES, DET_GT, detector=det,
+                                                           **kw), 3)
+    fused_scales = os.path.join(workdir, "fused_scales.json")
+    fkw = dict(scale_name="l", det_size=(DET_SIZE, DET_SIZE), input_shape=INPUT_SHAPE,
+               max_people=MAX_PEOPLE, det_conf=DET_CONF, det_iou=DET_IOU, canvas=DET_CANVAS,
+               quant="w8a8")
+    ekw = dict(batch_size=FUSED_BATCH, input_shape=INPUT_SHAPE, max_people=MAX_PEOPLE,
+               canvas=DET_CANVAS, use_native=True, out_path=os.path.join(workdir, "q_f.json"),
+               filtered_out_path=os.path.join(workdir, "q_ff.json"))
+    # the calibrating run at the fused batch: every int8 product of both
+    # nets held against the plain version
+    record = []
+    int8_conv.launches = 0
+    with int8_checked(record):
+        fused_eval(DET_IMAGES, DET_GT, CFG, fused=FusedDetectPose(CFG, **fkw), quant_calib=2,
+                   quant_scales_out=fused_scales, **ekw)
+    fused_calls = int8_conv.launches
+    assert len(record) == fused_calls > 0 and all(record), (len(record), fused_calls)
+    nets = quant.load_scales(fused_scales)
+    fused = FusedDetectPose(CFG, quant_scales=nets, **fkw)
+    fseconds, stats = timed_passes(lambda: fused_eval(DET_IMAGES, DET_GT, CFG, fused=fused,
+                                                      **ekw), 3)
+    with open(ekw["out_path"]) as f:
+        preds = json.load(f)
+    n_images = len(np.unique([p["img_id"] for p in preds]))
+    stats = {k: float(v) for k, v in stats.items()}
+    with open(DET_GT) as f:
+        n_fixture = len(json.load(f)["images"])
+    res = {"gen_dets_images_per_s": pass_rates(seconds, n_fixture),
+           "gen_dets_float_images_per_s_phase10": float_rates["gen_dets"],
+           "gen_dets_boxes": len(results), "gen_dets_calib_route_calls": calls,
+           "fused_calib_int8_products_checked": len(record),
+           "fused_images_per_s": pass_rates(fseconds, n_images),
+           "fused_float_images_per_s_phase10": float_rates["fused"],
+           "fused_crops": len(preds), "fused_stats": stats,
+           "scales": {"detector": len(quant.load_scales(det_scales)),
+                      "fused": {k: len(v) for k, v in nets.items()}}}
+    log("phase 11c: " + json.dumps(res))
+    assert calls > 0 and len(results) > 0 and set(nets) == {"detector", "pose"}
+    assert all(np.isfinite(p["kps"]).all() for p in preds) and 0.0 <= stats["AP"] <= 1.0
+    return res
+
+
+# 11d: the loaded artifact runs in a fresh process that imports torch and
+# the op registrations only; an artifact traced on the CPU is moved to the
+# card there (move_to_device_pass, what load_exported(device=) does)
+SERVE_CHILD = r"""
+import json, sys, time
+import torch
+import simple_pose_torch.ops.bottleneck_chain as k2
+import simple_pose_torch.ops.int8_conv as i8
+path, inputs, outputs, reps, move = sys.argv[1:6]
+reps = int(reps)
+torch.backends.cudnn.allow_tf32 = False  # as in the parent: f32 stays f32
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.deterministic = move == "cuda"  # as the parent's copy
+sync = torch.cuda.synchronize if torch.cuda.is_available() else (lambda: None)
+t0 = time.perf_counter()
+ep = torch.export.load(path)
+if move == "cuda":
+    from torch.export.passes import move_to_device_pass
+    ep = move_to_device_pass(ep, torch.device("cuda"))
+fn = ep.module()
+load_s = time.perf_counter() - t0
+args = torch.load(inputs)
+k2.bottleneck_chain.launches = i8.int8_conv.launches = 0
+with torch.no_grad():
+    out = fn(*args)
+    sync()
+    launches = {"bottleneck_chain": k2.bottleneck_chain.launches,
+                "int8_conv": i8.int8_conv.launches}
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn(*args)
+    sync()
+    seconds = time.perf_counter() - t0
+torch.save({k: v.cpu() for k, v in out.items()}, outputs)
+mods = sorted(m for m in sys.modules if m.startswith("simple_pose"))
+print(json.dumps({"load_s": load_s, "crops_per_s": reps * args[0].shape[0] / seconds,
+                  "launches_first_call": launches, "modules": mods}))
+"""
+EXPORT_BATCH, EXPORT_REPS = 64, 10
+
+
+@torch.no_grad()
+def run_export(workdir, scales):
+    """11d: the flagship (bf16, fused_layer1) and its w8a8 version on the
+    calibrated scales, exported at batch 64 on a 640 canvas, saved, loaded
+    in a fresh process: its outputs against the live evaluator's; then the
+    f32 w8a8 evaluator traced on the CPU, moved to the card in the fresh
+    process, against the live f32 one on the card."""
+    batch = staged_serving_batch(EXPORT_BATCH, seed=31)
+    args = (batch["canvas"], batch["trans"], batch["trans_inv"])
+    inputs = os.path.join(workdir, "export_inputs.pt")
+    torch.save(args, inputs)
+    q = dict(quant="w8a8", quant_scales=scales)
+    # the CPU-traced program returns heatmaps (dark_original): gauss_taylor's
+    # 11-tap kernel is a constant computed where the trace runs, and one ulp
+    # of it moves keypoints on a seeded net's near-singular Hessians by
+    # thousands of pixels (phase 10; heatmaps are what the trace decides)
+    runs = (("bf16_fused_layer1", dict(amp="auto"), None),
+            ("w8a8_static_fused_layer1", dict(amp="auto", **q), None),
+            ("w8a8_static_fused_layer1_f32_cpu_traced",
+             dict(amp=False, decoder="dark_original", **q), "cpu"))
+    res = {}
+    for name, kw, trace_device in runs:
+        ev = PoseEvaluator(CFG, None, INPUT_SHAPE, fused_layer1=True, **kw)
+        traced = ev if trace_device is None else PoseEvaluator(
+            CFG, None, INPUT_SHAPE, fused_layer1=True, device=trace_device, **kw)
+        layer1 = sum(type(m) is torch.nn.Conv2d for m in ev.model.layer1.modules())
+        t0 = time.perf_counter()
+        exported = export_evaluator(traced, EXPORT_BATCH, (CANVAS, CANVAS))
+        export_s = time.perf_counter() - t0
+        path = os.path.join(workdir, f"{name}.pt2")
+        nbytes = save_exported(exported, path)
+        del exported, traced
+        live = {k: v.cpu() for k, v in ev.step(*args).items()}
+        # the same program twice, cuDNN free to pick a nondeterministic
+        # algorithm; then the copy held to the loaded one, with cuDNN's
+        # deterministic algorithms (which the fresh process uses too)
+        again = {k: v.cpu() for k, v in ev.step(*args).items()}
+        live_repeat = {k: (again[k].float() - live[k].float()).abs().max().item() for k in live}
+        if trace_device is not None:
+            with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                            allow_tf32=False):
+                live = {k: v.cpu() for k, v in ev.step(*args).items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(EXPORT_REPS):
+            ev.step(*args)
+        torch.cuda.synchronize()
+        live_rate = EXPORT_REPS * EXPORT_BATCH / (time.perf_counter() - t0)
+        outputs = os.path.join(workdir, f"{name}_out.pt")
+        proc = subprocess.run(
+            [sys.executable, "-c", SERVE_CHILD, path, inputs, outputs, str(EXPORT_REPS),
+             "cuda" if trace_device else "none"],
+            cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
+            timeout=600, env={**os.environ, "PYTHONPATH": os.path.dirname(
+                os.path.abspath(__file__))})
+        assert proc.returncode == 0, proc.stderr[-4000:]
+        child = json.loads(proc.stdout.strip().splitlines()[-1])
+        got = torch.load(outputs)
+        diff = {k: (got[k].float() - live[k].float()).abs().max().item() for k in live}
+        res[name] = {"bytes": nbytes, "export_s": export_s, "live_crops_per_s": live_rate,
+                     "bitwise_equal": all(torch.equal(got[k], live[k]) for k in live),
+                     "max_abs_diff": diff, "live_repeat_max_abs_diff": live_repeat,
+                     "live_max_abs": {k: live[k].float().abs().max().item() for k in live},
+                     **child}
+        log(f"phase 11d, {name}: " + json.dumps(res[name]))
+        n_int8 = len(quant.quantized_convs(ev.model)) - layer1 if "quant" in kw else 0
+        assert set(got) == set(live) and child["launches_first_call"] == {
+            "bottleneck_chain": 1, "int8_conv": n_int8}, (res[name], n_int8)
+        assert not [m for m in child["modules"] if not m.startswith(
+            ("simple_pose_torch.ops", "simple_pose_torch.utils"))
+            and m != "simple_pose_torch"], child["modules"]
+        if "heat" in live:
+            assert diff["heat"] <= EXPORT_HEAT_REL * live["heat"].abs().max().item(), res[name]
+        else:
+            assert diff["kps"] <= EXPORT_TOL[0] and diff["conf"] <= EXPORT_TOL[1], res[name]
+        del ev
+        torch.cuda.empty_cache()
+    return res
+
+
+def run_quant_path(card, float_rates):
+    """Phase 11.  Returns the summary and K2's launches in 11b and 11d."""
+    t_phase = time.perf_counter()
+    summary = {"card": card}
+    t0 = time.perf_counter()
+    r50 = build_resnet("resnet50", se=True, dtype=torch.bfloat16).cuda()
+    x = torch.rand((2, 3) + CROP_HW, generator=torch.Generator().manual_seed(4)).cuda() - 0.45
+    summary["11a_resnet50_se"] = check_int8_convs(r50, x, "ResNet-50+SE bf16, 2 crops")
+    summary["11a_timing"] = time_int8_convs(r50)
+    del r50
+    yolo = build_detector("yolov5", 1, "l", dtype=torch.bfloat16).cuda()
+    x = torch.rand((1, 3, DET_SIZE, DET_SIZE), generator=torch.Generator().manual_seed(5)).cuda()
+    summary["11a_yolov5l"] = check_int8_convs(yolo, x, f"YOLOv5-l bf16, 1 image {DET_SIZE}^2")
+    del yolo
+    torch.cuda.empty_cache()
+    for label, row in summary["11a_timing"].items():
+        report_numbers(card, f"phase 11a, int8 product {label} at batch {THROUGHPUT_BATCH}",
+                       {k: row[k] for k in ("route_ms", "int_mm_ms", "w8a8_conv_ms",
+                                            "cudnn_bf16_ms", "plain_ms", "bound_ms")})
+    log(f"phase 11a: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    serving, scales = run_quant_serving()
+    summary["11b_serving"] = serving
+    report_numbers(card, f"phase 11b, serving crops/s at batch {THROUGHPUT_BATCH} (fused_layer1, "
+                   "flip-test)", {**{f"dynamic {k}": v for k, v in
+                                     serving["crops_per_s_dynamic"].items()},
+                                  **{f"static {k}": v for k, v in
+                                     serving["crops_per_s_static"].items()}})
+    log(f"phase 11b: {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as workdir:
+        t0 = time.perf_counter()
+        orig, data_pipeline._imread_rgb = data_pipeline._imread_rgb, _no_cv2
+        try:
+            summary["11c_detector"] = run_quant_detector(workdir, float_rates)
+        finally:
+            data_pipeline._imread_rgb = orig
+        c = summary["11c_detector"]
+        report_numbers(card, "phase 11c, images/s median (w8a8 static / float phase 10)",
+                       {"gen-dets": f"{c['gen_dets_images_per_s']['median']} / "
+                                    f"{c['gen_dets_float_images_per_s_phase10']}",
+                        "fused": f"{c['fused_images_per_s']['median']} / "
+                                 f"{c['fused_float_images_per_s_phase10']}"})
+        log(f"phase 11c: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        summary["11d_export"] = run_export(workdir, scales)
+        for name, row in summary["11d_export"].items():
+            report_numbers(card, f"phase 11d, {name} artifact at batch {EXPORT_BATCH}",
+                           {k: row[k] for k in ("bytes", "export_s", "load_s", "crops_per_s",
+                                                "live_crops_per_s")})
+        log(f"phase 11d: {time.perf_counter() - t0:.1f} s")
+    log(f"phase 11: {time.perf_counter() - t_phase:.1f} s")
+    artifact = {name: row["launches_first_call"]["bottleneck_chain"]
+                for name, row in summary["11d_export"].items()}
+    return summary, serving["launches"]["bottleneck_chain"], artifact
+
+
 def k2_row(name, launches, report, row):
     """A K2 row of the kernels' JSON line."""
     return {
@@ -1850,11 +2375,17 @@ def main() -> int:
     families = run_other_families(card, data, data_dev)
     detector, e2e_launches = run_detector_path(card)
     log("phase 10: " + json.dumps(detector))
+    quantized_run, quant_launches, artifact_launches = run_quant_path(card, {
+        "gen_dets": detector["10c_gen_dets"]["images_per_s"]["median"],
+        "fused": detector["10e_fused_yolov5"]["images_per_s"]["median"]})
+    log("phase 11: " + json.dumps(quantized_run))
 
     kernels = [{**k2_row("bottleneck_chain", launches["bottleneck_chain"], report,
                          timing[f"b{BATCH}_bf16"]),
                 "launches_detections": jpeg["launches"]["bottleneck_chain"],
-                "launches_e2e": e2e_launches}]
+                "launches_e2e": e2e_launches,
+                "launches_w8a8_serving": quant_launches,
+                "launches_loaded_artifact": artifact_launches}]
     for fam, (fam_report, fam_timing, fam_launches) in families.items():
         kernels.append({**k2_row(f"bottleneck_chain ({fam} layer1)", fam_launches, fam_report,
                                  fam_timing[f"b{BATCH}_bf16"]),

@@ -36,6 +36,11 @@ with each Sequential or ModuleList index folded into its parent's name
 (``conv1_0`` is an attribute of BottleNeckCSP but ``conv1.0`` of
 BottleNeckCSP2), so the torch model's own keys are folded the same way and
 looked up.
+
+``conv_scale_keys`` names each quantized conv of a port model by its flax
+module path, the key of a W8A8 scales file (models/quant.py): the inverse
+of ``_module_key`` for the pose families (checked against it), the
+detector fold for YOLOv5/YOLOv4.
 """
 
 from __future__ import annotations
@@ -45,7 +50,8 @@ import re
 import numpy as np
 import torch
 
-__all__ = ["flax_to_torch_state", "detector_flax_to_torch_state", "load_jax_train_state"]
+__all__ = ["flax_to_torch_state", "detector_flax_to_torch_state", "load_jax_train_state",
+           "conv_scale_keys"]
 
 _BN_LEAF = {"scale": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var"}
 _FLAX_BN_LEAF = {v: k for k, v in _BN_LEAF.items()}
@@ -184,6 +190,58 @@ def detector_flax_to_torch_state(variables, model: torch.nn.Module) -> dict:
     if left:
         raise KeyError(f"flax leaves with no torch key: {sorted('/'.join(p) for p in left)[:4]}")
     return state
+
+
+# torch module path of a pose conv -> its flax module path (the inverse of
+# _module_key, for conv modules only)
+_TORCH_CONV_NAMES = (
+    (re.compile(r"layer1\.(\d+)\.(.+)"), "layer1_m0_b0_{0}", True),  # HRNet's layer1
+    (re.compile(r"stage(\d+)\.(\d+)\.branches\.(\d+)\.(\d+)\.(.+)"),
+     "stage{0}_m{1}_b{2}_{3}", None),
+    (re.compile(r"layer(\d+)\.(\d+)\.(.+)"), "layer{0}_{1}", False),
+)
+_TORCH_BLOCK_CONVS = {"conv1": "conv1", "conv2": "conv2", "conv3": "conv3",
+                      "downsample.0": "downsample_conv", "se.fc.0": "se/fc1",
+                      "se.fc.2": "se/fc2"}
+
+
+def _pose_conv_path(name: str, hrnet: bool) -> str:
+    for pattern, fmt, family in _TORCH_CONV_NAMES:
+        m = pattern.fullmatch(name)
+        if m and family in (None, hrnet):
+            *idx, sub = m.groups()
+            return f"{fmt.format(*idx)}/{_TORCH_BLOCK_CONVS[sub]}"
+    m = re.fullmatch(r"transition(\d+)\.(\d+)\.(?:(\d+)\.)?0", name)
+    if m:
+        return "_".join(["transition" + m.group(1)] + [g for g in m.groups()[1:] if g])
+    m = re.fullmatch(r"stage(\d+)\.(\d+)\.fuse_layers\.(\d+)\.(\d+)\.(?:(\d+)\.)?0", name)
+    if m:
+        s, mod, i, j, k = m.groups()
+        return f"stage{s}_m{mod}_fuse_{i}_{j}" + (f"_{k}" if k else "")
+    m = re.fullmatch(r"duc_layers\.(\d+)\.conv", name)
+    if m:
+        return f"duc_{m.group(1)}/conv"
+    return name  # conv1, conv2, final_layer
+
+
+def conv_scale_keys(model: torch.nn.Module, names) -> dict:
+    """{torch module path: flax module path} for the conv modules ``names``
+    of ``model``: a PoseResNet or PoseHRNet (checked against the converter's
+    own ``_module_key``), or a YOLOv5/YOLOv4 detector (the JAX generic
+    converter's digit fold)."""
+    from simple_pose_torch.detector.yolov5 import _Detector
+    from simple_pose_torch.models.hrnet import PoseHRNet
+
+    if isinstance(model, _Detector):
+        return {n: "/".join(_fold_digits(n.split("."))) for n in names}
+    hrnet = isinstance(model, PoseHRNet)
+    out = {}
+    for n in names:
+        path = _pose_conv_path(n, hrnet)
+        if _module_key(path.split("/")) != (n, "conv"):
+            raise KeyError(f"no flax conv path for {n} (tried {path})")
+        out[n] = path
+    return out
 
 
 def _optax_states(tree):

@@ -15,6 +15,9 @@ Port of simple_pose_tpu/detector/wrapper.py:
     convs keep [x, y, w, h, obj, cls_i]) instead of the reference's MConv2D
     surgery.
   * NMS is detector/nms.non_max_suppression.
+  * ``quant='w8a8'`` runs the detector's convs in int8 (models/quant.py);
+    ``calibrate`` records static activation scales at the square letterbox
+    (rect buckets reuse them: scales are per conv).
 
 Canvases are BGR, as cv2.imread gives them, with the image at the origin
 and a replicated 1-px border (``paste_with_border``) so that the
@@ -35,6 +38,7 @@ from simple_pose_torch.data import pipeline
 from simple_pose_torch.detector.nms import non_max_suppression
 from simple_pose_torch.detector.yolov4 import YOLOv4
 from simple_pose_torch.detector.yolov5 import YOLOv5
+from simple_pose_torch.models.quant import ScaleRecorder, allreduce_scales_max, quantized
 from simple_pose_torch.models.registry import resolve_amp_dtype
 from simple_pose_torch.ops.warp import affine_crop_separable
 from simple_pose_torch.utils.device import resolve_device
@@ -224,13 +228,15 @@ class YOLOv5Detector:
     :param model_family: 'yolov5' or 'yolov4' (one head and one checkpoint
         layout, so loading and slicing are the same)
     :param device: None means CUDA (raises where no GPU is present)
-    :param amp: 'auto' (bf16 on CUDA, f32 on the CPU), True or False"""
+    :param amp: 'auto' (bf16 on CUDA, f32 on the CPU), True or False
+    :param quant: None or 'w8a8'; quant_scales: static {flax module path:
+        s_x} scales (:meth:`calibrate`), convs without one stay dynamic"""
 
     def __init__(self, weights_path=None, num_cls: int = 80, scale_name: str = "l",
                  scale_size: Tuple[int, int] = (640, 640), iou_thresh: float = 0.6,
                  conf_thresh: float = 0.001, slice_idx: int = 0, canvas: int = 1280,
                  model_family: str = "yolov5", amp="auto", rect: bool = False,
-                 device=None):
+                 device=None, quant=None, quant_scales=None):
         self.device = resolve_device(device)
         self.rect = rect
         self.scale_size = scale_size
@@ -242,24 +248,57 @@ class YOLOv5Detector:
         self.model = build_detector(model_family, self.num_cls, scale_name, weights_path,
                                     num_cls, slice_idx, dtype).to(self.device)
         self.lb_dtype = dtype or torch.float32
+        self.quant = quant
+        self.quant_scales = quant_scales
+        self.quant_ctx = quantized(self.model, quant, quant_scales)
 
     @torch.no_grad()
     def forward(self, canvases, trans, region, th, tw):
         """Letterbox + network on device tensors -> pred [B, N, 5 + nc] f32."""
-        return self.model(letterbox_input(canvases, trans, region, th, tw, self.lb_dtype))
+        x = letterbox_input(canvases, trans, region, th, tw, self.lb_dtype)
+        with self.quant_ctx:
+            return self.model(x)
+
+    def _device_geometry(self, geom):
+        trans, region = _geom_to_arrays(geom)
+        return torch.from_numpy(trans).to(self.device), torch.from_numpy(region).to(self.device)
+
+    @torch.no_grad()
+    def calibrate(self, batches, num_batches: int = 2) -> dict:
+        """Record static w8a8 activation scales on the first ``num_batches``
+        of ``batches`` ((canvases_u8 [B,c,c,3] BGR, shapes [(h, w)]) pairs, as
+        :meth:`predict_batch` takes) with the float forward at the square
+        letterbox, then run with them (JAX detector/wrapper.py:240-274).
+        Max-reduced over the ranks of an initialised torch.distributed
+        group.  Returns the {flax module path: s_x} dict."""
+        if self.quant is None:
+            raise ValueError("calibrate() requires a quant mode (quant='w8a8')")
+        tw, th = self.scale_size
+        rec, n = ScaleRecorder(self.model), 0
+        with rec:
+            for canvases_u8, shapes in batches:
+                if n >= num_batches:
+                    break
+                trans, region = self._device_geometry(
+                    [letterbox_params(h, w, self.scale_size) for h, w in shapes])
+                canvases = torch.as_tensor(np.ascontiguousarray(canvases_u8)).to(self.device)
+                self.model(letterbox_input(canvases, trans, region, th, tw, self.lb_dtype))
+                n += 1
+        if n == 0:
+            raise ValueError("calibrate() got an empty batch stream")
+        self.quant_scales = allreduce_scales_max(rec.scales())
+        self.quant_ctx = quantized(self.model, self.quant, self.quant_scales)
+        return self.quant_scales
 
     def _run_group(self, canvases_u8, geom, th, tw, merge, max_det):
         """Forward + NMS + box unmapping for one letterbox shape.
 
         geom: [(r, left, top, new_w, new_h)] per image.
         :returns: list of [n, 6] arrays in original pixel coords"""
-        trans, region = _geom_to_arrays(geom)
-        dev = self.device
+        trans, region = self._device_geometry(geom)
         if not torch.is_tensor(canvases_u8):
             canvases_u8 = torch.from_numpy(np.ascontiguousarray(canvases_u8))
-        pred = self.forward(canvases_u8.to(dev),
-                            torch.from_numpy(trans).to(dev), torch.from_numpy(region).to(dev),
-                            th, tw)
+        pred = self.forward(canvases_u8.to(self.device), trans, region, th, tw)
         dets, valid = non_max_suppression(pred, conf_thresh=self.conf_thresh,
                                           iou_thresh=self.iou_thresh, max_det=max_det,
                                           multi_label=True, merge=merge)

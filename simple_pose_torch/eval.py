@@ -29,6 +29,24 @@ The person detector and the detect -> pose programs (YOLOv5 or YOLOv4;
         --reduction --batch-size 8 [--max-people 16] [--rect] \
         [--out fused_kps_temp.json]
 
+W8A8 (models/quant.py) on every eval subcommand: ``--quant w8a8`` runs
+the convs in int8 with dynamic activation scales; ``--quant-calib N``
+calibrates static ones on the first N batches (``--save-scales`` writes
+them); ``--scales`` loads a scales file, either package's (``fused`` takes
+the per-net ``{"detector": ..., "pose": ...}`` file it writes):
+
+    python -m simple_pose_torch.eval gt ... --quant w8a8 --quant-calib 4 \
+        --save-scales pose_scales.json [--fused-layer1]
+    python -m simple_pose_torch.eval fused ... --quant w8a8 --quant-calib 2
+
+``export`` writes the evaluator's device program as a ``torch.export``
+artifact (evalkit/export.py) and its input contract beside it as
+``<out>.json``; simple_pose_torch/serve_artifact.py serves it:
+
+    python -m simple_pose_torch.eval export --weights fast_pose.pth --reduction \
+        [--quant w8a8 --scales pose_scales.json] [--fused-layer1] \
+        [--batch-size 64 | --batch-size b] [--canvas 640] --out pose_eval.pt2
+
 ``e2e`` runs gen-dets into ./person_detections.json, then the
 ``detections`` workflow on it; ``fused`` runs evalkit/fused.py's
 FusedDetectPose per image batch (no flip-test, no dark_original).
@@ -45,10 +63,60 @@ from __future__ import annotations
 import argparse
 import json
 
+from simple_pose_torch.models.quant import load_scales
+
 
 def _model_cfg(args):
     return {"type": args.model_type, "name": args.model_name,
             "num_joints": args.num_joints, "reduction": args.reduction}
+
+
+def _scales(args):
+    """--scales: one net's scales file, or fused's per-net file."""
+    return load_scales(args.scales) if getattr(args, "scales", None) else None
+
+
+def _quant_kwargs(args) -> dict:
+    if not args.quant:
+        return {"quant": None}
+    return {"quant": args.quant, "quant_calib": args.quant_calib,
+            "quant_scales": _scales(args), "quant_scales_out": args.save_scales}
+
+
+def _export(args, ap):
+    from simple_pose_torch.evalkit.export import export_evaluator, save_exported
+    from simple_pose_torch.evalkit.workflows import PoseEvaluator
+
+    try:
+        batch = int(args.batch_size)
+        if batch <= 0:
+            ap.error(f"--batch-size must be > 0, got {batch}")
+    except ValueError:  # a name: a torch.export.Dim batch
+        batch = args.batch_size
+    evaluator = PoseEvaluator(
+        _model_cfg(args), args.weights, input_shape=(args.input_w, args.input_h),
+        decoder=args.decoder, flip_test=args.flip_test, amp=False if args.no_amp else "auto",
+        fused_layer1=args.fused_layer1, device=args.device, quant=args.quant,
+        quant_scales=_scales(args))
+    exported = export_evaluator(evaluator, batch, (args.canvas, args.canvas),
+                                bake_weights=not args.external_weights)
+    n = save_exported(exported, args.out)
+    info = {
+        "out": args.out, "bytes": n, "platforms": [evaluator.device.type],
+        "batch": batch, "canvas": args.canvas, "input_shape": [args.input_w, args.input_h],
+        "model": _model_cfg(args), "decoder": args.decoder, "flip_test": args.flip_test,
+        "quant": args.quant, "static_scales": bool(args.scales), "amp": not args.no_amp,
+        "weights": args.weights, "external_weights": args.external_weights,
+    }
+    # the registered ops the graph holds: K2 and the int8 product
+    custom_ops = ((["simple_pose_torch.ops.bottleneck_chain"] if args.fused_layer1 else [])
+                  + (["simple_pose_torch.ops.int8_conv"] if args.quant else []))
+    if custom_ops:
+        info["custom_ops"] = custom_ops
+    # sidecar: the artifact's input contract for serving consumers
+    with open(args.out + ".json", "w") as wf:
+        json.dump(info, wf, indent=1)
+    print(json.dumps(info))
 
 
 def main(argv=None):
@@ -63,8 +131,27 @@ def main(argv=None):
         p.add_argument("--no-amp", action="store_true",
                        help="force float32 compute (default: bf16 on CUDA)")
         p.add_argument("--device", default=None, help="default: cuda")
-        if not model:
-            return
+        quant(p)
+        if model:
+            model_args(p)
+            p.add_argument("--decoder", default="gauss_taylor",
+                           choices=["basic", "gauss_taylor", "dark_original"])
+            p.add_argument("--flip-test", action="store_true")
+            p.add_argument("--fused-layer1", action="store_true",
+                           help="run layer1 as the folded Bottleneck-chain kernel")
+
+    def quant(p, calib=True):
+        p.add_argument("--quant", default=None, choices=["w8a8"],
+                       help="int8 quantized conv forward (models/quant.py)")
+        p.add_argument("--scales", default=None, help="load calibrated w8a8 scales json")
+        if calib:
+            p.add_argument("--quant-calib", type=int, default=0, metavar="N",
+                           help="calibrate static w8a8 activation scales on the first N "
+                                "batches")
+            p.add_argument("--save-scales", default=None,
+                           help="write calibrated w8a8 scales json (with --quant-calib)")
+
+    def model_args(p):
         p.add_argument("--model-type", default="pose_resnet_dconv")
         p.add_argument("--model-name", default="resnet50")
         p.add_argument("--num-joints", type=int, default=17)
@@ -72,11 +159,6 @@ def main(argv=None):
         p.add_argument("--weights", default=None, help="reference .pth checkpoint")
         p.add_argument("--input-w", type=int, default=192)
         p.add_argument("--input-h", type=int, default=256)
-        p.add_argument("--decoder", default="gauss_taylor",
-                       choices=["basic", "gauss_taylor", "dark_original"])
-        p.add_argument("--flip-test", action="store_true")
-        p.add_argument("--fused-layer1", action="store_true",
-                       help="run layer1 as the folded Bottleneck-chain kernel")
 
     def detector(p, thresholds=True):
         p.add_argument("--det-weights", default=None, help="reference detector checkpoint")
@@ -118,6 +200,24 @@ def main(argv=None):
     common(p)
     detector(p, thresholds=False)
 
+    p = sub.add_parser("export", help="the eval program as a torch.export artifact "
+                       "(evalkit/export.py; no model code needed to load)")
+    model_args(p)
+    quant(p, calib=False)
+    p.add_argument("--decoder", default="gauss_taylor",
+                   choices=["basic", "gauss_taylor", "dark_original"])
+    p.add_argument("--flip-test", action="store_true")
+    p.add_argument("--fused-layer1", action="store_true",
+                   help="layer1 as K2 (the artifact then needs its op registered)")
+    p.add_argument("--no-amp", action="store_true")
+    p.add_argument("--device", default=None, help="device to trace on (default: cuda)")
+    p.add_argument("--batch-size", default="64",
+                   help="static crop batch, or a name (e.g. 'b') for a batch of any size")
+    p.add_argument("--canvas", type=int, default=640)
+    p.add_argument("--external-weights", action="store_true",
+                   help="take the state dict as the leading input instead of baking it")
+    p.add_argument("--out", default="pose_eval.pt2")
+
     p = sub.add_parser("rescore", help="OKS-NMS rescoring of raw predictions")
     p.add_argument("--preds", required=True)
     p.add_argument("--ann", required=True)
@@ -125,6 +225,9 @@ def main(argv=None):
     p.add_argument("--oks-thre", type=float, default=0.9)
     args = ap.parse_args(argv)
 
+    if args.cmd == "export":
+        _export(args, ap)
+        return
     from simple_pose_torch.evalkit import workflows
 
     amp = False if getattr(args, "no_amp", False) else "auto"
@@ -137,10 +240,12 @@ def main(argv=None):
         det = YOLOv5Detector(weights_path=args.det_weights, scale_name=args.scale_name,
                              conf_thresh=args.conf, iou_thresh=args.iou, canvas=args.canvas,
                              model_family=args.detector_family, amp=amp, rect=args.rect,
-                             device=args.device)
+                             device=args.device, quant=args.quant, quant_scales=_scales(args))
         results = workflows.gen_detections(args.img_root, args.ann, detector=det,
                                            out_path=args.out, batch_size=args.batch_size,
-                                           debug=args.debug, canvas=args.canvas)
+                                           debug=args.debug, canvas=args.canvas,
+                                           quant_calib=args.quant_calib,
+                                           quant_scales_out=args.save_scales)
         print(f"wrote {args.out}")
         print(json.dumps({"detections": len(results)}))
         return
@@ -162,7 +267,7 @@ def main(argv=None):
             input_shape=(args.input_w, args.input_h), det_size=(args.det_size, args.det_size),
             max_people=args.max_people, canvas=args.canvas, decoder=args.decoder,
             detector_family=args.detector_family, amp=amp, rect=args.rect, debug=args.debug,
-            out_path=args.out, device=args.device)
+            out_path=args.out, device=args.device, **_quant_kwargs(args))
     elif args.cmd == "e2e":
         stats = workflows.detect_then_pose(
             args.img_root, args.ann, _model_cfg(args), pose_weights=args.weights,
@@ -170,13 +275,14 @@ def main(argv=None):
             batch_size=args.batch_size, input_shape=(args.input_w, args.input_h),
             flip_test=args.flip_test,
             debug=args.debug, detector_family=args.detector_family, amp=amp,
-            fused_layer1=args.fused_layer1, decoder=args.decoder, device=args.device)
+            fused_layer1=args.fused_layer1, decoder=args.decoder, device=args.device,
+            **_quant_kwargs(args))
     else:
         kw = dict(weights=args.weights, batch_size=args.batch_size,
                   input_shape=(args.input_w, args.input_h), decoder=args.decoder,
                   flip_test=args.flip_test, out_path=args.out, debug=args.debug,
                   amp=amp, fused_layer1=args.fused_layer1,
-                  device=args.device)
+                  device=args.device, **_quant_kwargs(args))
         if args.cmd == "gt":
             stats = workflows.predicts_by_gt(args.img_root, args.ann, _model_cfg(args), **kw)
         else:

@@ -15,7 +15,11 @@ batch of canvases goes through both networks without leaving the device:
 Ragged person counts stay fixed-size with validity masks throughout.  Under
 amp both networks run in bf16 autocast and the crops are written in bf16;
 the detector's head decodes in f32.  There is no flip-test and no
-``fused_layer1`` here, as in the JAX program.
+``fused_layer1`` here, as in the JAX program.  With ``quant='w8a8'`` both
+networks' convs run in int8 (models/quant.py) on per-net scales
+``{"detector": {...}, "pose": {...}}``; ``calibrate`` records them with one
+recorder around each net, so the pose scales come from the crops of the
+detector's own boxes.
 """
 
 from __future__ import annotations
@@ -35,7 +39,12 @@ from simple_pose_torch.detector.wrapper import (
     letterbox_params,
     rect_letterbox_params,
 )
-from simple_pose_torch.evalkit.workflows import load_model_variables, rescore_and_filter
+from simple_pose_torch.evalkit.workflows import (
+    calibrate_then_replay,
+    load_model_variables,
+    rescore_and_filter,
+)
+from simple_pose_torch.models.quant import ScaleRecorder, allreduce_scales_max, quantized
 from simple_pose_torch.models.registry import resolve_amp_dtype
 from simple_pose_torch.ops.affine import box_to_center_scale
 from simple_pose_torch.ops.affine_device import affine_crop_separable_multi, boxes_to_crop_affines
@@ -52,14 +61,16 @@ class FusedDetectPose:
         the batch's largest mod-64 bucket instead of ``det_size`` (the
         reference's minimum_rectangle mode, yolov5_detector.py:151-160)
     :param device: None means CUDA (raises where no GPU is present)
-    :param amp: 'auto' (bf16 on CUDA, f32 on the CPU), True or False"""
+    :param amp: 'auto' (bf16 on CUDA, f32 on the CPU), True or False
+    :param quant: None or 'w8a8'; quant_scales: {"detector": {...},
+        "pose": {...}} static scales (:meth:`calibrate`), either optional"""
 
     def __init__(self, pose_model_cfg: dict, pose_weights=None, detector_weights=None,
                  scale_name: str = "l", det_size=(640, 640), input_shape=(192, 256),
                  max_people: int = 16, det_conf: float = 0.25, det_iou: float = 0.5,
                  decoder: str = "gauss_taylor", canvas: int = 1280,
                  detector_family: str = "yolov5", amp="auto", rect: bool = False,
-                 device=None):
+                 device=None, quant=None, quant_scales=None):
         self.device = resolve_device(device)
         self.canvas = canvas
         self.det_size = det_size
@@ -79,6 +90,16 @@ class FusedDetectPose:
         # the crops and the letterbox are written in the compute dtype
         self.lb_dtype = dtype or torch.float32
         self._mean = torch.as_tensor(RGB_MEAN).to(self.device, self.lb_dtype)
+        self.quant = quant
+        self._set_scales(quant_scales)
+
+    def _set_scales(self, quant_scales):
+        self.quant_scales = quant_scales
+        qs = quant_scales or {}
+        self._contexts = {
+            "detector": quantized(self.detector.model, self.quant, qs.get("detector")),
+            "pose": quantized(self.pose_model, self.quant, qs.get("pose")),
+        }
 
     def host_prep(self, shapes, run_size=None):
         """Per-image letterbox geometry: (lb_trans [B,2,3], lb_region [B,4],
@@ -123,7 +144,9 @@ class FusedDetectPose:
     def detect(self, canvases, lb_trans, lb_region, lb_inv_scale, lb_offset, th, tw) -> dict:
         """Device tensors -> {boxes [B,P,4] xyxy in canvas pixels,
         det_scores [B,P], det_valid [B,P] bool}."""
-        pred = self.detector.model(self.letterbox(canvases, lb_trans, lb_region, th, tw))
+        x = self.letterbox(canvases, lb_trans, lb_region, th, tw)
+        with self._contexts["detector"]:
+            pred = self.detector.model(x)
         dets, valid = self.nms(pred)
         limit = torch.tensor([tw, th, tw, th], dtype=torch.float32, device=dets.device)
         boxes = torch.minimum(dets[..., :4].clamp(min=0.0), limit)
@@ -143,7 +166,8 @@ class FusedDetectPose:
         return x.permute(0, 3, 1, 2), trans_inv.reshape(b * p, 2, 3)
 
     def pose_forward(self, x):
-        return self.pose_model(x).float()
+        with self._contexts["pose"]:
+            return self.pose_model(x).float()
 
     @torch.no_grad()
     def pose(self, canvases, boxes) -> dict:
@@ -169,6 +193,35 @@ class FusedDetectPose:
         return (canvases_u8.to(self.device),
                 *(torch.from_numpy(a).to(self.device) for a in geom), th, tw)
 
+    @torch.no_grad()
+    def calibrate(self, batches, num_batches: int = 2) -> dict:
+        """Record static w8a8 scales for both nets on the first
+        ``num_batches`` of ``batches`` ((canvases_u8, shapes) pairs, as
+        :meth:`__call__` takes): the program runs with float forwards and a
+        recorder around each net, so the pose scales come from the crops of
+        the detector's own boxes (JAX fused.py:155-190); then it runs with
+        them.  Max-reduced over the ranks of an initialised
+        torch.distributed group.  Returns {"detector": {...}, "pose": {...}}."""
+        if self.quant is None:
+            raise ValueError("calibrate() requires a quant mode (quant='w8a8')")
+        recs = {"detector": ScaleRecorder(self.detector.model),
+                "pose": ScaleRecorder(self.pose_model)}
+        self._contexts, n = recs, 0
+        try:
+            for canvases_u8, shapes in batches:
+                if n >= num_batches:
+                    break
+                args = self.prepare(canvases_u8, shapes)
+                self.pose(args[0], self.detect(*args)["boxes"])
+                n += 1
+        finally:
+            self._set_scales(self.quant_scales)
+        if n == 0:
+            raise ValueError("calibrate() got an empty batch stream")
+        self._set_scales({net: allreduce_scales_max(rec.scales())
+                          for net, rec in recs.items()})
+        return self.quant_scales
+
     def __call__(self, canvases_u8, shapes, img_ids=None) -> dict:
         """:param canvases_u8: [B, canvas, canvas, 3] uint8 BGR at the origin
         :param shapes: [(h, w)] true image sizes
@@ -192,7 +245,8 @@ def fused_eval(img_root, ann_path, pose_model_cfg, pose_weights=None,
                oks_thre: float = 0.9, debug: int = 0,
                out_path: str = "fused_kps_temp.json",
                filtered_out_path: str = "fused_filter_kps_predicts.json", fused=None,
-               device=None, use_native=None):
+               device=None, use_native=None, quant=None, quant_calib: int = 0,
+               quant_scales=None, quant_scales_out=None):
     """End-to-end AP eval through :class:`FusedDetectPose`, then the host
     rescoring chain (temp_read_in_and_filter parity, eval.py:153-197).
 
@@ -201,13 +255,19 @@ def fused_eval(img_root, ann_path, pose_model_cfg, pose_weights=None,
     (naive_data.py:33-56): area = padded-scale product, score = detector box
     score.  The raw predictions go to ``out_path`` and the rescored ones to
     ``filtered_out_path``.  JPEGs decode through the native loader (see
-    data/pipeline's ``use_native``).  Returns the stats dict."""
+    data/pipeline's ``use_native``).
+
+    quant_calib: with quant='w8a8', calibrate per-net scales on the first N
+    batches (FusedDetectPose.calibrate), then run them again with those
+    scales; the {"detector", "pose"} dict goes to ``quant_scales_out`` as
+    JSON and comes back through ``quant_scales``.  Returns the stats dict."""
     if fused is None:
         fused = FusedDetectPose(
             pose_model_cfg, pose_weights, detector_weights, scale_name=scale_name,
             det_size=det_size, input_shape=input_shape, max_people=max_people,
             det_conf=det_conf, det_iou=det_iou, decoder=decoder, canvas=canvas,
-            detector_family=detector_family, amp=amp, rect=rect, device=device)
+            detector_family=detector_family, amp=amp, rect=rect, device=device, quant=quant,
+            quant_scales=quant_scales)
     with open(ann_path) as rf:
         images = json.load(rf)["images"]
     if debug:
@@ -216,7 +276,10 @@ def fused_eval(img_root, ann_path, pose_model_cfg, pose_weights=None,
 
     in_w, in_h = input_shape
     predictions = []
-    for chunk, canvases, shapes in image_batches(img_root, images, batch_size, canvas, loader):
+    stream = image_batches(img_root, images, batch_size, canvas, loader)
+    if quant_calib and fused.quant:
+        stream = calibrate_then_replay(fused, stream, quant_calib, quant_scales_out)
+    for chunk, canvases, shapes in stream:
         ids = [int(e["id"]) for e in chunk] + [-1] * (batch_size - len(chunk))
         out = fused(canvases, shapes, img_ids=ids)
         for i, img_id in enumerate(out["img_ids"]):

@@ -6,7 +6,10 @@ Port of simple_pose_tpu/evalkit/workflows.py:53-72, 146-474.
                               decode, on one device; with ``fused_layer1``
                               layer1 runs as the folded Bottleneck-chain
                               kernel (ops/bottleneck_chain); decoder
-                              'dark_original' decodes on the host
+                              'dark_original' decodes on the host; with
+                              ``quant='w8a8'`` the convs run in int8
+                              (models/quant.py), ``calibrate`` records
+                              static activation scales
   * predicts_by_gt         -> eval.py:30-66: GT-box eval on the keypoints
                               val set, COCO AP through metrics/cocoeval
   * predicts_by_detections -> eval.py:101-150: eval on a person-detection
@@ -26,12 +29,14 @@ convention) and averages.  ``weights`` is a reference .pth checkpoint
 (``['ema']`` if present) or an in-memory state_dict under the reference's
 key names; none means the seeded init.
 
-The fused detect -> pose program is evalkit/fused.py.  Quantization and
-the multi-device mesh are not ported yet (ROADMAP.md).
+The fused detect -> pose program is evalkit/fused.py; the serving export
+of PoseEvaluator is evalkit/export.py.  The multi-device mesh is not
+ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 from collections import defaultdict
@@ -43,6 +48,12 @@ import torch
 from simple_pose_torch.data.coco import JOINT_PAIRS, load_coco_keypoints, load_detection_boxes
 from simple_pose_torch.data.pipeline import RGB_MEAN, DetBoxPipeline, PosePipeline, _native_loader
 from simple_pose_torch.metrics.cocoeval import evaluate_map
+from simple_pose_torch.models.quant import (
+    ScaleRecorder,
+    allreduce_scales_max,
+    quantized,
+    save_scales,
+)
 from simple_pose_torch.models.registry import build_from_cfg, resolve_amp_dtype
 from simple_pose_torch.ops.bottleneck_chain import fold_bottleneck_blocks, prepare_blocks
 from simple_pose_torch.ops.decode import (
@@ -114,16 +125,21 @@ class PoseEvaluator:
         pass "cpu" explicitly to run on the CPU
     :param amp: 'auto' (bf16 on CUDA, f32 on the CPU), True or False
     :param fused_layer1: fold eval-mode BN into layer1's Bottleneck chain
-        and run it through ops/bottleneck_chain (the CUDA kernel on a GPU)
+        and run it through ops/bottleneck_chain (the CUDA kernel on a GPU);
+        with ``quant='w8a8'`` the folded layer1 stays in the compute dtype
     :param decoder: 'basic' or 'gauss_taylor' on the device, or
         'dark_original': the heatmaps come to the host and
         ops/decode.decode_dark_original decodes them in numpy
+    :param quant: None or 'w8a8' (models/quant.py)
+    :param quant_scales: static {flax module path: s_x} activation scales
+        (:meth:`calibrate`, models/quant.load_scales); convs without one
+        use the dynamic per-batch scale
     """
 
     def __init__(self, model_cfg: dict, weights: Union[str, dict, None] = None,
                  input_shape=(192, 256), decoder: str = "gauss_taylor",
                  flip_test: bool = False, amp="auto", fused_layer1: bool = False,
-                 device=None):
+                 device=None, quant=None, quant_scales=None):
         if decoder not in _DECODERS:
             raise ValueError(f"decoder {decoder!r}; expected one of {sorted(_DECODERS)}")
         self.device = resolve_device(device)
@@ -135,6 +151,9 @@ class PoseEvaluator:
         self._decode = _DECODERS[decoder]
         self._flip_perm = torch.tensor(_flip_perm(self.num_joints), device=self.device)
         self._mean = torch.as_tensor(RGB_MEAN, device=self.device)
+        self.quant = quant
+        self.quant_scales = quant_scales
+        self._quant = quantized(self.model, quant, quant_scales)
         self._layer1_folded = None
         if fused_layer1:
             names = self.model.layer1_block_names()
@@ -150,21 +169,30 @@ class PoseEvaluator:
     def _to_device(self, v):
         return torch.as_tensor(v).to(self.device, non_blocking=True)
 
-    def _forward(self, x):
-        return self.model(x, layer1_folded=self._layer1_folded).float()
+    def _forward(self, x, params=None):
+        """The pose net (quantized when set) -> f32 heatmaps; ``params``:
+        a state dict to run in place of the model's own
+        (``torch.func.functional_call``, the external-weights export)."""
+        with self._quant:
+            if params is None:
+                y = self.model(x, layer1_folded=self._layer1_folded)
+            else:
+                y = torch.func.functional_call(self.model, params, (x,),
+                                               {"layer1_folded": self._layer1_folded})
+        return y.float()
 
-    @torch.no_grad()
-    def heatmaps(self, batch) -> torch.Tensor:
-        """[B, J, h, w] f32 heatmaps (flip-test averaged when enabled)."""
-        canvas = self._to_device(batch["canvas"])
-        trans = self._to_device(batch["trans"])
-        if "canvas_idx" in batch:  # dedup'd batch: one canvas per image
-            canvas = canvas[self._to_device(batch["canvas_idx"]).long()]
+    def _inputs(self, canvas, trans, canvas_idx=None):
+        """Device canvases and affines -> the network input [B, 3, h, w]."""
+        if canvas_idx is not None:  # dedup'd batch: one canvas per image
+            canvas = canvas[canvas_idx.long()]
         crops = affine_crop_separable(canvas, trans, self.crop_shape)
-        x = (crops / 255.0 - self._mean).permute(0, 3, 1, 2).contiguous()
-        heat = self._forward(x)
+        return (crops / 255.0 - self._mean).permute(0, 3, 1, 2).contiguous()
+
+    def _heatmaps(self, canvas, trans, canvas_idx=None, params=None):
+        x = self._inputs(canvas, trans, canvas_idx)
+        heat = self._forward(x, params)
         if self.flip_test:
-            hf = self._forward(x.flip(3))
+            hf = self._forward(x.flip(3), params)
             hf = hf[:, self._flip_perm].flip(3)
             # SimpleBaselines convention: shift flipped maps 1px right
             hf = torch.cat([hf[..., :1], hf[..., :-1]], dim=-1)
@@ -172,19 +200,67 @@ class PoseEvaluator:
         return heat
 
     @torch.no_grad()
+    def step(self, canvas, trans, trans_inv, canvas_idx=None, params=None) -> dict:
+        """The device program on device tensors: {kps [B,J,2], conf [B,J,1],
+        scores [B]}, or {heat [B,J,h,w]} for 'dark_original' (decoded on the
+        host by __call__).  evalkit/export.py exports this."""
+        heat = self._heatmaps(canvas, trans, canvas_idx, params)
+        if self._decode is None:
+            return {"heat": heat}
+        kps, conf = self._decode(heat, trans_inv)
+        return {"kps": kps, "conf": conf, "scores": instance_scores(conf)}
+
+    def _batch_tensors(self, batch):
+        idx = batch.get("canvas_idx")
+        return (self._to_device(batch["canvas"]), self._to_device(batch["trans"]),
+                None if idx is None else self._to_device(idx))
+
+    @torch.no_grad()
+    def heatmaps(self, batch) -> torch.Tensor:
+        """[B, J, h, w] f32 heatmaps (flip-test averaged when enabled)."""
+        return self._heatmaps(*self._batch_tensors(batch))
+
+    @torch.no_grad()
+    def calibrate(self, batches, num_batches: int = 2) -> dict:
+        """Record static w8a8 activation scales on the first ``num_batches``
+        of ``batches`` (pipeline batches, e.g. ``pipe.epoch(0)``) with the
+        float forward (layer1 unfolded, the flipped input too under
+        flip-test), then run with them (JAX workflows.py:260-293).  Under an
+        initialised torch.distributed group the scales are max-reduced over
+        the ranks.  Returns the {flax module path: s_x} dict
+        (models/quant.save_scales)."""
+        if self.quant is None:
+            raise ValueError("calibrate() requires a quant mode (quant='w8a8')")
+        rec, n = ScaleRecorder(self.model), 0
+        with rec:
+            for batch in batches:
+                if n >= num_batches:
+                    break
+                x = self._inputs(*self._batch_tensors(batch))
+                self.model(x)
+                if self.flip_test:  # the flipped forward quantizes too
+                    self.model(x.flip(3))
+                n += 1
+        if n == 0:
+            raise ValueError("calibrate() got an empty batch stream")
+        self.quant_scales = allreduce_scales_max(rec.scales())
+        self._quant = quantized(self.model, self.quant, self.quant_scales)
+        return self.quant_scales
+
+    @torch.no_grad()
     def __call__(self, batch) -> dict:
         """batch: {canvas u8 [U,S,S,3], trans [B,2,3], trans_inv [B,2,3],
         optional canvas_idx [B]} as numpy arrays or tensors.  Returns device
         tensors {kps [B,J,2], conf [B,J,1], scores [B]}."""
-        heat = self.heatmaps(batch)
+        canvas, trans, idx = self._batch_tensors(batch)
         if self._decode is None:  # dark_original, on the host (JAX workflows.py:302-316)
+            heat = self._heatmaps(canvas, trans, idx)
             trans_inv = torch.as_tensor(batch["trans_inv"]).cpu().numpy()
             kps, conf = decode_dark_original(heat.cpu().numpy(), trans_inv)
             scores = conf[..., 0].mean(-1) + conf[..., 0].max(-1)
             return {"kps": torch.from_numpy(kps), "conf": torch.from_numpy(conf),
                     "scores": torch.from_numpy(scores)}
-        kps, conf = self._decode(heat, self._to_device(batch["trans_inv"]))
-        return {"kps": kps, "conf": conf, "scores": instance_scores(conf)}
+        return self.step(canvas, trans, self._to_device(batch["trans_inv"]), idx)
 
 
 def _dedup_plan(batch_size: int, dedup: bool) -> dict:
@@ -193,18 +269,50 @@ def _dedup_plan(batch_size: int, dedup: bool) -> dict:
     return {"dedup_canvases": max(1, batch_size // 2)} if dedup else {}
 
 
+def _maybe_calibrate(ev: PoseEvaluator, pipe, quant_calib: int, quant_scales_out) -> None:
+    """Workflow-level static-scale calibration: the evaluator's recorder over
+    the first ``quant_calib`` batches of a fresh (unshuffled) epoch, the
+    scales then written to ``quant_scales_out`` where given."""
+    if not quant_calib:
+        return
+    ev.calibrate(pipe.epoch(0), quant_calib)
+    if quant_scales_out:
+        save_scales(ev.quant_scales, quant_scales_out)
+
+
+def calibrate_then_replay(target, stream, num_batches: int, scales_out=None):
+    """Calibrate ``target`` (a detector or FusedDetectPose: anything with
+    ``calibrate(batches, n)`` and ``quant_scales``) on the first
+    ``num_batches`` (chunk, canvases, shapes) batches of ``stream``, write
+    its scales to ``scales_out`` where given, and return the stream with
+    those batches in front again, so they are run on the new scales (JAX
+    workflows.py:535-543)."""
+    head = list(itertools.islice(stream, num_batches))
+    target.calibrate(((c, s) for _, c, s in head), num_batches)
+    if scales_out:
+        save_scales(target.quant_scales, scales_out)
+    return itertools.chain(head, stream)
+
+
 def predicts_by_gt(img_root, ann_path, model_cfg, weights=None, batch_size=32,
                    input_shape=(192, 256), decoder="gauss_taylor", flip_test=False,
                    out_path="test_gt_kpt.json", canvas=640, debug=0, dedup=True, amp="auto",
-                   fused_layer1=False, device=None):
-    """GT-box eval (eval.py:30-66).  Returns the stats dict."""
+                   fused_layer1=False, device=None, quant=None, quant_calib=0,
+                   quant_scales=None, quant_scales_out=None):
+    """GT-box eval (eval.py:30-66).  Returns the stats dict.
+
+    quant_calib: calibrate static w8a8 scales on the first N batches before
+    the eval loop (PoseEvaluator.calibrate); quant_scales feeds precomputed
+    scales; quant_scales_out writes the calibrated ones."""
     records = load_coco_keypoints(img_root, ann_path, debug=debug)
     pipe = PosePipeline(records, batch_size, input_shape=input_shape,
                         output_shape=(input_shape[0] // 4, input_shape[1] // 4),
                         canvas=canvas, augment=False, shuffle=False, drop_last=False,
                         **_dedup_plan(batch_size, dedup))
     ev = PoseEvaluator(model_cfg, weights, input_shape, decoder, flip_test, amp=amp,
-                       fused_layer1=fused_layer1, device=device)
+                       fused_layer1=fused_layer1, device=device, quant=quant,
+                       quant_scales=quant_scales)
+    _maybe_calibrate(ev, pipe, quant_calib, quant_scales_out)
     results = []
     for batch in pipe.epoch(0):
         out = {k: v.cpu().numpy() for k, v in ev(batch).items()}
@@ -221,19 +329,24 @@ def predicts_by_detections(img_root, det_json_path, gt_ann_path, model_cfg, weig
                            flip_test=False, out_path="predicts_kps_temp.json", canvas=640,
                            in_vis_thre=0.2, oks_thre=0.9, debug=0, dedup=True, amp="auto",
                            fused_layer1=False, device=None,
-                           filtered_out_path="filter_kps_predicts.json", use_native=None):
+                           filtered_out_path="filter_kps_predicts.json", use_native=None,
+                           quant=None, quant_calib=0, quant_scales=None,
+                           quant_scales_out=None):
     """Detector-box eval + OKS-NMS rescoring (eval.py:101-150 + 153-197).
 
     Writes the raw predictions to ``out_path`` and the rescored, filtered
-    ones to ``filtered_out_path``.  ``use_native`` as for data/pipeline.
-    Returns the stats dict of the latter."""
+    ones to ``filtered_out_path``.  ``use_native`` as for data/pipeline;
+    the ``quant*`` arguments as for predicts_by_gt.  Returns the stats dict
+    of the latter."""
     records = load_detection_boxes(img_root, det_json_path, debug=debug)
     pipe = DetBoxPipeline(records, batch_size, input_shape=input_shape,
                           output_shape=(input_shape[0] // 4, input_shape[1] // 4),
                           canvas=canvas, use_native=use_native,
                           **_dedup_plan(batch_size, dedup))
     ev = PoseEvaluator(model_cfg, weights, input_shape, decoder, flip_test, amp=amp,
-                       fused_layer1=fused_layer1, device=device)
+                       fused_layer1=fused_layer1, device=device, quant=quant,
+                       quant_scales=quant_scales)
+    _maybe_calibrate(ev, pipe, quant_calib, quant_scales_out)
     predictions = []
     for batch in pipe.epoch(0):
         out = {k: v.cpu().numpy() for k, v in ev(batch).items() if k != "scores"}
@@ -296,7 +409,8 @@ def rescore_and_filter(predictions, gt_ann_path, in_vis_thre=0.2, oks_thre=0.9,
 def gen_detections(img_root, ann_path, detector=None, out_path="person_detections.json",
                    batch_size=8, conf_thresh=0.25, iou_thresh=0.5, canvas=1280,
                    weights_path=None, scale_name="l", debug=0, detector_family="yolov5",
-                   amp="auto", device=None, use_native=None):
+                   amp="auto", device=None, use_native=None, quant_calib=0,
+                   quant_scales_out=None):
     """Run the person detector over the val images and write COCO detection
     results (gen_data_by_detector parity, eval.py:69-98, in the standard
     schema, so the output feeds predicts_by_detections).
@@ -304,7 +418,12 @@ def gen_detections(img_root, ann_path, detector=None, out_path="person_detection
     ``detector`` is a detector/wrapper.YOLOv5Detector; without one it is
     built from the other arguments.  Batches have a fixed size; the last is
     padded with empty canvases.  JPEGs decode through the native loader
-    (see data/pipeline's ``use_native``).  Returns the result list."""
+    (see data/pipeline's ``use_native``).
+
+    quant_calib: with a quant='w8a8' detector, calibrate static activation
+    scales on the first N batches (YOLOv5Detector.calibrate), then detect
+    on them again with those scales (JAX workflows.py:535-543);
+    quant_scales_out writes the scales.  Returns the result list."""
     from simple_pose_torch.detector.wrapper import YOLOv5Detector, image_batches
 
     if detector is None:
@@ -316,8 +435,11 @@ def gen_detections(img_root, ann_path, detector=None, out_path="person_detection
     if debug:
         images = images[:debug]
     loader = _native_loader(use_native, 8)
+    stream = image_batches(img_root, images, batch_size, canvas, loader)
+    if quant_calib and detector.quant:
+        stream = calibrate_then_replay(detector, stream, quant_calib, quant_scales_out)
     results = []
-    for chunk, canvases, shapes in image_batches(img_root, images, batch_size, canvas, loader):
+    for chunk, canvases, shapes in stream:
         for entry, boxes in zip(chunk, detector.predict_batch(canvases, shapes)):
             for x1, y1, x2, y2, score, _cls in boxes:
                 results.append({
@@ -334,11 +456,13 @@ def detect_then_pose(img_root, ann_path, pose_model_cfg, pose_weights=None,
                      detector_weights=None, scale_name="l", det_conf=0.25, det_iou=0.5,
                      batch_size=32, input_shape=(192, 256), flip_test=False, work_dir=".",
                      debug=0, detector_family="yolov5", amp="auto", fused_layer1=False,
-                     decoder="gauss_taylor", device=None, use_native=None):
+                     decoder="gauss_taylor", device=None, use_native=None, quant=None,
+                     quant_calib=0, quant_scales=None, quant_scales_out=None):
     """End-to-end detect -> crop -> pose -> rescoring AP (README.md:94-106):
     gen_detections into ``work_dir``/person_detections.json, then
-    predicts_by_detections on it, with ``flip_test`` and ``fused_layer1``
-    passed through.  Returns the stats dict."""
+    predicts_by_detections on it, with ``flip_test``, ``fused_layer1`` and
+    the ``quant*`` arguments passed through (the pose net's, as in JAX: the
+    detector stays float here).  Returns the stats dict."""
     det_path = os.path.join(work_dir, "person_detections.json")
     gen_detections(img_root, ann_path, out_path=det_path, conf_thresh=det_conf,
                    iou_thresh=det_iou, weights_path=detector_weights, scale_name=scale_name,
@@ -349,4 +473,5 @@ def detect_then_pose(img_root, ann_path, pose_model_cfg, pose_weights=None,
         batch_size=batch_size, input_shape=input_shape, decoder=decoder, flip_test=flip_test,
         out_path=os.path.join(work_dir, "predicts_kps_temp.json"), amp=amp,
         fused_layer1=fused_layer1, device=device, use_native=use_native,
-        filtered_out_path=os.path.join(work_dir, "filter_kps_predicts.json"))
+        filtered_out_path=os.path.join(work_dir, "filter_kps_predicts.json"), quant=quant,
+        quant_calib=quant_calib, quant_scales=quant_scales, quant_scales_out=quant_scales_out)

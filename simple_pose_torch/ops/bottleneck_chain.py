@@ -8,6 +8,9 @@ block, two more for an SE gate; a bf16 ``compute_dtype`` runs the products
 on tensor cores, f32 on CUDA cores); on a CPU tensor it runs
 :func:`bottleneck_chain_reference`, the plain PyTorch version of the same
 math.  There is no fallback: a CUDA tensor reaches the kernel or raises.
+The call goes through a registered op (``simple_pose::bottleneck_chain``)
+with a fake implementation, so ``torch.export`` traces an evaluator with
+the fused layer1 and the loaded program launches the same kernel.
 
 Replaces ``_chain_kernel`` (pallas_bottleneck.py:88, math in ``_block_math``
 :48-85).  What bounds it on the card, and what the design does about it, is
@@ -31,7 +34,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -230,12 +233,29 @@ def _bottleneck_chain_cuda(x, blocks, compute_dtype):
     return y
 
 
-@counts_launches
-def bottleneck_chain(x, blocks: Sequence[dict], compute_dtype=torch.float32):
-    """Fused folded-Bottleneck chain on NCHW ``x`` -> [B, Cout, H, W] in x's
-    dtype.  CPU tensors take :func:`bottleneck_chain_reference`; CUDA tensors
-    launch the kernel (``bottleneck_chain.launches`` counts those calls) or
-    raise."""
+_BLOCK_KEYS = ("w1", "b1", "w2", "b2", "w3", "b3", "wd", "bd", "sf1", "sb1", "sf2", "sb2")
+
+
+def _flatten_blocks(blocks) -> list:
+    """Block dicts -> one list of optional tensors, _BLOCK_KEYS per block."""
+    return [blk.get(k) for blk in blocks for k in _BLOCK_KEYS]
+
+
+def _unflatten_blocks(params) -> list:
+    n = len(_BLOCK_KEYS)
+    return [{k: t for k, t in zip(_BLOCK_KEYS, params[i:i + n]) if t is not None}
+            for i in range(0, len(params), n)]
+
+
+@torch.library.custom_op("simple_pose::bottleneck_chain", mutates_args=())
+def _chain_op(x: torch.Tensor, params: List[Optional[torch.Tensor]],
+              bf16: bool) -> torch.Tensor:
+    """The registered op that :func:`bottleneck_chain` calls, so that
+    ``torch.export`` keeps K2 as one node and a loaded program launches it
+    (importing this module registers it).  ``params``: the blocks flattened
+    by _BLOCK_KEYS; ``bf16``: the compute dtype is bf16, else f32."""
+    blocks = _unflatten_blocks(params)
+    compute_dtype = torch.bfloat16 if bf16 else torch.float32
     if x.device.type == "cpu":
         return bottleneck_chain_reference(x, blocks, compute_dtype)
     if x.device.type != "cuda":
@@ -243,3 +263,22 @@ def bottleneck_chain(x, blocks: Sequence[dict], compute_dtype=torch.float32):
     y = _bottleneck_chain_cuda(x, blocks, compute_dtype)
     bottleneck_chain.launches += 1
     return y
+
+
+@_chain_op.register_fake
+def _chain_op_fake(x, params, bf16):
+    cout = _unflatten_blocks(params)[-1]["w3"].shape[1]
+    return x.new_empty((x.shape[0], cout, x.shape[2], x.shape[3]))
+
+
+@counts_launches
+def bottleneck_chain(x, blocks: Sequence[dict], compute_dtype=torch.float32):
+    """Fused folded-Bottleneck chain on NCHW ``x`` -> [B, Cout, H, W] in x's
+    dtype, through the registered op ``torch.ops.simple_pose.bottleneck_chain``.
+    CPU tensors take :func:`bottleneck_chain_reference`; CUDA tensors launch
+    the kernel (``bottleneck_chain.launches`` counts those calls, eager or
+    from a loaded ``torch.export`` program) or raise."""
+    if compute_dtype not in _SUPPORTED:
+        raise ValueError(f"compute dtype {compute_dtype}: the chain takes f32 or bf16")
+    return torch.ops.simple_pose.bottleneck_chain(x, _flatten_blocks(blocks),
+                                                  compute_dtype == torch.bfloat16)
