@@ -1,7 +1,7 @@
 """Chip smoke test of the PyTorch + CUDA port: drives the serving path, the
 training step, the training solver, the detect -> pose programs, W8A8
-serving and the serving export on one CUDA card and holds every kernel
-against its plain PyTorch version.
+serving, the serving export, the fused export and the demos on one CUDA
+card and holds every kernel against its plain PyTorch version.
 
     python3 chip_smoke.py
 
@@ -155,6 +155,31 @@ raises, and the script exits non-zero without a result line):
         of the int8 route there; then the f32 w8a8 evaluator traced on the
         CPU and moved to the card in that process (the int8 route and K2
         run there) against the live f32 one on the card.
+ 12. progressive JPEGs, the fused export and the demos:
+     a. the committed progressive fixture (tests/data_torch_jpeg/progressive:
+        4:4:4, 4:2:0, 4:2:2, gray, a restart interval, 121x99) through the
+        port's decoder against its CRC32s; host images/s of one 640x480
+        scene decoded 64 at a time as baseline and as progressive, with 8
+        threads and with 1;
+     b. export_fused of FusedDetectPose (YOLOv5-l + ResNet-50-DConv+SE, det
+        640, canvas 1280, batch 8, max_people 16, conf 0.001) in bf16 and in
+        w8a8 on scales calibrated on two fixture batches: saved, loaded in a
+        fresh process that imports torch and the int8 op only, held against
+        the live program on the fixture's first 8 JPEGs (det_valid equal,
+        boxes and keypoints within FUSED_EXPORT_TOL, cuDNN deterministic in
+        both), the int8 route's launches there; bytes, export and load
+        seconds, images/s loaded and live (live before and after); the
+        artifacts deleted; then the NMS's while_loop against the old
+        host-tested fixed point and the sequential loop on the bf16 pred
+        (scripts/time_torch_nms.py), with the round count;
+     c. python -m simple_pose_torch.demo_image's main on the card (the
+        flagship, a seeded YOLOv5-l with one planted confident anchor) from
+        the baseline and the progressive scene, with --box and with the
+        detector: each PNG read back (zlib) at 640x480; demo_video's
+        run_frames over 16 synthetic frames at batch 4 (ms per frame); then
+        serve_artifact --out on a fused_layer1 artifact of eval export, with
+        the launch counters zeroed just before and read just after (K2
+        once).
 
 The line before the last holds the kernels' JSON; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -164,6 +189,8 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import importlib.util
+import io
 import json
 import math
 import os
@@ -191,7 +218,7 @@ from simple_pose_torch.detector.wrapper import (
     letterbox_params,
     read_canvases,
 )
-from simple_pose_torch.evalkit.export import export_evaluator, save_exported
+from simple_pose_torch.evalkit.export import export_evaluator, export_fused, save_exported
 from simple_pose_torch.evalkit.fused import FusedDetectPose, fused_eval
 from simple_pose_torch.evalkit.workflows import (
     PoseEvaluator,
@@ -2305,6 +2332,294 @@ def run_quant_path(card, float_rates):
     return summary, serving["launches"]["bottleneck_chain"], artifact
 
 
+# ---------------------------------------------------------------------------
+# phase 12: progressive JPEGs, the fused export and the demos
+# ---------------------------------------------------------------------------
+PROGRESSIVE_DIR = os.path.join(FIXTURE, "progressive")
+# 12a: one scene as baseline (det image 1) and as progressive (its
+# progressive 4:4:4 re-encoding), each decoded DECODE_COPIES at once
+DECODE_SCENE = {"baseline": os.path.join(DET_IMAGES, "000000000001.jpg"),
+                "progressive": os.path.join(PROGRESSIVE_DIR, "p444.jpg")}
+DECODE_COPIES, DECODE_REPS = 64, 3
+# 12b: live and loaded calls timed per turn
+FUSED_EXPORT_REPS = 5
+# 12b: the loaded fused program against the live one, both with cuDNN's
+# deterministic algorithms: boxes and keypoints in px (the same ops on the
+# same inputs; any larger difference would be a different program)
+FUSED_EXPORT_TOL = (1e-3, 1e-3)
+# 12c: the demos; the GT box of the fixture's first person
+DEMO_BOX = "63.75,14.53,244.54,271.06"
+DEMO_FRAMES, DEMO_BATCH = 16, 4
+
+# 12b: the loaded fused artifact runs in a fresh process that imports torch
+# and the int8 product's op registration only
+FUSED_CHILD = r"""
+import json, sys, time
+import torch
+import simple_pose_torch.ops.int8_conv as i8
+path, inputs, outputs, reps = sys.argv[1:5]
+reps = int(reps)
+torch.backends.cudnn.deterministic = True  # as the parent's live program
+t0 = time.perf_counter()
+fn = torch.export.load(path).module()
+load_s = time.perf_counter() - t0
+args = [a.cuda() for a in torch.load(inputs)]
+i8.int8_conv.launches = 0
+with torch.no_grad():
+    out = fn(*args)
+    torch.cuda.synchronize()
+    launches = i8.int8_conv.launches
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn(*args)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+torch.save({k: v.cpu() for k, v in out.items()}, outputs)
+mods = sorted(m for m in sys.modules if m.startswith("simple_pose"))
+print(json.dumps({"load_s": load_s, "images_per_s": reps * args[0].shape[0] / seconds,
+                  "int8_conv_launches_first_call": launches, "modules": mods}))
+"""
+
+
+def load_script(name):
+    """A module of scripts/ (not a package) by file name."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def check_progressive_decode():
+    """12a: the committed progressive fixture against its CRC32s through
+    the port's decoder, then host images/s of one scene as baseline and as
+    progressive with 8 decode threads and with 1."""
+    with open(os.path.join(PROGRESSIVE_DIR, "decoded_crc32.json")) as f:
+        want = json.load(f)
+    rels = sorted(want)
+    loader = native.NativeCanvasLoader(8)
+    canvases, hs, ws = loader.load_batch([os.path.join(FIXTURE, r) for r in rels], CANVAS)
+    crc = [r for r, c, h, w in zip(rels, canvases, hs, ws)
+           if (h, w) != (want[r]["height"], want[r]["width"])
+           or zlib.crc32(np.ascontiguousarray(c[:h, :w]).tobytes()) != want[r]["crc32"]]
+    out = {"decoder": loader.decoder, "images": len(rels), "crc32_equal": len(rels) - len(crc)}
+    for threads in (8, 1):
+        pool = native.NativeCanvasLoader(threads)
+        for kind, path in DECODE_SCENE.items():
+            paths = [path] * DECODE_COPIES
+            pool.load_batch(paths, CANVAS)
+            seconds = []
+            for _ in range(DECODE_REPS):
+                t0 = time.perf_counter()
+                pool.load_batch(paths, CANVAS)
+                seconds.append(time.perf_counter() - t0)
+            out[f"{kind}_{threads}_threads_images_per_s"] = pass_rates(seconds, DECODE_COPIES)
+        pool.close()
+    log("phase 12a, progressive decode: " + json.dumps(out))
+    assert loader.decoder == "baseline", "12a holds the port's decoder; this machine has libjpeg"
+    assert not crc, f"progressive pixels differ from the committed CRC32s: {crc}"
+    return out
+
+
+def fused_calib_batches():
+    """The fixture's images 9-24 as two (canvases, shapes) batches."""
+    canvases, shapes = fixture_canvases(3 * FUSED_BATCH)
+    return [(canvases[i:i + FUSED_BATCH], shapes[i:i + FUSED_BATCH])
+            for i in (FUSED_BATCH, 2 * FUSED_BATCH)]
+
+
+@torch.no_grad()
+def run_fused_export(workdir, canvases, shapes):
+    """12b: export_fused of the fused program (YOLOv5-l + ResNet-50-DConv+SE)
+    in bf16 and in w8a8 on calibrated scales, saved, loaded in a fresh
+    process, against the live program on the same batch; then the NMS
+    loop against the old fixed point on the live program's pred."""
+    fkw = dict(scale_name="l", det_size=(DET_SIZE, DET_SIZE), input_shape=INPUT_SHAPE,
+               max_people=MAX_PEOPLE, det_conf=DET_CONF, det_iou=DET_IOU, canvas=DET_CANVAS)
+    res, pred = {}, None
+    for name, kw in (("bf16", {}), ("w8a8_static", {"quant": "w8a8"})):
+        fused = FusedDetectPose(CFG, **fkw, **kw)
+        if fused.quant:
+            fused.calibrate(fused_calib_batches(), 2)
+        args = fused.prepare(canvases, shapes)[:5]
+        t0 = time.perf_counter()
+        exported = export_fused(fused, FUSED_BATCH, DET_CANVAS)
+        export_s = time.perf_counter() - t0
+        path = os.path.join(workdir, f"fused_{name}.pt2")
+        nbytes = save_exported(exported, path)
+        del exported
+        inputs = os.path.join(workdir, "fused_inputs.pt")
+        torch.save([a.cpu() for a in args], inputs)
+
+        def live_rate():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(FUSED_EXPORT_REPS):
+                fused.program(*args)
+            torch.cuda.synchronize()
+            return FUSED_EXPORT_REPS * FUSED_BATCH / (time.perf_counter() - t0)
+
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                        allow_tf32=False):
+            live = {k: v.cpu() for k, v in fused.program(*args).items()}
+            rates = [live_rate()]
+            outputs = os.path.join(workdir, f"fused_{name}_out.pt")
+            proc = subprocess.run(
+                [sys.executable, "-c", FUSED_CHILD, path, inputs, outputs,
+                 str(FUSED_EXPORT_REPS)],
+                cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
+                timeout=600, env={**os.environ, "PYTHONPATH": os.path.dirname(
+                    os.path.abspath(__file__))})
+            assert proc.returncode == 0, proc.stderr[-4000:]
+            rates.append(live_rate())
+        child = json.loads(proc.stdout.strip().splitlines()[-1])
+        got = torch.load(outputs)
+        valid = live["det_valid"]
+        diff = {k: (got[k].float() - live[k].float()).abs().max().item() for k in live}
+        n_int8 = (len(quant.quantized_convs(fused.detector.model))
+                  + len(quant.quantized_convs(fused.pose_model))) if fused.quant else 0
+        res[name] = {"bytes": nbytes, "export_s": export_s, "load_s": child["load_s"],
+                     "loaded_images_per_s": child["images_per_s"],
+                     "live_images_per_s_before_after": rates,
+                     "int8_conv_launches_loaded": child["int8_conv_launches_first_call"],
+                     "int8_convs": n_int8, "det_valid_equal": torch.equal(got["det_valid"], valid),
+                     "valid_boxes": int(valid.sum()),
+                     "bitwise_equal": all(torch.equal(got[k], live[k]) for k in live),
+                     "max_abs_diff": diff, "modules": child["modules"]}
+        for f in (path, outputs):
+            os.remove(f)
+        log(f"phase 12b, fused {name}: " + json.dumps(res[name]))
+        assert set(got) == set(live) and res[name]["det_valid_equal"], res[name]
+        assert diff["boxes"] <= FUSED_EXPORT_TOL[0] and diff["kps"] <= FUSED_EXPORT_TOL[1], \
+            res[name]
+        assert child["int8_conv_launches_first_call"] == n_int8, res[name]
+        assert not [m for m in child["modules"] if not m.startswith(
+            ("simple_pose_torch.ops", "simple_pose_torch.utils"))
+            and m != "simple_pose_torch"], child["modules"]
+        if pred is None:
+            x = fused.letterbox(*args[:3], DET_SIZE, DET_SIZE)
+            with fused._contexts["detector"]:
+                pred = fused.detector.model(x)
+        del fused, live, got
+        torch.cuda.empty_cache()
+    res["nms_loops"] = load_script("time_torch_nms").time_loops(pred, timer=cuda_ms)
+    log("phase 12b, NMS loop: " + json.dumps(res["nms_loops"]))
+    return res
+
+
+def planted_detector(path):
+    """A seeded YOLOv5-l 80-class checkpoint with its stride-32 anchor 2
+    made sure of a person (objectness and person logits' biases 6), so that
+    the demos' conf 0.25 keeps boxes: a seeded detector scores at its
+    prior (the 80-class person prior is ~0.01)."""
+    from simple_pose_torch.detector.yolov5 import YOLOv5
+
+    state = YOLOv5(num_cls=80, scale_name="l").state_dict()
+    state["head.heads.2.bias"].view(3, 85)[2, 4:6] = 6.0
+    torch.save({"ema": state}, path)
+    return path
+
+
+def run_demos(workdir, canvases):
+    """12c: demo_image (its main, on the card) from a baseline and a
+    progressive JPEG, with --box and with the detector, each PNG read back;
+    then demo_video's frame loop over synthetic frames; then serve_artifact
+    --out on a fused_layer1 artifact of eval export (K2 once per call)."""
+    from simple_pose_torch import demo_image, demo_video, serve_artifact
+    from simple_pose_torch import eval as teval
+    from simple_pose_torch.utils.viz import read_png
+
+    det_path = planted_detector(os.path.join(workdir, "yolov5l_planted.pth"))
+    res = {}
+    for image in (DECODE_SCENE["baseline"], DECODE_SCENE["progressive"]):
+        for mode in ("box", "detector"):
+            name = f"{os.path.basename(image)}_{mode}"
+            out = os.path.join(workdir, f"{name}.png")
+            argv = ["--image", image, "--reduction", "--out", out]
+            argv += ["--box", DEMO_BOX] if mode == "box" else ["--det-weights", det_path]
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                demo_image.main(argv)
+            seconds = time.perf_counter() - t0
+            people = json.loads(buf.getvalue().strip().splitlines()[-1])["people"]
+            png = read_png(out)
+            res[name] = {"seconds": seconds, "people": len(people), "png_shape": list(png.shape),
+                         "finite": bool(np.isfinite([p["keypoints"] for p in people]).all())}
+            assert png.shape == (480, 640, 3) and people and res[name]["finite"], res[name]
+    # demo_video's loop: 16 frames, the fixture's first image shifted 4 px a frame
+    fused = FusedDetectPose(CFG, None, det_path, scale_name="l", max_people=MAX_PEOPLE,
+                            det_conf=0.25, canvas=demo_video.canvas_edge(480, 640))
+    base = np.ascontiguousarray(canvases[0, :480, :640])
+    frames = [np.roll(base, 4 * i, axis=1) for i in range(DEMO_FRAMES)]
+    sink = []
+    demo_video.run_frames(fused, frames[:DEMO_BATCH], sink.append, DEMO_BATCH)  # warm
+    sink.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    written = demo_video.run_frames(fused, iter(frames), sink.append, DEMO_BATCH)
+    ms = (time.perf_counter() - t0) * 1e3 / DEMO_FRAMES
+    drawn = sum(int((f != g).any()) for f, g in zip(sink, frames))
+    res["demo_video"] = {"frames_in": DEMO_FRAMES, "frames_out": written, "sunk": len(sink),
+                         "frames_drawn_on": drawn, "ms_per_frame": ms, "batch": DEMO_BATCH}
+    assert written == len(sink) == DEMO_FRAMES and drawn == DEMO_FRAMES, res["demo_video"]
+    del fused
+    # serve_artifact --out on a fused_layer1 artifact: K2 launches once
+    artifact = os.path.join(workdir, "pose_l1.pt2")
+    with contextlib.redirect_stdout(io.StringIO()):
+        teval.main(["export", "--model-name", "resnet50", "--reduction", "--fused-layer1",
+                    "--batch-size", "2", "--canvas", str(CANVAS), "--out", artifact])
+    out = os.path.join(workdir, "served.png")
+    zero_launch_counts()
+    box = tuple(float(v) for v in DEMO_BOX.split(","))
+    served = serve_artifact.serve(artifact, DECODE_SCENE["progressive"], [box], out=out)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    res["serve_artifact_out"] = {"launches": launches, "people": len(served["people"]),
+                                 "png_shape": list(read_png(out).shape)}
+    assert launches["bottleneck_chain"] == 1, res["serve_artifact_out"]
+    assert res["serve_artifact_out"]["png_shape"] == [480, 640, 3]
+    log("phase 12c, demos: " + json.dumps(res))
+    return res
+
+
+def run_port_apps(card):
+    """Phase 12.  Returns the summary and K2's launches in 12c."""
+    t_phase = time.perf_counter()
+    summary = {"card": card}
+    t0 = time.perf_counter()
+    summary["12a_progressive"] = check_progressive_decode()
+    report_numbers(card, "phase 12a, host images/s median of one 640x480 scene",
+                   {k: v["median"] for k, v in summary["12a_progressive"].items()
+                    if k.endswith("images_per_s")})
+    log(f"phase 12a: {time.perf_counter() - t0:.1f} s")
+    orig, data_pipeline._imread_rgb = data_pipeline._imread_rgb, _no_cv2
+    try:
+        canvases, shapes = fixture_canvases(FUSED_BATCH)
+        with tempfile.TemporaryDirectory() as workdir:
+            t0 = time.perf_counter()
+            summary["12b_export_fused"] = run_fused_export(workdir, canvases, shapes)
+            for name in ("bf16", "w8a8_static"):
+                row = summary["12b_export_fused"][name]
+                report_numbers(card, f"phase 12b, fused {name} artifact at batch {FUSED_BATCH}",
+                               {k: row[k] for k in ("bytes", "export_s", "load_s",
+                                                    "loaded_images_per_s",
+                                                    "live_images_per_s_before_after")})
+            for md, row in summary["12b_export_fused"]["nms_loops"].items():
+                report_numbers(card, f"phase 12b, NMS {md} ms (loop, host, while_loop)",
+                               {"ms": row["ms"], "rounds": row["rounds"]})
+            log(f"phase 12b: {time.perf_counter() - t0:.1f} s")
+            t0 = time.perf_counter()
+            summary["12c_demos"] = run_demos(workdir, canvases)
+            report_numbers(card, "phase 12c, demo_video", {
+                k: summary["12c_demos"]["demo_video"][k] for k in ("ms_per_frame", "batch")})
+            log(f"phase 12c: {time.perf_counter() - t0:.1f} s")
+    finally:
+        data_pipeline._imread_rgb = orig
+    log(f"phase 12: {time.perf_counter() - t_phase:.1f} s")
+    return summary, summary["12c_demos"]["serve_artifact_out"]["launches"]["bottleneck_chain"]
+
+
 def k2_row(name, launches, report, row):
     """A K2 row of the kernels' JSON line."""
     return {
@@ -2379,13 +2694,16 @@ def main() -> int:
         "gen_dets": detector["10c_gen_dets"]["images_per_s"]["median"],
         "fused": detector["10e_fused_yolov5"]["images_per_s"]["median"]})
     log("phase 11: " + json.dumps(quantized_run))
+    apps, serve_launches = run_port_apps(card)
+    log("phase 12: " + json.dumps(apps))
 
     kernels = [{**k2_row("bottleneck_chain", launches["bottleneck_chain"], report,
                          timing[f"b{BATCH}_bf16"]),
                 "launches_detections": jpeg["launches"]["bottleneck_chain"],
                 "launches_e2e": e2e_launches,
                 "launches_w8a8_serving": quant_launches,
-                "launches_loaded_artifact": artifact_launches}]
+                "launches_loaded_artifact": artifact_launches,
+                "launches_serve_artifact_out": serve_launches}]
     for fam, (fam_report, fam_timing, fam_launches) in families.items():
         kernels.append({**k2_row(f"bottleneck_chain ({fam} layer1)", fam_launches, fam_report,
                                  fam_timing[f"b{BATCH}_bf16"]),

@@ -1,6 +1,7 @@
 """Write the JPEG fixture of the PyTorch port's tests and chip smoke run.
 
     python scripts/make_torch_jpeg_fixtures.py [--out tests/data_torch_jpeg]
+                                               [--progressive-only]
 
 Needs cv2 (to paint and encode); everything else is numpy from fixed seeds.
 It writes:
@@ -17,6 +18,12 @@ It writes:
   decoded_crc32.json          per JPEG: height, width and the CRC32 of its
                               decoded RGB pixels, decoded by the port's
                               native loader (this machine's libjpeg)
+  progressive/*.jpg,          6 progressive JPEGs (cv2's default progression
+  progressive/                script): 4:4:4 (det image 1's scene), 4:2:0,
+    decoded_crc32.json        4:2:2, grayscale, 4:2:0 with a restart
+                              interval, and an odd 121x99 4:2:0; their
+                              CRC32s as above, each checked against cv2's
+                              decode (--progressive-only writes these alone)
 
 The JSON files are a function of the seeds alone (tests regenerate and
 compare them); the JPEG bytes depend on the encoder's libjpeg.
@@ -122,6 +129,49 @@ def paint(scene, wh=DET_WH):
     return img
 
 
+# name -> (det scene, (w, h), sampling, quality, restart interval); the
+# scene is painted at 640x480 and resized with INTER_AREA
+PROGRESSIVE = {
+    "p444.jpg": (0, (640, 480), "444", 90, 0),
+    "p420.jpg": (1, (640, 480), "420", 90, 0),
+    "p422.jpg": (2, (320, 240), "422", 85, 0),
+    "gray.jpg": (3, (320, 240), "gray", 90, 0),
+    "p420_rst.jpg": (4, (400, 300), "420", 80, 5),
+    "odd_121x99.jpg": (5, (121, 99), "420", 95, 0),
+}
+
+
+def write_progressive(out_dir, scenes):
+    """The progressive fixture: [(relative path, path)]."""
+    import cv2 as cv
+
+    sampling = {"444": cv.IMWRITE_JPEG_SAMPLING_FACTOR_444,
+                "420": cv.IMWRITE_JPEG_SAMPLING_FACTOR_420,
+                "422": cv.IMWRITE_JPEG_SAMPLING_FACTOR_422}
+    os.makedirs(out_dir, exist_ok=True)
+    paths = []
+    for name, (scene, wh, samp, quality, restart) in PROGRESSIVE.items():
+        img = paint(scenes[scene])
+        if wh != DET_WH:
+            img = cv.resize(img, wh, interpolation=cv.INTER_AREA)
+        params = [cv.IMWRITE_JPEG_PROGRESSIVE, 1, cv.IMWRITE_JPEG_QUALITY, quality,
+                  cv.IMWRITE_JPEG_RST_INTERVAL, restart]
+        if samp == "gray":
+            img = cv.cvtColor(img, cv.COLOR_BGR2GRAY)
+        else:
+            params += [cv.IMWRITE_JPEG_SAMPLING_FACTOR, sampling[samp]]
+        path = os.path.join(out_dir, name)
+        assert cv.imwrite(path, img, params), path
+        paths.append((f"progressive/{name}", path))
+    return paths
+
+
+def write_crc32(path, decoded):
+    with open(path, "w") as f:
+        json.dump({rel: {"height": v[0], "width": v[1], "crc32": v[2]}
+                   for rel, v in decoded.items()}, f, indent=0, sort_keys=True)
+
+
 def decode_records(paths):
     """{relative path: (height, width, crc32 of the RGB pixels)} decoded by
     the port's native loader."""
@@ -139,15 +189,27 @@ def decode_records(paths):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=os.path.join(REPO, "tests", "data_torch_jpeg"))
+    ap.add_argument("--progressive-only", action="store_true",
+                    help="write the progressive files and their CRC32s alone")
     args = ap.parse_args(argv)
     import cv2 as cv
 
     sys.path.insert(0, REPO)
     from tests.util_synth import make_synth_coco
 
+    gt, dets, scenes = detection_set()
+    progressive = write_progressive(os.path.join(args.out, "progressive"), scenes)
+    decoded = decode_records(progressive)
+    for rel, path in progressive:
+        rgb = np.ascontiguousarray(cv.imread(path, cv.IMREAD_COLOR)[..., ::-1])
+        assert zlib.crc32(rgb.tobytes()) == decoded[rel][2], f"{rel}: libjpeg and cv2 differ"
+    write_crc32(os.path.join(args.out, "progressive", "decoded_crc32.json"), decoded)
+    print(f"{len(progressive)} progressive JPEGs under {args.out}/progressive")
+    if args.progressive_only:
+        return
+
     det = os.path.join(args.out, "det")
     os.makedirs(os.path.join(det, "images"), exist_ok=True)
-    gt, dets, scenes = detection_set()
     params = [cv.IMWRITE_JPEG_QUALITY, JPEG_QUALITY,
               cv.IMWRITE_JPEG_SAMPLING_FACTOR, cv.IMWRITE_JPEG_SAMPLING_FACTOR_444]
     paths = []
@@ -166,10 +228,7 @@ def main(argv=None):
     for name in sorted(os.listdir(img_root)):
         paths.append((f"overfit/imgs/{name}", os.path.join(img_root, name)))
 
-    decoded = decode_records(paths)
-    with open(os.path.join(args.out, "decoded_crc32.json"), "w") as f:
-        json.dump({rel: {"height": v[0], "width": v[1], "crc32": v[2]}
-                   for rel, v in decoded.items()}, f, indent=0, sort_keys=True)
+    write_crc32(os.path.join(args.out, "decoded_crc32.json"), decode_records(paths))
     n_person = sum(d["category_id"] == 1 for d in dets)
     print(f"{len(paths)} JPEGs, {len(gt['annotations'])} people, {n_person} person boxes "
           f"({len(dets)} detections) under {args.out}")

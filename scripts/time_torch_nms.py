@@ -1,7 +1,10 @@
 """Time the port's NMS on the card: the greedy suppression as a fixed point
-(detector/nms._greedy_keep, what the port runs) against the sequential
-loop of the JAX package (one step per candidate, as nms.py:66-71 writes
-it), on the same pred, in the order loop, fixed point, fixed point, loop.
+in a ``while_loop`` (detector/nms._greedy_keep, what the port runs, live
+and exported) against the same fixed point as a Python loop that compares
+each round on the host (``host_fixed_point``, the port's loop before it
+could be exported) and the sequential loop of the JAX package (one step
+per candidate, as nms.py:66-71 writes it), on the same pred, in the order
+loop, host, while_loop, while_loop, host, loop.  Also prints the rounds.
 
     python scripts/time_torch_nms.py
 
@@ -57,6 +60,47 @@ def cuda_ms(fn, iters=10, warmup=2):
     return start.elapsed_time(end) / iters
 
 
+def host_fixed_point(valid, sup, rounds=None):
+    """The fixed point with a host test per round (``torch.equal``); appends
+    its round count to ``rounds``."""
+    keep, n = valid, 0
+    while True:
+        n += 1
+        new = nms._suppress_step(keep, valid, sup)
+        if torch.equal(new, keep):
+            if rounds is not None:
+                rounds.append(n)
+            return keep
+        keep = new
+
+
+def time_loops(pred, timer=cuda_ms):
+    """{max_det_<n>: {ms: {loop, host, while_loop: [two readings]}, rounds,
+    same_result}} on one pred, at the fused program's max_det 16 and
+    gen-dets' 300."""
+    loops = {"loop": sequential_keep, "host": host_fixed_point, "while_loop": nms._greedy_keep}
+    out = {}
+    try:
+        for max_det in (16, 300):
+            kw = dict(conf_thresh=0.001, iou_thresh=0.5, max_det=max_det, multi_label=True,
+                      merge=True)
+            results, ms = {}, {name: [] for name in loops}
+            for name in ("loop", "host", "while_loop", "while_loop", "host", "loop"):
+                nms._greedy_keep = loops[name]
+                results[name] = nms.non_max_suppression(pred, **kw)
+                ms[name].append(timer(lambda: nms.non_max_suppression(pred, **kw)))
+            rounds = []
+            nms._greedy_keep = lambda valid, sup: host_fixed_point(valid, sup, rounds)
+            nms.non_max_suppression(pred, **kw)
+            same = all(torch.equal(a, b) for name in ("host", "while_loop")
+                       for a, b in zip(results["loop"], results[name]))
+            out[f"max_det_{max_det}"] = {"ms": ms, "rounds": rounds[-1], "same_result": same}
+            assert same, f"max_det {max_det}: the loops disagree"
+    finally:
+        nms._greedy_keep = loops["while_loop"]
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("time_torch_nms: no CUDA device")
@@ -70,36 +114,8 @@ def main():
     trans, region = _geom_to_arrays([letterbox_params(h, w) for h, w in shapes])
     det = YOLOv5Detector(scale_name="l", conf_thresh=0.001)
     pred = det.forward(*(torch.from_numpy(a).cuda() for a in (canvases, trans, region)), 640, 640)
-
-    rounds = []
-    fixed_point = nms._greedy_keep
-
-    def counted(valid, sup):
-        keep, n = valid, 0
-        while True:
-            n += 1
-            new = valid & ~(torch.bmm(keep.to(sup.dtype)[:, None, :], sup)[:, 0] > 0.0)
-            if torch.equal(new, keep):
-                rounds.append(n)
-                return keep
-            keep = new
-
-    out = {"card": card, "batch": 8, "pred_shape": list(pred.shape)}
-    for max_det in (16, 300):
-        kw = dict(conf_thresh=0.001, iou_thresh=0.5, max_det=max_det, multi_label=True,
-                  merge=True)
-        results, ms = {}, {"loop": [], "fixed_point": []}
-        for name in ("loop", "fixed_point", "fixed_point", "loop"):
-            nms._greedy_keep = sequential_keep if name == "loop" else fixed_point
-            results[name] = nms.non_max_suppression(pred, **kw)
-            ms[name].append(cuda_ms(lambda: nms.non_max_suppression(pred, **kw)))
-        nms._greedy_keep = counted
-        nms.non_max_suppression(pred, **kw)
-        nms._greedy_keep = fixed_point
-        same = all(torch.equal(a, b) for a, b in zip(results["loop"], results["fixed_point"]))
-        out[f"max_det_{max_det}"] = {"ms": ms, "rounds": rounds[-1], "same_result": same}
-        assert same
-    print(json.dumps(out))
+    print(json.dumps({"card": card, "batch": 8, "pred_shape": list(pred.shape),
+                      **time_loops(pred)}))
 
 
 if __name__ == "__main__":

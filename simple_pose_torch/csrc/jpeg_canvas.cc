@@ -1,5 +1,5 @@
-// jpeg_canvas: threaded baseline JPEG -> RGB canvas batch decoder with
-// libjpeg's default integer arithmetic, for a host that has no libjpeg.
+// jpeg_canvas: threaded sequential and progressive JPEG -> RGB canvas batch
+// decoder with libjpeg's integer arithmetic, for a host without libjpeg.
 //
 // The same C API and result as native/canvas_loader.cc: each image (RGB)
 // pasted at the origin of a zeroed [n, canvas, canvas, 3] uint8 slot,
@@ -7,6 +7,12 @@
 // decompression bit for bit, because each stage repeats its arithmetic:
 //   * Huffman decode of a sequential (SOF0/SOF1) 8-bit interleaved scan,
 //     restart intervals included (jdhuff.c);
+//   * Huffman decode of a progressive (SOF2) file's scans into a whole-image
+//     coefficient buffer (jdphuff.c): DC first and refine, AC first with
+//     end-of-band runs and AC refine, each scan's Ss, Se, Ah and Al checked
+//     as libjpeg checks them; a single-component scan covers the
+//     component's own ceil(width / 8) x ceil(height / 8) blocks, not the
+//     interleaved MCU grid (jdinput.c per_scan_setup);
 //   * dequantization and the "islow" integer IDCT (jidctint.c: 13-bit
 //     constants, 2 pass-1 bits, the range-limit table's wrap, jdmaster.c);
 //   * "fancy" triangle upsampling of h2v1, h1v2 and h2v2 chroma, with edge
@@ -14,8 +20,15 @@
 //     and box upsampling where the downsampled width is <= 2;
 //   * YCbCr -> RGB with jdcolor.c's 16-bit fixed-point tables; grayscale is
 //     replicated to RGB.
-// Progressive, arithmetic-coded, 12-bit, multi-scan sequential, CMYK and
-// other sampling layouts fail to decode (height and width 0).
+// libjpeg smooths a progressive file's blocks (jdcoefct.c
+// decompress_smooth_data) when its low coefficients are not fully refined
+// (smoothing_ok); a complete file from libjpeg's default progression ends
+// fully refined.  This decoder does not smooth: a file on which either
+// libjpeg's 6- or 10-coefficient smoothing_ok test holds fails to decode,
+// as do files whose scans break libjpeg's progression rules (which libjpeg
+// only warns about) or whose entropy data runs into a marker.
+// Arithmetic-coded, 12-bit, lossless, multi-scan sequential, CMYK and other
+// sampling layouts fail to decode (height and width 0).
 //
 // C API (ctypes-friendly):
 //   void* cl_create(int num_threads);
@@ -60,16 +73,27 @@ struct Huffman {
 struct Component {
   int id = 0, h = 1, v = 1, tq = 0, td = 0, ta = 0;
   int bw = 0, bh = 0;  // plane size in blocks (MCU-padded)
+  int wb = 0, hb = 0;  // width_in_blocks, height_in_blocks (jdinput.c)
   int dw = 0, dh = 0;  // downsampled width and height (jdinput.c)
   std::vector<u8> plane;  // bw*8 x bh*8 samples
+  // progressive only: bw x bh blocks of 64 coefficients in natural order,
+  // the quantization table latched at the component's first scan, and
+  // libjpeg's coef_bits (the Al each coefficient was last coded with; -1
+  // before its first scan)
+  std::vector<int16_t> coef;
+  uint16_t q[64] = {};
+  bool latched = false;
+  int bits[64] = {};
 };
 
 struct Jpeg {
   const u8* data = nullptr;
   size_t size = 0, pos = 0;
   int width = 0, height = 0, ncomp = 0, hmax = 1, vmax = 1, restart = 0;
+  int mcux = 0, mcuy = 0;  // the interleaved MCU grid
+  bool progressive = false;
   bool adobe = false, adobe_rgb = false;
-  uint16_t qt[4][64];
+  uint16_t qt[4][64] = {};
   bool qt_defined[4] = {false, false, false, false};
   Huffman dc[4], ac[4];
   Component comp[3];
@@ -77,6 +101,7 @@ struct Jpeg {
   uint64_t acc = 0;
   int nbits = 0;
   bool hit_marker = false;
+  int fake_bits = 0;  // zero bits fed past a marker, at the end of acc
 };
 
 bool read_file(const char* path, std::vector<u8>* buf) {
@@ -116,22 +141,47 @@ bool build_huffman(Huffman* t, const u8* bits, const u8* vals, int count) {
   return true;
 }
 
+bool setup_frame(Jpeg* j);
+bool decode_progressive_scan(Jpeg* j, const int* cs, int ns, int ss, int se, int ah, int al);
+
+// The position of the next marker at or after j->pos that is not a restart
+// marker, skipping the bytes between (jdmarker.c next_marker).
+size_t next_marker(const Jpeg& j) {
+  size_t p = j.pos;
+  while (p + 1 < j.size) {
+    const int next = j.data[p + 1];
+    if (j.data[p] == 0xFF && next != 0x00 && next != 0xFF) {
+      if (next < 0xD0 || next > 0xD7) return p;
+      p += 2;
+    } else {
+      ++p;
+    }
+  }
+  return j.size;
+}
+
+// Reads markers up to the first scan of a sequential file (j->pos is then
+// its entropy data), or decodes every scan of a progressive one up to EOI.
 bool parse_headers(Jpeg* j) {
   if (j->size < 4 || j->data[0] != 0xFF || j->data[1] != 0xD8) return false;
   size_t p = 2;
   bool have_sof = false;
-  while (p + 4 <= j->size) {
+  int scans = 0;
+  while (p + 2 <= j->size) {
     if (j->data[p] != 0xFF) return false;
     const int marker = j->data[p + 1];
     if (marker == 0xFF) {  // fill byte
       ++p;
       continue;
     }
+    if (marker == 0xD9) return j->progressive && scans > 0;  // EOI
+    if (p + 4 > j->size) return false;
     const int len = u16(*j, p + 2);
     const size_t seg = p + 4, end = p + 2 + len;
     if (len < 2 || end > j->size) return false;
-    if (marker == 0xC0 || marker == 0xC1) {  // baseline / extended sequential, Huffman
-      if (len < 8 || j->data[seg] != 8) return false;
+    if (marker == 0xC0 || marker == 0xC1 || marker == 0xC2) {  // sequential / progressive, Huffman
+      if (have_sof || len < 8 || j->data[seg] != 8) return false;
+      j->progressive = marker == 0xC2;
       j->height = u16(*j, seg + 1);
       j->width = u16(*j, seg + 3);
       j->ncomp = j->data[seg + 5];
@@ -147,9 +197,9 @@ bool parse_headers(Jpeg* j) {
         if (k.h < 1 || k.h > 4 || k.v < 1 || k.v > 4 || k.tq > 3) return false;
       }
       have_sof = true;
-    } else if ((marker >= 0xC2 && marker <= 0xCF && marker != 0xC4 && marker != 0xC8 &&
+    } else if ((marker >= 0xC3 && marker <= 0xCF && marker != 0xC4 && marker != 0xC8 &&
                 marker != 0xCC)) {
-      return false;  // progressive, lossless or arithmetic coding
+      return false;  // lossless or arithmetic coding
     } else if (marker == 0xDB) {  // DQT
       size_t q = seg;
       while (q < end) {
@@ -181,6 +231,30 @@ bool parse_headers(Jpeg* j) {
         j->adobe = true;
         j->adobe_rgb = j->data[seg + 11] == 0;
       }
+    } else if (marker == 0xDA && j->progressive) {  // SOS of one progressive scan
+      const int ns = j->data[seg];
+      if (ns < 1 || ns > j->ncomp || len != 6 + 2 * ns) return false;
+      if (scans++ == 0 && !setup_frame(j)) return false;
+      int cs[3];
+      for (int i = 0; i < ns; ++i) {  // jdmarker.c get_sos: ids of the frame, no repeats
+        const int id = j->data[seg + 1 + 2 * i], t = j->data[seg + 2 + 2 * i];
+        int c = 0;
+        while (c < j->ncomp && j->comp[c].id != id) ++c;
+        if (c == j->ncomp) return false;
+        for (int prev = 0; prev < i; ++prev)
+          if (cs[prev] == c) return false;
+        cs[i] = c;
+        j->comp[c].td = t >> 4;
+        j->comp[c].ta = t & 15;
+        if (j->comp[c].td > 3 || j->comp[c].ta > 3) return false;
+      }
+      const size_t s = seg + 1 + 2 * ns;
+      j->pos = end;
+      if (!decode_progressive_scan(j, cs, ns, j->data[s], j->data[s + 1], j->data[s + 2] >> 4,
+                                   j->data[s + 2] & 15))
+        return false;
+      p = next_marker(*j);
+      continue;
     } else if (marker == 0xDA) {  // SOS: one interleaved scan of every component
       if (!have_sof) return false;
       const int ns = j->data[seg];
@@ -196,8 +270,6 @@ bool parse_headers(Jpeg* j) {
       }
       j->pos = end;
       return true;
-    } else if (marker == 0xD9) {
-      return false;
     }
     p = end;
   }
@@ -209,7 +281,9 @@ bool parse_headers(Jpeg* j) {
 void fill(Jpeg* j) {
   while (j->nbits <= 56) {
     int byte = 0;
+    bool real = false;
     if (!j->hit_marker && j->pos < j->size) {
+      real = true;
       byte = j->data[j->pos];
       if (byte == 0xFF) {
         const int next = j->pos + 1 < j->size ? j->data[j->pos + 1] : 0xD9;
@@ -217,12 +291,14 @@ void fill(Jpeg* j) {
           j->pos += 2;
         } else {  // a marker: feed zeros from here on, as libjpeg does
           j->hit_marker = true;
+          real = false;
           byte = 0;
         }
       } else {
         ++j->pos;
       }
     }
+    if (!real) j->fake_bits += 8;
     j->acc |= static_cast<uint64_t>(byte) << (56 - j->nbits);
     j->nbits += 8;
   }
@@ -252,10 +328,14 @@ int decode_symbol(Jpeg* j, const Huffman& t) {
 
 int extend(int r, int s) { return r < (1 << (s - 1)) ? r - (1 << s) + 1 : r; }
 
+// Whether the decode has taken bits past the end of the entropy data.
+bool overrun(const Jpeg& j) { return j.nbits < j.fake_bits; }
+
 bool restart_marker(Jpeg* j) {
   j->acc = 0;
   j->nbits = 0;
   j->hit_marker = false;
+  j->fake_bits = 0;
   while (j->pos + 1 < j->size && j->data[j->pos] == 0xFF && j->data[j->pos + 1] == 0xFF) ++j->pos;
   if (j->pos + 1 < j->size && j->data[j->pos] == 0xFF && j->data[j->pos + 1] >= 0xD0 &&
       j->data[j->pos + 1] <= 0xD7) {
@@ -373,15 +453,14 @@ void idct_islow(const int16_t* coef, const uint16_t* q, u8* out, int stride) {
   }
 }
 
-bool decode_scan(Jpeg* j) {
-  const bool single = j->ncomp == 1;
-  int mcux, mcuy;
-  if (single) {  // a non-interleaved scan: one block per MCU
+// The frame's geometry (jdinput.c initial_setup): the interleaved MCU grid,
+// each component's MCU-padded block grid, its blocks and its downsampled
+// size.  A one-component frame is always non-interleaved: one block per MCU.
+bool setup_frame(Jpeg* j) {
+  if (j->ncomp == 1) {
     Component& k = j->comp[0];
     k.h = k.v = 1;
     j->hmax = j->vmax = 1;
-    mcux = (j->width + 7) / 8;
-    mcuy = (j->height + 7) / 8;
   } else {
     for (int c = 0; c < j->ncomp; ++c) {
       j->hmax = std::max(j->hmax, j->comp[c].h);
@@ -390,17 +469,29 @@ bool decode_scan(Jpeg* j) {
     for (int c = 0; c < j->ncomp; ++c) {
       if (j->hmax % j->comp[c].h || j->vmax % j->comp[c].v) return false;
     }
-    mcux = (j->width + 8 * j->hmax - 1) / (8 * j->hmax);
-    mcuy = (j->height + 8 * j->vmax - 1) / (8 * j->vmax);
   }
+  j->mcux = (j->width + 8 * j->hmax - 1) / (8 * j->hmax);
+  j->mcuy = (j->height + 8 * j->vmax - 1) / (8 * j->vmax);
   for (int c = 0; c < j->ncomp; ++c) {
     Component& k = j->comp[c];
-    k.bw = mcux * k.h;
-    k.bh = mcuy * k.v;
+    k.bw = j->mcux * k.h;
+    k.bh = j->mcuy * k.v;
+    k.wb = (j->width * k.h + 8 * j->hmax - 1) / (8 * j->hmax);
+    k.hb = (j->height * k.v + 8 * j->vmax - 1) / (8 * j->vmax);
     k.dw = (j->width * k.h + j->hmax - 1) / j->hmax;
     k.dh = (j->height * k.v + j->vmax - 1) / j->vmax;
     k.plane.assign(static_cast<size_t>(k.bw) * 8 * k.bh * 8, 0);
+    if (j->progressive) {
+      k.coef.assign(static_cast<size_t>(k.bw) * k.bh * 64, 0);
+      std::fill(k.bits, k.bits + 64, -1);
+    }
   }
+  return true;
+}
+
+bool decode_scan(Jpeg* j) {
+  if (!setup_frame(j)) return false;
+  const int mcux = j->mcux, mcuy = j->mcuy;
   int pred[3] = {0, 0, 0};
   int16_t block[64];
   int left = j->restart;
@@ -445,6 +536,197 @@ bool decode_scan(Jpeg* j) {
         }
       }
     }
+  }
+  return true;
+}
+
+// -- progressive scans (jdphuff.c) -------------------------------------------
+
+struct ScanState {
+  int ss = 0, se = 0, al = 0;
+  int pred[3] = {0, 0, 0};  // per scan component
+  unsigned eobrun = 0;
+};
+
+// decode_mcu_DC_first for one block; fails on a DC category libjpeg's
+// table builder refuses (> 15)
+bool dc_first(Jpeg* j, const Huffman& t, int* pred, int al, int16_t* block) {
+  int s = decode_symbol(j, t);
+  if (s > 15) return false;
+  if (s) s = extend(get_bits(j, s), s);
+  *pred += s;
+  block[0] = static_cast<int16_t>(static_cast<unsigned>(*pred) << al);
+  return true;
+}
+
+// decode_mcu_AC_first for one block
+void ac_first(Jpeg* j, const Huffman& t, ScanState* st, int16_t* block) {
+  if (st->eobrun > 0) {
+    --st->eobrun;
+    return;
+  }
+  for (int k = st->ss; k <= st->se; ++k) {
+    const int rs = decode_symbol(j, t);
+    int r = rs >> 4;
+    const int s = rs & 15;
+    if (s) {
+      k += r;
+      block[kNatural[k]] =
+          static_cast<int16_t>(static_cast<unsigned>(extend(get_bits(j, s), s)) << st->al);
+    } else if (r == 15) {  // ZRL
+      k += 15;
+    } else {  // EOBr: a run of 2^r + r appended bits blocks, this one included
+      st->eobrun = 1u << r;
+      if (r) st->eobrun += get_bits(j, r);
+      --st->eobrun;
+      break;
+    }
+  }
+}
+
+// One correction bit for an already-nonzero coefficient.
+inline void refine(Jpeg* j, int16_t* coef, int p1, int m1) {
+  if (get_bits(j, 1) && (*coef & p1) == 0) *coef = static_cast<int16_t>(*coef + (*coef >= 0 ? p1 : m1));
+}
+
+// decode_mcu_AC_refine for one block
+void ac_refine(Jpeg* j, const Huffman& t, ScanState* st, int16_t* block) {
+  const int p1 = 1 << st->al, m1 = static_cast<int>(~0u << st->al);
+  int k = st->ss;
+  if (st->eobrun == 0) {
+    for (; k <= st->se; ++k) {
+      const int rs = decode_symbol(j, t);
+      int r = rs >> 4;
+      int s = rs & 15;
+      if (s) {  // a newly nonzero coefficient (its size should be 1)
+        s = get_bits(j, 1) ? p1 : m1;
+      } else if (r != 15) {
+        st->eobrun = 1u << r;
+        if (r) st->eobrun += get_bits(j, r);
+        break;  // the rest of the block is the EOB run's
+      }
+      do {  // pass over r zero coefficients, refining the nonzero ones
+        int16_t* coef = block + kNatural[k];
+        if (*coef != 0) {
+          refine(j, coef, p1, m1);
+        } else if (--r < 0) {
+          break;
+        }
+        ++k;
+      } while (k <= st->se);
+      if (s) block[kNatural[k]] = static_cast<int16_t>(s);
+    }
+  }
+  if (st->eobrun > 0) {
+    for (; k <= st->se; ++k) {
+      int16_t* coef = block + kNatural[k];
+      if (*coef != 0) refine(j, coef, p1, m1);
+    }
+    --st->eobrun;
+  }
+}
+
+// One progressive scan into the coefficient buffers.  Its parameters are
+// checked as jdphuff.c start_pass_phuff_decoder checks them; what libjpeg
+// only warns about (a coefficient refined out of order, AC before DC) fails
+// here.
+bool decode_progressive_scan(Jpeg* j, const int* cs, int ns, int ss, int se, int ah, int al) {
+  const bool dc = ss == 0;
+  if (dc ? se != 0 : (ss > se || se > 63 || ns != 1)) return false;
+  if ((ah != 0 && al != ah - 1) || al > 13) return false;
+  int blocks = 0;
+  for (int i = 0; i < ns; ++i) {
+    Component& k = j->comp[cs[i]];
+    blocks += k.h * k.v;
+    if (dc ? (ah == 0 && !j->dc[k.td].defined) : !j->ac[k.ta].defined) return false;
+    if (!dc && k.bits[0] < 0) return false;
+    for (int c = ss; c <= se; ++c) {
+      if (ah != (k.bits[c] < 0 ? 0 : k.bits[c])) return false;
+      k.bits[c] = al;
+    }
+    if (!k.latched) {  // jdinput.c latch_quant_tables
+      if (!j->qt_defined[k.tq]) return false;
+      std::memcpy(k.q, j->qt[k.tq], sizeof(k.q));
+      k.latched = true;
+    }
+  }
+  if (ns > 1 && blocks > 10) return false;  // D_MAX_BLOCKS_IN_MCU
+  j->acc = 0;
+  j->nbits = 0;
+  j->hit_marker = false;
+  j->fake_bits = 0;
+  ScanState st;
+  st.ss = ss;
+  st.se = se;
+  st.al = al;
+  // a one-component scan is non-interleaved: one block per MCU over the
+  // component's own blocks
+  const int mcux = ns == 1 ? j->comp[cs[0]].wb : j->mcux;
+  const int mcuy = ns == 1 ? j->comp[cs[0]].hb : j->mcuy;
+  int left = j->restart;
+  for (int my = 0; my < mcuy; ++my) {
+    for (int mx = 0; mx < mcux; ++mx) {
+      if (j->restart) {
+        if (left == 0) {
+          if (overrun(*j) || !restart_marker(j)) return false;
+          st.pred[0] = st.pred[1] = st.pred[2] = 0;
+          st.eobrun = 0;
+          left = j->restart;
+        }
+        --left;
+      }
+      for (int i = 0; i < ns; ++i) {
+        Component& k = j->comp[cs[i]];
+        const int bh = ns == 1 ? 1 : k.v, bwd = ns == 1 ? 1 : k.h;
+        for (int by = 0; by < bh; ++by) {
+          for (int bx = 0; bx < bwd; ++bx) {
+            const size_t x = static_cast<size_t>(mx) * bwd + bx, y = static_cast<size_t>(my) * bh + by;
+            int16_t* block = k.coef.data() + (y * k.bw + x) * 64;
+            if (dc && ah == 0) {
+              if (!dc_first(j, j->dc[k.td], &st.pred[i], al, block)) return false;
+            } else if (dc) {
+              if (get_bits(j, 1)) block[0] = static_cast<int16_t>(block[0] | (1 << al));
+            } else if (ah == 0) {
+              ac_first(j, j->ac[k.ta], &st, block);
+            } else {
+              ac_refine(j, j->ac[k.ta], &st, block);
+            }
+          }
+        }
+      }
+    }
+  }
+  return !overrun(*j);
+}
+
+// jdcoefct.c smoothing_ok with libjpeg's first ``n`` coefficients (6 before
+// libjpeg-turbo 2.1, 10 since): whether libjpeg would smooth the blocks.
+bool smoothing_ok(const Jpeg& j, int n) {
+  static const int kPos[10] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};
+  bool useful = false;
+  for (int c = 0; c < j.ncomp; ++c) {
+    const Component& k = j.comp[c];
+    if (!k.latched) return false;
+    for (int i = 0; i < n; ++i)
+      if (k.q[kPos[i]] == 0) return false;
+    if (k.bits[0] < 0) return false;
+    for (int i = 1; i < n; ++i)
+      if (k.bits[i] != 0) useful = true;
+  }
+  return useful;
+}
+
+// The islow IDCT of every coefficient block into the component planes.
+bool finish_progressive(Jpeg* j) {
+  if (smoothing_ok(*j, 6) || smoothing_ok(*j, 10)) return false;
+  for (int c = 0; c < j->ncomp; ++c) {
+    Component& k = j->comp[c];
+    const uint16_t* q = k.latched ? k.q : j->qt[k.tq];  // a component of no scan is all zero
+    const int stride = k.bw * 8;
+    for (int by = 0; by < k.bh; ++by)
+      for (int bx = 0; bx < k.bw; ++bx)
+        idct_islow(k.coef.data() + (static_cast<size_t>(by) * k.bw + bx) * 64, q,
+                   k.plane.data() + static_cast<size_t>(by) * 8 * stride + bx * 8, stride);
   }
   return true;
 }
@@ -546,7 +828,8 @@ bool decode_into_canvas(const char* path, int canvas, u8* slot, int* h, int* w) 
   Jpeg j;
   j.data = file.data();
   j.size = file.size();
-  if (!parse_headers(&j) || !decode_scan(&j)) return false;
+  if (!parse_headers(&j) || !(j.progressive ? finish_progressive(&j) : decode_scan(&j)))
+    return false;
   const int copy_w = j.width < canvas ? j.width : canvas;
   const int copy_h = j.height < canvas ? j.height : canvas;
   std::vector<std::vector<u8>> planes(j.ncomp);

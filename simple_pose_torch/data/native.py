@@ -10,10 +10,11 @@ sources have that C API, and the machine decides which one a loader uses
 * ``libjpeg`` where the compiler finds ``jpeglib.h``: the shared
   native/canvas_loader.cc, linked with -ljpeg;
 * ``baseline`` where it does not (the H100 machine has no libjpeg):
-  csrc/jpeg_canvas.cc, a sequential-JPEG decoder that repeats libjpeg's
-  default integer arithmetic (islow IDCT, fancy upsampling, fixed-point
-  YCbCr), so its pixels equal libjpeg's bit for bit.  Progressive and
-  arithmetic-coded files fail to decode.
+  csrc/jpeg_canvas.cc, a sequential and progressive JPEG decoder that
+  repeats libjpeg's default integer arithmetic (islow IDCT, fancy
+  upsampling, fixed-point YCbCr), so its pixels equal libjpeg's bit for
+  bit.  Arithmetic-coded, lossless, 12-bit and CMYK files, and progressive
+  files that libjpeg would block-smooth, fail to decode.
 
 Each is built with g++ at first use into ``build/``::
 

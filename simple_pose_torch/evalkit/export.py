@@ -1,8 +1,8 @@
-"""Serving export: the PoseEvaluator's device program as a ``torch.export``
-artifact.
+"""Serving export: the PoseEvaluator's device program, or the whole fused
+detect -> pose program, as a ``torch.export`` artifact.
 
 Port of simple_pose_tpu/evalkit/export.py (``export_evaluator``,
-``save_exported``, ``load_exported``, ``serving_fn``).  ``torch.export``
+``export_fused``, ``save_exported``, ``load_exported``, ``serving_fn``).  ``torch.export``
 traces the whole device step -- crop -> forward (quantized when the
 evaluator is) -> optional flip-test -> decode -- to one ATen graph; a server
 needs torch and the ``.pt2`` file, no model code, no checkpoint plumbing
@@ -34,6 +34,22 @@ Both ops pick their route when they run, from their inputs' device (the
 kernel or the int8 tensor cores on the card, the plain version on the CPU),
 so the device the program was traced on does not fix it.
 
+``export_fused(fused, batch_size, canvas)`` exports a FusedDetectPose's
+program (evalkit/fused.FusedProgram: letterbox -> detector -> NMS -> crops
+-> pose -> decode) with both networks' weights baked in, quantized where
+the program is:
+
+    (canvases u8[B,canvas,canvas,3], lb_trans f32[B,2,3],
+     lb_region f32[B,4], lb_inv_scale f32[B], lb_offset f32[B,2]) -> dict
+
+with the live keys ``boxes``, ``det_scores``, ``det_valid``, ``kps``,
+``kp_conf`` and ``pose_scores``.  The caller supplies the letterbox
+geometry from ``FusedDetectPose.host_prep(shapes)`` (numpy; a server may
+copy its ~15 lines), as it owns the image decode.  The program runs at
+``det_size``; a rect bucket is another static shape, and so another
+artifact.  The NMS's data-dependent round count is a ``while_loop`` node
+(detector/nms.py), so the program reads nothing back to the host.
+
 JAX's ``platforms=`` (lowering for several backends) has no ``torch.export``
 counterpart: the program is traced on the evaluator's device, and
 ``load_exported(..., device=)`` moves a loaded program to another one
@@ -47,7 +63,7 @@ import os
 
 import torch
 
-__all__ = ["export_evaluator", "save_exported", "load_exported", "serving_fn"]
+__all__ = ["export_evaluator", "export_fused", "save_exported", "load_exported", "serving_fn"]
 
 
 class _ServingStep(torch.nn.Module):
@@ -110,6 +126,34 @@ def export_evaluator(evaluator, batch_size, canvas_hw, *, bake_weights: bool = T
     return torch.export.export(module, args, dynamic_shapes=dims)
 
 
+def export_fused(fused, batch_size: int, canvas: int):
+    """``torch.export.export`` of a FusedDetectPose's program at its
+    ``det_size`` (the module docstring has the signature).
+
+    :param batch_size: the static image batch
+    :param canvas: the static canvas edge
+    :returns: a ``torch.export.ExportedProgram``"""
+    b, dev = int(batch_size), fused.device
+    tw, th = fused.det_size
+    canvases = torch.zeros((b, canvas, canvas, 3), dtype=torch.uint8, device=dev)
+    lb_trans, lb_region, lb_inv_scale, lb_offset = (
+        torch.from_numpy(a).to(dev) for a in fused.host_prep([(th, tw)] * b))
+    exported = torch.export.export(fused.program,
+                                   (canvases, lb_trans, lb_region, lb_inv_scale, lb_offset))
+    # the traced program keeps each autocast region as a node that enters
+    # autocast again when it runs, under dtypes recorded before autocast
+    # chose them (YOLOv5's nearest upsample runs in f32 under CUDA
+    # autocast, so the bf16 its trace recorded fails the graph's own dtype
+    # check before a quantized conv); retracing applies autocast once
+    exported = exported.run_decompositions({})
+    # the retraced graph has no grad mode of its own: parameters that need no
+    # gradient keep a serving call from building an autograd graph
+    for name, p in exported.state_dict.items():
+        if isinstance(p, torch.nn.Parameter):
+            exported.state_dict[name] = torch.nn.Parameter(p.detach(), requires_grad=False)
+    return exported
+
+
 def save_exported(exported, path: str) -> int:
     """Write an ExportedProgram to ``path``; returns the byte count."""
     torch.export.save(exported, path)
@@ -134,5 +178,6 @@ def load_exported(path_or_bytes, device=None):
 def serving_fn(path_or_bytes, device=None):
     """Load an artifact and return its callable: ``(canvas, trans,
     trans_inv)``, after the state dict for an external-weights artifact,
-    -> the evaluator's output dict."""
+    -> the evaluator's output dict; for an ``export_fused`` artifact,
+    ``(canvases, *fused.host_prep(shapes))`` -> the fused program's dict."""
     return load_exported(path_or_bytes, device).module()

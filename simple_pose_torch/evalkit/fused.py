@@ -12,6 +12,11 @@ batch of canvases goes through both networks without leaving the device:
     (affine_crop_separable_multi) -> BGR -> RGB, /255 - mean -> pose
     forward -> decode -> ``instance_scores``.
 
+Both stages run as one ``nn.Module``, :class:`FusedProgram`, whose
+submodules are the two networks: ``FusedDetectPose.__call__`` runs it, and
+evalkit/export.export_fused traces the same module, so the live and the
+exported program are one code path.
+
 Ragged person counts stay fixed-size with validity masks throughout.  Under
 amp both networks run in bf16 autocast and the crops are written in bf16;
 the detector's head decodes in f32.  There is no flip-test and no
@@ -51,7 +56,32 @@ from simple_pose_torch.ops.affine_device import affine_crop_separable_multi, box
 from simple_pose_torch.ops.decode import decode_basic, decode_gauss_taylor, instance_scores
 from simple_pose_torch.utils.device import resolve_device
 
-__all__ = ["FusedDetectPose", "fused_eval"]
+__all__ = ["FusedDetectPose", "FusedProgram", "fused_eval"]
+
+
+class FusedProgram(torch.nn.Module):
+    """The fused device program of a :class:`FusedDetectPose`: letterbox ->
+    detector -> NMS -> crops -> pose -> decode, under the program's quant
+    contexts.  The detector and the pose network are submodules, so an
+    export of this module bakes both networks' weights in.
+
+    forward(canvases u8 [B,canvas,canvas,3], lb_trans f32 [B,2,3],
+    lb_region f32 [B,4], lb_inv_scale f32 [B], lb_offset f32 [B,2], th, tw)
+    -> {boxes, det_scores, det_valid, kps, kp_conf, pose_scores}; the
+    detect stage runs at (th, tw), ``det_size`` when they are left out."""
+
+    def __init__(self, fused):
+        super().__init__()
+        self.detector = fused.detector.model
+        self.pose_model = fused.pose_model
+        self._fused = fused
+
+    def forward(self, canvases, lb_trans, lb_region, lb_inv_scale, lb_offset, th=None, tw=None):
+        fused = self._fused
+        if th is None:
+            tw, th = fused.det_size
+        det = fused.detect(canvases, lb_trans, lb_region, lb_inv_scale, lb_offset, th, tw)
+        return {**det, **fused.pose(canvases, det["boxes"])}
 
 
 class FusedDetectPose:
@@ -92,6 +122,7 @@ class FusedDetectPose:
         self._mean = torch.as_tensor(RGB_MEAN).to(self.device, self.lb_dtype)
         self.quant = quant
         self._set_scales(quant_scales)
+        self.program = FusedProgram(self)
 
     def _set_scales(self, quant_scales):
         self.quant_scales = quant_scales
@@ -211,8 +242,7 @@ class FusedDetectPose:
             for canvases_u8, shapes in batches:
                 if n >= num_batches:
                     break
-                args = self.prepare(canvases_u8, shapes)
-                self.pose(args[0], self.detect(*args)["boxes"])
+                self.program(*self.prepare(canvases_u8, shapes))
                 n += 1
         finally:
             self._set_scales(self.quant_scales)
@@ -227,9 +257,7 @@ class FusedDetectPose:
         :param shapes: [(h, w)] true image sizes
         :param img_ids: optional per-image ids, returned as ``img_ids``
         :returns: dict of numpy arrays; entries masked by det_valid"""
-        args = self.prepare(canvases_u8, shapes)
-        det = self.detect(*args)
-        out = {**det, **self.pose(args[0], det["boxes"])}
+        out = self.program(*self.prepare(canvases_u8, shapes))
         out = {k: v.cpu().numpy() for k, v in out.items()}
         if img_ids is not None:
             out["img_ids"] = np.asarray(img_ids, np.int64)

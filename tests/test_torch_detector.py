@@ -12,6 +12,7 @@ import jax.numpy as jnp
 
 from simple_pose_torch.convert.from_jax import detector_flax_to_torch_state
 from simple_pose_torch.detector import blocks as tb
+from simple_pose_torch.detector import nms as tnms
 from simple_pose_torch.detector import wrapper as twrap
 from simple_pose_torch.detector.nms import non_max_suppression
 from simple_pose_torch.detector.yolov4 import YOLOv4
@@ -212,11 +213,10 @@ def test_nms_matches_jax(merge, multi_label, agnostic):
     np.testing.assert_allclose(td.numpy(), jd, rtol=1e-6, atol=1e-5)
 
 
-def test_nms_suppression_chain_matches_jax():
+def _chain_pred(n):
     """A chain of boxes, each overlapping the next above the threshold and
     the one after below it, with falling scores: greedy keeps every other
     box, the longest dependency the suppression can have."""
-    n = 200
     pred = np.zeros((2, n, 6), np.float32)
     pred[:, :, 0] = 100.0 + 8.0 * np.arange(n)
     pred[:, :, 1] = 100.0
@@ -224,12 +224,76 @@ def test_nms_suppression_chain_matches_jax():
     pred[:, :, 4] = np.linspace(0.9, 0.2, n)
     pred[:, :, 5] = 1.0
     pred[1] = pred[1, ::-1]  # the same chain, found in the other order
+    return pred
+
+
+def test_nms_suppression_chain_matches_jax():
+    n = 200
+    pred = _chain_pred(n)
     kw = dict(conf_thresh=0.1, iou_thresh=0.5, max_det=150, pre_nms=n)
     jd, jv = (np.asarray(a) for a in non_max_suppression_jit(jnp.asarray(pred), **kw))
     td, tv = non_max_suppression(torch.from_numpy(pred), **kw)
     np.testing.assert_array_equal(tv.numpy(), jv)
     assert (jv.sum(-1) == n // 2).all()
     np.testing.assert_allclose(td.numpy(), jd, rtol=1e-6, atol=1e-5)
+
+
+def _sequential_keep(valid, sup):
+    """Greedy suppression one candidate at a time (the JAX package's loop)."""
+    keep = valid.clone()
+    for i in range(valid.shape[-1]):
+        keep &= ~((sup[:, i] > 0) & keep[:, i:i + 1])
+    return keep
+
+
+def _host_fixed_point(valid, sup):
+    """The port's fixed point as it was before the while_loop: a host test
+    (torch.equal) ends each round."""
+    keep = valid
+    while True:
+        new = valid & ~(torch.bmm(keep.to(sup.dtype)[:, None, :], sup)[:, 0] > 0.0)
+        if torch.equal(new, keep):
+            return keep
+        keep = new
+
+
+class _NMS(torch.nn.Module):
+    def __init__(self, **kw):
+        super().__init__()
+        self.kw = kw
+
+    def forward(self, pred):
+        return non_max_suppression(pred, **self.kw)
+
+
+@pytest.mark.parametrize("exported", [False, True])
+@pytest.mark.parametrize("n", [200, 512])
+def test_greedy_keep_exact_on_chains(n, exported, monkeypatch):
+    """The while_loop fixed point equals the sequential greedy loop and the
+    host-tested fixed point on chains n deep (512 = pre_nms: every round
+    but the last changes the keep mask), eagerly and in an exported program
+    whose graph holds the loop as one node and reads nothing back to the
+    host; with merge, whose redundancy rule can drop boxes after the loop."""
+    pred = torch.from_numpy(_chain_pred(n))
+    kw = dict(conf_thresh=0.1, iou_thresh=0.5, max_det=n // 2, pre_nms=n, merge=True)
+    want = {}
+    for name, fn in (("sequential", _sequential_keep), ("host", _host_fixed_point)):
+        monkeypatch.setattr(tnms, "_greedy_keep", fn)
+        want[name] = non_max_suppression(pred, **kw)
+    monkeypatch.undo()
+    if exported:
+        ep = torch.export.export(_NMS(**kw), (pred,))
+        targets = [str(node.target) for node in ep.graph.nodes if node.op == "call_function"]
+        assert sum("while_loop" in t for t in targets) == 1, targets
+        assert not set(targets) & {"aten._local_scalar_dense.default", "aten.equal.default",
+                                   "aten.item.default", "aten.is_nonzero.default"}, targets
+        got = ep.module()(pred)
+    else:
+        got = non_max_suppression(pred, **kw)
+    for name, (wd, wv) in want.items():
+        assert torch.equal(got[1], wv), name
+        assert torch.equal(got[0], wd), name
+    assert got[1].sum(-1).tolist() == [n // 2] * 2
 
 
 # ------------------------------------------------------------ front end

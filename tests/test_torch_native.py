@@ -146,22 +146,78 @@ def test_baseline_decoder_matches_libjpeg(tmp_path, baseline_loader, case):
             np.testing.assert_array_equal(g, wnt)
 
 
-def test_baseline_decoder_fixture_and_limits(tmp_path, baseline_loader):
-    """The committed fixture to its CRC32s; a progressive file and a missing
-    one raise FileNotFoundError."""
-    with open(os.path.join(FIXTURE, "decoded_crc32.json")) as f:
+# (sampling, height, width, quality, restart interval): cv2's default
+# progression script (DC first and refine, AC first with EOB runs, AC refine)
+PROGRESSIVE_CASES = [("420", 121, 99, 75, 0), ("422", 64, 64, 40, 0), ("444", 37, 53, 90, 0),
+                     ("440", 33, 47, 95, 0), ("411", 29, 70, 85, 0), ("gray", 41, 30, 90, 0),
+                     ("420", 96, 120, 90, 3), ("gray", 17, 2, 100, 1), ("420", 3, 5, 60, 0),
+                     ("444", 150, 200, 80, 2)]
+
+
+@pytest.mark.parametrize("case", range(len(PROGRESSIVE_CASES)))
+def test_baseline_decoder_matches_libjpeg_progressive(tmp_path, baseline_loader, case):
+    """Progressive files bit for bit with libjpeg: smooth and noise images,
+    every sampling layout (non-interleaved AC scans over each component's
+    own blocks), odd sizes, restart intervals, a canvas smaller than the
+    image."""
+    sampling, h, w, quality, restart = PROGRESSIVE_CASES[case]
+    rng = np.random.default_rng(100 + case)
+    paths = []
+    for i, noise in enumerate((False, True)):
+        c = 1 if sampling == "gray" else 3
+        img = (rng.integers(0, 256, (h, w, c), dtype=np.uint8) if noise
+               else _smooth(rng, h, w, c))
+        params = [cv.IMWRITE_JPEG_PROGRESSIVE, 1, cv.IMWRITE_JPEG_QUALITY, quality,
+                  cv.IMWRITE_JPEG_RST_INTERVAL, restart]
+        if sampling != "gray":
+            params += [cv.IMWRITE_JPEG_SAMPLING_FACTOR, BASELINE_SAMPLING[sampling]]
+        paths.append(str(tmp_path / f"{i}.jpg"))
+        assert cv.imwrite(paths[-1], img[..., 0] if c == 1 else img, params)
+        with open(paths[-1], "rb") as f:
+            data = f.read()
+        assert b"\xff\xc2" in data and (b"\xff\xdd" in data) == bool(restart)
+    for canvas in (128, 32):
+        got = baseline_loader.load_batch(paths, canvas)
+        want = native.NativeCanvasLoader(2).load_batch(paths, canvas)
+        for g, wnt in zip(got, want):
+            np.testing.assert_array_equal(g, wnt)
+
+
+def _check_crc32(loader, name):
+    with open(os.path.join(FIXTURE, name)) as f:
         want = json.load(f)
     rels = sorted(want)
-    canvases, hs, ws = baseline_loader.load_batch([os.path.join(FIXTURE, r) for r in rels], 640)
+    canvases, hs, ws = loader.load_batch([os.path.join(FIXTURE, r) for r in rels], 640)
     for rel, canvas, h, w in zip(rels, canvases, hs, ws):
         assert (h, w) == (want[rel]["height"], want[rel]["width"]), rel
         assert zlib.crc32(np.ascontiguousarray(canvas[:h, :w]).tobytes()) == want[rel]["crc32"], rel
+    return rels
+
+
+def test_baseline_decoder_fixture_and_limits(tmp_path, baseline_loader):
+    """The committed fixture and the progressive one to their CRC32s; a
+    progressive file decodes as libjpeg does; a missing file, a progressive
+    file cut after a scan (libjpeg would smooth its blocks), and
+    arithmetic-coded and lossless frames raise FileNotFoundError."""
+    _check_crc32(baseline_loader, "decoded_crc32.json")
+    assert len(_check_crc32(baseline_loader, os.path.join("progressive",
+                                                          "decoded_crc32.json"))) == 6
     progressive = str(tmp_path / "p.jpg")
     cv.imwrite(progressive, _smooth(np.random.default_rng(0), 40, 40, 3),
                [cv.IMWRITE_JPEG_PROGRESSIVE, 1])
-    for bad in (progressive, str(tmp_path / "nope.jpg")):
-        with pytest.raises(FileNotFoundError, match=os.path.basename(bad)):
-            baseline_loader.load_batch([bad], 64)
+    np.testing.assert_array_equal(baseline_loader.load_batch([progressive], 64)[0],
+                                  native.NativeCanvasLoader(1).load_batch([progressive], 64)[0])
+    with open(progressive, "rb") as f:
+        data = f.read()
+    sos = [i for i in range(len(data) - 1) if data[i:i + 2] == b"\xff\xda"]
+    bad = {"cut.jpg": data[:sos[-1]] + b"\xff\xd9",
+           "arithmetic.jpg": data.replace(b"\xff\xc2", b"\xff\xca", 1),
+           "lossless.jpg": data.replace(b"\xff\xc2", b"\xff\xc3", 1)}
+    for name, blob in bad.items():
+        (tmp_path / name).write_bytes(blob)
+    for name in (*bad, "nope.jpg"):
+        with pytest.raises(FileNotFoundError, match=name):
+            baseline_loader.load_batch([str(tmp_path / name)], 64)
 
 
 _BUILD = r"""
@@ -241,15 +297,13 @@ def _load_script():
 
 
 def test_fixture_decodes_to_committed_crc32():
-    with open(os.path.join(FIXTURE, "decoded_crc32.json")) as f:
-        want = json.load(f)
-    assert len(want) == 48
-    rels = sorted(want)
-    canvases, hs, ws = native.NativeCanvasLoader(4).load_batch(
-        [os.path.join(FIXTURE, r) for r in rels], 640)
-    for rel, canvas, h, w in zip(rels, canvases, hs, ws):
-        assert (h, w) == (want[rel]["height"], want[rel]["width"]), rel
-        assert zlib.crc32(np.ascontiguousarray(canvas[:h, :w]).tobytes()) == want[rel]["crc32"], rel
+    loader = native.NativeCanvasLoader(4)
+    assert len(_check_crc32(loader, "decoded_crc32.json")) == 48
+    assert len(_check_crc32(loader, os.path.join("progressive", "decoded_crc32.json"))) == 6
+    for rel in sorted(os.listdir(os.path.join(FIXTURE, "progressive"))):
+        if rel.endswith(".jpg"):  # every committed file is progressive
+            with open(os.path.join(FIXTURE, "progressive", rel), "rb") as f:
+                assert b"\xff\xc2" in f.read(), rel
 
 
 def test_fixture_json_regenerates(tmp_path):
