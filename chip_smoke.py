@@ -1,7 +1,8 @@
 """Chip smoke test of the PyTorch + CUDA port: drives the serving path, the
 training step, the training solver, the detect -> pose programs, W8A8
-serving, the serving export, the fused export and the demos on one CUDA
-card and holds every kernel against its plain PyTorch version.
+serving, the serving export, the fused export, the demos and the
+multi-process (DDP) training and eval on one CUDA card and holds every
+kernel against its plain PyTorch version.
 
     python3 chip_smoke.py
 
@@ -180,6 +181,36 @@ raises, and the script exits non-zero without a result line):
         serve_artifact --out on a fused_layer1 artifact of eval export, with
         the launch counters zeroed just before and read just after (K2
         once).
+ 13. the decoder's new coverage and DDP in place of the JAX mesh:
+     a. the committed decoder-coverage fixture (tests/data_torch_jpeg/
+        decoder: baseline and progressive files cut short, block-smoothed
+        progressive files, SOF9/SOF10 arithmetic coding, multi-scan
+        sequential files, warned progressions) through the port's decoder
+        against its CRC32s (libjpeg's decode);
+     b. two ranks sharing cuda:0 over gloo (NCCL refuses two ranks on one
+        card), each on 64 of a global batch of 128 (phase 5's canvas
+        shapes), the flagship at full width: DDP_F32_STEPS f32 DDP train
+        steps (cuDNN deterministic) from a state F32_STEP_WARMUP
+        one-process steps in, with the launch counters zeroed just before
+        and read just after (the crop kernel once per rank per step): the
+        ranks' tensors identical and within phase 6's card-vs-CPU step
+        tolerances of one process's steps at batch 128 on the two halves
+        concatenated (the first step's gradients and BN buffers held,
+        Adam's parameters after the steps reported);
+        then bf16 steps timed as
+        "2 ranks sharing one card" beside phase 6's one-process rate (not a
+        multi-GPU rate); then PoseSolver for one short epoch on phase 7's
+        synthetic COCO and validate: every rank the same AP, within
+        DDP_AP_TOL of one process's validate of the checkpoint, rank 0's
+        gathered predictions within DDP_PRED_TOL of that validate's (the
+        same image ids and count), and rank 0 alone writing the results
+        file and the checkpoint;
+     c. init_multihost over NCCL at world size 1, DDP around the flagship,
+        3 bf16 steps, the NCCL version;
+     d. python -m simple_pose_torch.eval gt on the fixture (seeded
+        ResNet-50-DConv+SE, f32, decoder basic) in one process and through
+        torchrun as two ranks on cuda:0 with --multihost: the stats and the
+        predictions equal.
 
 The line before the last holds the kernels' JSON; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -232,6 +263,7 @@ from simple_pose_torch.metrics.cocoeval import evaluate_map
 from simple_pose_torch.models import quant
 from simple_pose_torch.models.hrnet import build_hrnet
 from simple_pose_torch.models.quant import quantized
+from simple_pose_torch.models.registry import build_from_cfg
 from simple_pose_torch.models.resnet import build_resnet
 from simple_pose_torch.ops import affine as A
 from simple_pose_torch.ops.bottleneck_chain import (
@@ -257,6 +289,7 @@ from simple_pose_torch.ops.warp import (
     invert_affine_batch,
     stage1_resample,
 )
+from simple_pose_torch.parallel.distributed import free_port
 from simple_pose_torch.train.solver import PoseSolver, init_train_state, make_train_step
 from simple_pose_torch.utils.cuda_build import build_library
 
@@ -2620,6 +2653,420 @@ def run_port_apps(card):
     return summary, summary["12c_demos"]["serve_artifact_out"]["launches"]["bottleneck_chain"]
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the decoder's new coverage, and DDP in place of the JAX mesh
+# ---------------------------------------------------------------------------
+
+DECODER_DIR = os.path.join(FIXTURE, "decoder")
+# 13b: two ranks sharing cuda:0 over gloo (NCCL refuses two ranks on one
+# card), each on half of a global batch of 128, against one process (a child
+# too) on the whole of it; the f32 steps start from a state F32_STEP_WARMUP
+# one-process steps in, and all of them run with cuDNN off, so that each run
+# and context computes the same thing: cuDNN's algorithms change with the
+# batch size (64 against 128) and with the memory free, and moved the
+# gradients by up to 6.6e-3 where one process repeats itself within 4.2e-5.  What DDP and the global BatchNorm compute is held, to
+# DDP_GRAD_REL: the first step's gradients (over all tensors together) and
+# BN buffers (per tensor, against their update).  Adam's
+# parameters after the steps are reported: Adam turns a near-zero
+# gradient's rounding into a full step (2.10e-2-3.14e-2 of their update
+# with cuDNN on)
+DDP_RANKS, DDP_RANK_BATCH, DDP_F32_STEPS, DDP_GRAD_REL = 2, 64, 2, 1e-3
+DDP_BF16_WARMUP, DDP_BF16_TIMED = 3, 10
+DDP_TRAIN_IMAGES, DDP_VAL_IMAGES = 64, 32
+# the ranks' AP against one process's validate of the same checkpoint: bf16
+# forwards of other batch compositions
+DDP_AP_TOL = 5e-3
+CHILD_TIMEOUT = 300
+DDP_DEVICE = "cuda:0"
+# predictions in one process and gathered over two ranks, canvas px and
+# confidences: 13b's validate (bf16) and 13d's eval gt (f32, TF32 on in a
+# fresh process); the same batch size per process, other images in each batch
+DDP_PRED_TOL = 1e-2
+
+DDP_CHILD = r"""
+import builtins, json, os, sys, time
+import numpy as np, torch
+sys.path.insert(0, os.getcwd())
+import chip_smoke as C
+from simple_pose_torch.parallel import distributed as D
+from simple_pose_torch.train.solver import PoseSolver, init_train_state, make_train_step
+
+mode, rank, world, port, workdir = sys.argv[1], *map(int, sys.argv[2:5]), sys.argv[5]
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+with open(os.path.join(workdir, "spec.json")) as f:
+    spec = json.load(f)
+dev, heat, crop = spec["device"], tuple(spec["heat"]), tuple(spec["crop"])
+def sync():
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+written, real_open, real_save = [], builtins.open, torch.save
+def recording_open(file, mode_="r", *a, **k):
+    if isinstance(file, (str, os.PathLike)) and any(c in mode_ for c in "wax"):
+        written.append(os.path.relpath(os.path.abspath(str(file)), workdir))
+    return real_open(file, mode_, *a, **k)
+def recording_save(obj, f, *a, **k):
+    if isinstance(f, (str, os.PathLike)):
+        written.append(os.path.relpath(os.path.abspath(str(f)), workdir))
+    return real_save(obj, f, *a, **k)
+builtins.open, torch.save = recording_open, recording_save
+def f32_steps(batch, cudnn=False):
+    # spec["f32_steps"] f32 steps from the carried state, with cuDNN off
+    # (PyTorch's own conv and BatchNorm kernels, whose algorithm does not
+    # change with the batch size) unless asked: the losses, the first step's
+    # gradients (DDP's mean under a group), the trees after the first step
+    # and after the last
+    state = init_train_state(spec["f32_cfg"], device=dev)
+    carried = torch.load(os.path.join(workdir, "state.pt"), map_location=dev)
+    state.model.load_state_dict(carried["model"])
+    state.optimizer.load_state_dict(carried["optimizer"])
+    with torch.no_grad():
+        for k, t in {**state.ema_params, **state.ema_buffers}.items():
+            t.copy_(carried["ema"][k])
+    state.step = carried["step"]
+    step = make_train_step(heat, crop, amp=False, crop_impl="kernel")
+    C.zero_launch_counts()
+    rec = {"losses": []}
+    torch.backends.cudnn.enabled = cudnn
+    torch.backends.cudnn.deterministic = True
+    for i in range(spec["f32_steps"]):
+        state, m = step(state, batch)
+        rec["losses"].append(m["loss"].item())
+        if i == 0:
+            rec["grads"] = {k: p.grad.detach().to("cpu", torch.float32, copy=True)
+                            for k, p in state.model.named_parameters()}
+            rec["trees_first"] = C._trees(state)
+    torch.backends.cudnn.enabled, torch.backends.cudnn.deterministic = True, False
+    rec["trees_last"], rec["launches"] = C._trees(state), C.launch_counts()
+    del state, step
+    sync()
+    return rec
+data = np.load(os.path.join(workdir, "batch.npz"))
+out = {}
+if mode == "one":  # the reference: one process on the global batch; the
+    # same steps through cuDNN show how far its algorithms move the gradients
+    whole = {k: torch.from_numpy(data[k]).to(dev) for k in data.files}
+    real_save(f32_steps(whole), os.path.join(workdir, "f32_one.pt"))
+    real_save(f32_steps(whole, cudnn=True), os.path.join(workdir, "f32_cudnn.pt"))
+    real_save(out, os.path.join(workdir, f"{mode}_rank{rank}.pt"))
+    sys.exit(0)
+if mode == "ddp":
+    info = D.init_multihost(f"localhost:{port}", world, rank, device=dev)
+else:
+    info = D.init_multihost(f"localhost:{port}", world, rank)
+out["info"] = info
+b = spec["rank_batch"]
+batch = {k: torch.from_numpy(data[k][rank * b:(rank + 1) * b]).to(dev) for k in data.files}
+if mode == "ddp":
+    real_save(f32_steps(batch), os.path.join(workdir, f"f32_ddp{rank}.pt"))
+    state = init_train_state(spec["bf16_cfg"], device=dev)
+    step = make_train_step(heat, crop, amp=True, crop_impl="kernel")
+    for _ in range(spec["bf16_warmup"]):
+        state, m = step(state, batch)
+    sync()
+    D.barrier()
+    t0 = time.perf_counter()
+    for _ in range(spec["bf16_timed"]):
+        state, m = step(state, batch)
+    sync()
+    D.barrier()
+    seconds = time.perf_counter() - t0
+    out["bf16"] = {"seconds": seconds, "loss": m["loss"].item(),
+                   "global_crops_per_s": spec["bf16_timed"] * b * world / seconds}
+    del state, step
+    sync()
+    with C.painter_installed():
+        solver = PoseSolver(spec["solver_cfg"], device=dev)
+        solver.init_state()
+        C.zero_launch_counts()
+        train = solver.train_epoch(0, log_every=0)
+        out["solver_launches"] = C.launch_counts()
+        out["solver_steps"] = solver.state.step
+        stats = solver.validate(0, results_path=os.path.join(workdir, "val_results.json"))
+        solver.save_checkpoint(0, stats["AP"])
+    out["solver"] = {"train": train, "stats": stats}
+else:  # nccl: one rank, the backend multi-GPU users run, DDP around the model
+    state = init_train_state(spec["bf16_cfg"])
+    state.ddp = torch.nn.parallel.DistributedDataParallel(state.model, device_ids=[0])
+    step = make_train_step(heat, crop, amp=True, crop_impl="kernel")
+    out["losses"] = []
+    for _ in range(3):
+        state, m = step(state, batch)
+        out["losses"].append(m["loss"].item())
+    out["backend"] = torch.distributed.get_backend()
+    out["nccl_version"] = ".".join(map(str, torch.cuda.nccl.version()))
+D.barrier()
+D.shutdown()
+out["written"] = sorted(set(written))
+real_save(out, os.path.join(workdir, f"{mode}_rank{rank}.pt"))
+"""
+
+
+def check_decoder_fixture():
+    """13a: the committed decoder-coverage files (cut baseline and
+    progressive files, arithmetic coding, multi-scan sequential, warned
+    progressions) through the port's decoder against their CRC32s."""
+    with open(os.path.join(DECODER_DIR, "decoded_crc32.json")) as f:
+        want = json.load(f)
+    rels = sorted(want)
+    loader = native.NativeCanvasLoader(8)
+    canvases, hs, ws = loader.load_batch([os.path.join(FIXTURE, r) for r in rels], CANVAS)
+    bad = [r for r, c, h, w in zip(rels, canvases, hs, ws)
+           if (h, w) != (want[r]["height"], want[r]["width"])
+           or zlib.crc32(np.ascontiguousarray(c[:h, :w]).tobytes()) != want[r]["crc32"]]
+    out = {"decoder": loader.decoder, "images": len(rels), "crc32_equal": len(rels) - len(bad)}
+    loader.close()
+    log("phase 13a, decoder coverage: " + json.dumps(out))
+    assert loader.decoder == "baseline", "13a holds the port's decoder; this machine has libjpeg"
+    assert not bad, f"pixels differ from the committed CRC32s: {bad}"
+    return out
+
+
+def run_children(mode, world, workdir):
+    """DDP_CHILD as ``world`` ranks of ``mode``; each rank's saved result."""
+    port = str(free_port())
+    env = {**os.environ, "PYTHONPATH": os.getcwd()}
+    procs = [subprocess.Popen([sys.executable, "-c", DDP_CHILD, mode, str(r), str(world), port,
+                               workdir], env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for r in range(world)]
+    try:
+        outs = [p.communicate(timeout=CHILD_TIMEOUT) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for r, (p, (out, err)) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f"{mode} rank {r} failed:\n{out[-4000:]}\n{err[-4000:]}"
+    return [torch.load(os.path.join(workdir, f"{mode}_rank{r}.pt"), weights_only=False)
+            for r in range(world)]
+
+
+def tree_ratio(before, want, got):
+    """The worst |got - want| / |want - before| over the tensors."""
+    ratios = {}
+    for k, w in want.items():
+        update = (w - before[k]).norm().item()
+        diff = (got[k] - w).norm().item()
+        ratios[k] = diff / update if update > 0 else (0.0 if diff == 0 else float("inf"))
+    worst = max(ratios, key=ratios.get)
+    return ratios[worst], worst
+
+
+def ddp_spec(workdir, rng):
+    """The configs, the global batch and the state F32_STEP_WARMUP
+    one-process steps in, written for the children; returns the spec and
+    that state's trees."""
+    f32_cfg = copy.deepcopy(TRAIN_CFG)
+    f32_cfg["optim"]["amp"] = False
+    f32_cfg["data"]["batch_size"] = DDP_RANK_BATCH
+    bf16_cfg = copy.deepcopy(TRAIN_CFG)
+    bf16_cfg["data"]["batch_size"] = DDP_RANK_BATCH
+    glob = train_inputs(rng, DDP_RANKS * DDP_RANK_BATCH)
+    np.savez(os.path.join(workdir, "batch.npz"), **glob)
+    state = init_train_state(f32_cfg, device=DDP_DEVICE)
+    step = make_train_step(HEAT_HW, CROP_HW, amp=False, crop_impl="kernel")
+    torch.backends.cudnn.enabled = False  # the same warmed state in every run and context
+    for _ in range(F32_STEP_WARMUP):
+        warm = train_inputs(rng, DDP_RANKS * DDP_RANK_BATCH)
+        state, _ = step(state, {k: torch.from_numpy(v).to(DDP_DEVICE) for k, v in warm.items()})
+    torch.backends.cudnn.enabled = True
+    torch.save({"model": state.model.state_dict(), "optimizer": state.optimizer.state_dict(),
+                "ema": {**state.ema_params, **state.ema_buffers}, "step": state.step},
+               os.path.join(workdir, "state.pt"))
+    before = _trees(state)
+    del state, step
+
+    solver_dir = os.path.join(workdir, "solver")
+    os.makedirs(solver_dir)
+    img_root = os.path.join(solver_dir, "images")  # never read: the painter stands in
+    train_ann, val_ann = (os.path.join(solver_dir, n) for n in ("train.json", "val.json"))
+    write_synth_coco(train_ann, DDP_TRAIN_IMAGES, 1, rng)
+    write_synth_coco(val_ann, DDP_VAL_IMAGES, 100001, rng)
+    solver = copy.deepcopy(bf16_cfg)
+    solver["data"].update(train_ann_path=train_ann, val_ann_path=val_ann,
+                          train_img_root=img_root, val_img_root=img_root, num_workers=8)
+    solver["optim"]["epochs"] = 1
+    solver["val"] = {"interval": 1, "weight_path": os.path.join(workdir, "weights")}
+    solver["mesh"] = {"data": DDP_RANKS}
+    spec = {"device": DDP_DEVICE, "heat": HEAT_HW, "crop": CROP_HW,
+            "rank_batch": DDP_RANK_BATCH, "f32_cfg": f32_cfg, "bf16_cfg": bf16_cfg,
+            "f32_steps": DDP_F32_STEPS, "bf16_warmup": DDP_BF16_WARMUP,
+            "bf16_timed": DDP_BF16_TIMED, "solver_cfg": solver}
+    with open(os.path.join(workdir, "spec.json"), "w") as f:
+        json.dump(spec, f)
+    return spec, before
+
+
+def sorted_predictions(path):
+    """A COCO results file as rows of keypoints, score and image id, sorted
+    by (image id, keypoints)."""
+    with open(path) as f:
+        rows = sorted(json.load(f), key=lambda r: (r["image_id"], r["keypoints"]))
+    return np.array([r["keypoints"] + [r["score"], r["image_id"]] for r in rows])
+
+
+def prediction_diff(want, got):
+    """The largest |got - want| over two sorted_predictions arrays; inf
+    where their shapes or image ids differ."""
+    if want.shape != got.shape or not np.array_equal(want[:, -1], got[:, -1]):
+        return float("inf")
+    return float(np.abs(want - got).max())
+
+
+def rel_errors(want, got):
+    """|got - want| / |want| over all tensors together; per tensor, the
+    worst (a near-zero gradient, as a BatchNorm bias's before another
+    BatchNorm, makes it large) and the median."""
+    rel = {k: ((got[k] - w).norm() / w.norm().clamp_min(1e-30)).item() for k, w in want.items()}
+    diff = sum(float((got[k] - w).norm()) ** 2 for k, w in want.items()) ** 0.5
+    total = sum(float(w.norm()) ** 2 for w in want.values()) ** 0.5
+    worst = max(rel, key=rel.get)
+    return diff / total, rel[worst], worst, float(np.median(list(rel.values())))
+
+
+def run_ddp_two_ranks(workdir, step_rate):
+    """13b.  ``step_rate``: phase 6's one-process bf16 crops/s."""
+    spec, before = ddp_spec(workdir, np.random.default_rng(13))
+    t0 = time.perf_counter()
+    run_children("one", 1, workdir)
+    ranks = run_children("ddp", DDP_RANKS, workdir)
+    ranks_s = time.perf_counter() - t0
+    one = torch.load(os.path.join(workdir, "f32_one.pt"))
+    spread = rel_errors(one["grads"], torch.load(os.path.join(workdir, "f32_cudnn.pt"))["grads"])[0]
+    f32 = [torch.load(os.path.join(workdir, f"f32_ddp{r}.pt")) for r in range(DDP_RANKS)]
+    unequal = [k for key in ("grads", "trees_last") for k in f32[0][key]
+               if not torch.equal(f32[0][key][k], f32[1][key][k])]
+    grad_rel, grad_worst, grad_worst_name, grad_median = rel_errors(one["grads"], f32[0]["grads"])
+    buffers = [k for k in one["trees_first"]
+               if k.endswith(("running_mean", "running_var")) and not k.startswith("ema.")]
+    buf_ratio, buf_worst = tree_ratio({k: before[k] for k in buffers},
+                                      {k: one["trees_first"][k] for k in buffers},
+                                      f32[0]["trees_first"])
+    adam_ratio, adam_worst = tree_ratio(before, one["trees_last"], f32[0]["trees_last"])
+    loss_rel = max(abs(g / w - 1) for r in f32 for g, w in zip(r["losses"], one["losses"]))
+    f32_steps = [len(r["losses"]) for r in f32]
+    crop_launches = [r["launches"]["rotate_resample_crop"] for r in f32]
+    solver_launches = [r["solver_launches"]["rotate_resample_crop"] for r in ranks]
+    stats = [r["solver"]["stats"] for r in ranks]
+    with painter_installed():
+        solo = PoseSolver({**spec["solver_cfg"], "mesh": {"data": -1}}, device=DDP_DEVICE)
+        solo.restore_checkpoint()
+        one_stats = solo.validate(0, results_path=os.path.join(workdir, "one_results.json"))
+    del solo
+    # the seeded flagship scores AP 0 after one short epoch, so rank 0's
+    # gathered predictions are held against one process's themselves
+    gathered, solo_preds = (sorted_predictions(os.path.join(workdir, n))
+                            for n in ("val_results.json", "one_results.json"))
+    val_diff = prediction_diff(solo_preds, gathered)
+    b = {
+        "ranks": [r["info"] for r in ranks],
+        "f32_loss_rel": loss_rel,
+        "f32_grad_rel": grad_rel, "f32_grad_worst_tensor_rel": grad_worst,
+        "f32_grad_worst_tensor": grad_worst_name, "f32_grad_median_tensor_rel": grad_median,
+        "f32_grad_rel_cudnn_against_no_cudnn_one_process": spread,
+        "f32_bn_buffer_ratio": buf_ratio, "f32_bn_buffer_worst": buf_worst,
+        "f32_adam_param_ratio_after_steps": adam_ratio, "f32_adam_param_worst": adam_worst,
+        "f32_rank_tensors_unequal": len(unequal),
+        "crop_launches_per_rank": crop_launches, "f32_steps_per_rank": f32_steps,
+        "bf16_global_crops_per_s_2_ranks_sharing_one_card":
+            ranks[0]["bf16"]["global_crops_per_s"],
+        "bf16_one_process_crops_per_s_phase6": step_rate,
+        "solver_steps_per_rank": [r["solver_steps"] for r in ranks],
+        "solver_crop_launches_per_rank": solver_launches,
+        "solver_ap_per_rank": [s["AP"] for s in stats], "one_process_ap": one_stats["AP"],
+        "val_predictions": [len(gathered), len(solo_preds)],
+        "val_max_prediction_diff": val_diff,
+        "written_rank0": ranks[0]["written"], "written_rank1": ranks[1]["written"],
+        "children_s": ranks_s,
+    }
+    log("phase 13b, two ranks sharing one card (gloo): " + json.dumps(b))
+    assert all(r["info"]["backend"] == "gloo" for r in ranks), b["ranks"]
+    assert not unequal, unequal[:5]
+    assert loss_rel <= F32_STEP_LOSS_REL, loss_rel
+    assert grad_rel <= DDP_GRAD_REL and buf_ratio <= DDP_GRAD_REL, b
+    assert f32_steps == [DDP_F32_STEPS] * DDP_RANKS and crop_launches == f32_steps, b
+    assert solver_launches == b["solver_steps_per_rank"] and min(solver_launches) > 0
+    assert stats[0] == stats[1]
+    assert abs(stats[0]["AP"] - one_stats["AP"]) <= DDP_AP_TOL, (stats[0]["AP"], one_stats["AP"])
+    assert len(solo_preds) > 0 and val_diff <= DDP_PRED_TOL, b
+    assert "val_results.json" in ranks[0]["written"] and not ranks[1]["written"]
+    assert any(w.startswith("weights") for w in ranks[0]["written"])
+    return b
+
+
+def run_nccl(workdir):
+    """13c: one rank over NCCL with DDP around the model, 3 bf16 steps."""
+    t0 = time.perf_counter()
+    (nccl,) = run_children("nccl", 1, workdir)
+    c = {"info": nccl["info"], "backend": nccl["backend"], "nccl_version": nccl["nccl_version"],
+         "losses": nccl["losses"], "seconds": time.perf_counter() - t0}
+    log("phase 13c, NCCL world size 1: " + json.dumps(c))
+    assert c["backend"] == "nccl" and np.isfinite(c["losses"]).all()
+    return c
+
+
+def run_eval_multihost(workdir):
+    """13d: ``eval gt`` on the fixture (seeded ResNet-50-DConv+SE, f32)
+    in one process and through torchrun as two ranks on cuda:0 (gloo)."""
+    weights = os.path.join(workdir, "pose.pth")
+    torch.save(build_from_cfg(CFG, seed=0).state_dict(), weights)
+    args = ["-m", "simple_pose_torch.eval", "gt", "--img-root", DET_IMAGES, "--ann", DET_GT,
+            "--reduction", "--weights", weights, "--batch-size", "32", "--no-amp",
+            "--decoder", "basic", "--device", DDP_DEVICE]
+    env = {**os.environ, "PYTHONPATH": os.getcwd()}
+    runs = {}
+    for name, cmd in (("one", [sys.executable] + args),
+                      ("two", [sys.executable, "-m", "torch.distributed.run",
+                               "--nproc_per_node", "2", "--master_port", str(free_port())]
+                       + args + ["--multihost"])):
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd + ["--out", os.path.join(workdir, f"{name}.json")], env=env,
+                              capture_output=True, text=True, timeout=CHILD_TIMEOUT)
+        assert proc.returncode == 0, (
+            f"eval gt ({name}):\n{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+        lines = [json.loads(x) for x in proc.stdout.splitlines() if x.startswith('{"AP"')]
+        assert len(lines) == 1, proc.stdout[-2000:]
+        runs[name] = {"stats": lines[0], "seconds": time.perf_counter() - t0}
+    diff = max(abs(runs["two"]["stats"][k] - runs["one"]["stats"][k]) for k in runs["one"]["stats"])
+    # the seeded net scores AP 0 here, so the predictions themselves are compared
+    preds = {name: sorted_predictions(os.path.join(workdir, f"{name}.json")) for name in runs}
+    pred_diff = prediction_diff(preds["one"], preds["two"])
+    d = {"one_process": runs["one"], "two_ranks": runs["two"], "max_stat_diff": diff,
+         "predictions": [len(preds["one"]), len(preds["two"])], "max_prediction_diff": pred_diff}
+    log("phase 13d, eval gt --multihost: " + json.dumps(d))
+    assert diff <= DDP_AP_TOL and len(preds["one"]) > 0, d
+    assert pred_diff <= DDP_PRED_TOL, d
+    return d
+
+
+def run_ddp_phase(card, step_rate):
+    """Phase 13.  Returns the summary, the crop kernel's launches per rank
+    in 13b's DDP steps and the steps each rank took."""
+    t_phase = time.perf_counter()
+    summary = {"card": card}
+    t0 = time.perf_counter()
+    summary["13a_decoder"] = check_decoder_fixture()
+    log(f"phase 13a: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as workdir:
+        t0 = time.perf_counter()
+        summary["13b_ddp_two_ranks_one_card"] = run_ddp_two_ranks(workdir, step_rate)
+        torch.cuda.empty_cache()
+        summary["13c_nccl"] = run_nccl(workdir)
+        report_numbers(card, "phase 13b, bf16 global crops/s, 2 ranks sharing one card, "
+                       f"{DDP_RANK_BATCH} per rank (not a multi-GPU rate)", {
+                           "crops_per_s": summary["13b_ddp_two_ranks_one_card"][
+                               "bf16_global_crops_per_s_2_ranks_sharing_one_card"],
+                           "one_process_batch128": step_rate})
+        log(f"phase 13b-c: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        summary["13d_eval_multihost"] = run_eval_multihost(workdir)
+        log(f"phase 13d: {time.perf_counter() - t0:.1f} s")
+    log(f"phase 13: {time.perf_counter() - t_phase:.1f} s")
+    b = summary["13b_ddp_two_ranks_one_card"]
+    return summary, b["crop_launches_per_rank"], b["f32_steps_per_rank"]
+
+
 def k2_row(name, launches, report, row):
     """A K2 row of the kernels' JSON line."""
     return {
@@ -2696,6 +3143,8 @@ def main() -> int:
     log("phase 11: " + json.dumps(quantized_run))
     apps, serve_launches = run_port_apps(card)
     log("phase 12: " + json.dumps(apps))
+    ddp, ddp_launches, ddp_steps = run_ddp_phase(card, train["crops_per_s"])
+    log("phase 13: " + json.dumps(ddp))
 
     kernels = [{**k2_row("bottleneck_chain", launches["bottleneck_chain"], report,
                          timing[f"b{BATCH}_bf16"]),
@@ -2735,6 +3184,8 @@ def main() -> int:
         "replaces_path": "simple_pose_tpu/ops/pallas_warp.py:170 (affine_crop_pallas)",
         "launches": train_launches["rotate_resample_crop"],
         "launches_solver": solver_launches["rotate_resample_crop"],
+        "launches_ddp_per_rank": ddp_launches,
+        "ddp_steps_per_rank": ddp_steps,
         "max_abs_err": max(crop_report["f32"]["max_abs_err"], crop_report["bf16"]["max_abs_err"]),
         "ms": crop_row["kernel_ms"],
         "kernel_ms": crop_row["kernel_ms"],

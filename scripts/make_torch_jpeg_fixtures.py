@@ -1,10 +1,12 @@
 """Write the JPEG fixture of the PyTorch port's tests and chip smoke run.
 
     python scripts/make_torch_jpeg_fixtures.py [--out tests/data_torch_jpeg]
-                                               [--progressive-only]
+                                               [--progressive-only | --decoder-only]
 
-Needs cv2 (to paint and encode); everything else is numpy from fixed seeds.
-It writes:
+Needs cv2 (to paint and encode), and gcc with libjpeg's jpeglib.h for the
+encoder of decoder/ (ENCODER_SOURCE: arithmetic coding, scan scripts and DAC
+conditioning, which cv2 cannot ask for); everything else is numpy from fixed
+seeds.  It writes:
 
   det/images/{id:012d}.jpg    32 painted 640x480 images, 4:4:4 quality 90,
                               1-4 skeleton-like people each
@@ -24,6 +26,19 @@ It writes:
                               interval, and an odd 121x99 4:2:0; their
                               CRC32s as above, each checked against cv2's
                               decode (--progressive-only writes these alone)
+  decoder/*.jpg,              15 files of the kinds csrc/jpeg_canvas.cc
+  decoder/decoded_crc32.json  decodes as libjpeg does since it repeats
+                              libjpeg's handling of them (DECODER): baseline
+                              and progressive files cut short (with and
+                              without EOI, with restart markers, after the DC
+                              scan, after scan 3, inside scan 5: block
+                              smoothing), arithmetic-coded sequential and
+                              progressive files (restart intervals, DAC
+                              conditioning, cut short), multi-scan
+                              sequential files, and progressive files whose
+                              scans libjpeg only warns about (AC before DC,
+                              refinements first); their CRC32s as above
+                              (--decoder-only writes these alone)
 
 The JSON files are a function of the seeds alone (tests regenerate and
 compare them); the JPEG bytes depend on the encoder's libjpeg.
@@ -34,6 +49,8 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
+import subprocess
 import sys
 import zlib
 
@@ -166,6 +183,209 @@ def write_progressive(out_dir, scenes):
     return paths
 
 
+# A JPEG encoder over this machine's libjpeg, for what cv2 cannot set:
+#   encoder in.raw out.jpg width height components quality arith progressive
+#           restart sampling script dac
+# sampling is "hv,hv,hv" per component; script "none" (libjpeg's default),
+# "y_then_cbcr" (sequential: Y, then Cb and Cr interleaved) or "each"
+# (sequential: one scan per component, Cr first); dac 1 sets DC conditioning
+# L=1 U=3 and AC K=2 in place of the defaults 0, 1 and 5.
+ENCODER_SOURCE = r"""
+#include <stdio.h>
+#include <stdlib.h>
+#include <string.h>
+#include <jpeglib.h>
+
+int main(int argc, char** argv) {
+  if (argc != 13) return 2;
+  const int w = atoi(argv[3]), h = atoi(argv[4]), nc = atoi(argv[5]);
+  FILE* in = fopen(argv[1], "rb");
+  FILE* out = fopen(argv[2], "wb");
+  if (!in || !out) return 1;
+  unsigned char* pix = malloc((size_t)w * h * nc);
+  if (fread(pix, 1, (size_t)w * h * nc, in) != (size_t)w * h * nc) return 1;
+  struct jpeg_compress_struct c;
+  struct jpeg_error_mgr e;
+  c.err = jpeg_std_error(&e);
+  jpeg_create_compress(&c);
+  jpeg_stdio_dest(&c, out);
+  c.image_width = w;
+  c.image_height = h;
+  c.input_components = nc;
+  c.in_color_space = nc == 1 ? JCS_GRAYSCALE : nc == 3 ? JCS_RGB : JCS_CMYK;
+  jpeg_set_defaults(&c);
+  jpeg_set_quality(&c, atoi(argv[6]), TRUE);
+  c.arith_code = atoi(argv[7]);
+  c.restart_interval = atoi(argv[9]);
+  const char* samp = argv[10];
+  for (int i = 0; i < nc && samp[3 * i] && samp[3 * i + 1]; ++i) {
+    c.comp_info[i].h_samp_factor = samp[3 * i] - '0';
+    c.comp_info[i].v_samp_factor = samp[3 * i + 1] - '0';
+  }
+  if (atoi(argv[12])) {
+    for (int t = 0; t < 2; ++t) {
+      c.arith_dc_L[t] = 1;
+      c.arith_dc_U[t] = 3;
+      c.arith_ac_K[t] = 2;
+    }
+  }
+  static jpeg_scan_info scans[3];
+  if (atoi(argv[8])) {
+    jpeg_simple_progression(&c);
+  } else if (strcmp(argv[11], "y_then_cbcr") == 0 && nc == 3) {
+    scans[0] = (jpeg_scan_info){1, {0}, 0, 63, 0, 0};
+    scans[1] = (jpeg_scan_info){2, {1, 2}, 0, 63, 0, 0};
+    c.scan_info = scans;
+    c.num_scans = 2;
+  } else if (strcmp(argv[11], "each") == 0 && nc == 3) {
+    for (int i = 0; i < 3; ++i) scans[i] = (jpeg_scan_info){1, {2 - i}, 0, 63, 0, 0};
+    c.scan_info = scans;
+    c.num_scans = 3;
+  }
+  jpeg_start_compress(&c, TRUE);
+  while (c.next_scanline < c.image_height) {
+    JSAMPROW row = pix + (size_t)c.next_scanline * w * nc;
+    jpeg_write_scanlines(&c, &row, 1);
+  }
+  jpeg_finish_compress(&c);
+  jpeg_destroy_compress(&c);
+  fclose(out);
+  fclose(in);
+  free(pix);
+  return 0;
+}
+"""
+
+
+def build_encoder(build_dir):
+    """Compiles ENCODER_SOURCE against libjpeg into build_dir; its path."""
+    os.makedirs(build_dir, exist_ok=True)
+    src, exe = os.path.join(build_dir, "encoder.c"), os.path.join(build_dir, "encoder")
+    with open(src, "w") as f:
+        f.write(ENCODER_SOURCE)
+    subprocess.run(["gcc", "-O2", src, "-o", exe, "-ljpeg"], check=True, capture_output=True)
+    return exe
+
+
+def encode(encoder, path, img, quality=90, arith=0, progressive=0, restart=0,
+           sampling="22,11,11", script="none", dac=0):
+    """img (h, w) or (h, w, c) uint8 RGB/gray/CMYK written through the encoder."""
+    h, w = img.shape[:2]
+    c = 1 if img.ndim == 2 else img.shape[2]
+    raw = path + ".raw"
+    np.ascontiguousarray(img, np.uint8).tofile(raw)
+    try:
+        subprocess.run([encoder, raw, path, str(w), str(h), str(c), str(quality), str(arith),
+                        str(progressive), str(restart), sampling, script, str(dac)],
+                       check=True, capture_output=True)
+    finally:
+        os.remove(raw)
+
+
+def scan_starts(data):
+    """The offsets of a file's SOS markers."""
+    return [m.start() for m in re.finditer(b"\xff\xda", data)]
+
+
+def scan_units(data):
+    """(head, units, tail) of a multi-scan file: each unit is one scan with
+    the table segments written just before it, so that units can be
+    reordered or dropped."""
+    marks = [m.start() for m in re.finditer(b"\xff[^\x00\xd0-\xd7\xff]", data)]
+    sos = [m for m in marks if data[m + 1] == 0xDA]
+    starts = []
+    for i, s in enumerate(sos):
+        start = s
+        for m in reversed([m for m in marks if m < s and (i == 0 or m > sos[i - 1])]):
+            if data[m + 1] not in (0xC4, 0xDB, 0xDD, 0xCC):
+                break
+            start = m
+        starts.append(start)
+    eoi = data.rindex(b"\xff\xd9")
+    units = [data[a:b] for a, b in zip(starts, starts[1:] + [eoi])]
+    return data[:starts[0]], units, data[eoi:]
+
+
+# name -> (det scene, (w, h), how): each scene painted at 640x480 and resized
+# with INTER_AREA, then written as DECODER_KINDS says
+DECODER = {
+    "cut_baseline.jpg": (6, (64, 64), "cut_baseline"),
+    "cut_baseline_eoi.jpg": (6, (64, 64), "cut_baseline_eoi"),
+    "cut_baseline_rst.jpg": (7, (120, 96), "cut_baseline_rst"),
+    "cut_progressive_dc.jpg": (8, (120, 96), "cut_progressive_dc"),
+    "cut_progressive_scan3.jpg": (9, (120, 96), "cut_progressive_scan3"),
+    "cut_progressive_mid5.jpg": (10, (121, 99), "cut_progressive_mid5"),
+    "arith_seq.jpg": (11, (120, 96), "arith_seq"),
+    "arith_seq_rst_dac.jpg": (12, (96, 72), "arith_seq_rst_dac"),
+    "arith_prog.jpg": (13, (120, 96), "arith_prog"),
+    "arith_prog_rst_gray.jpg": (14, (96, 72), "arith_prog_rst_gray"),
+    "arith_prog_cut.jpg": (15, (120, 96), "arith_prog_cut"),
+    "multiscan_seq.jpg": (16, (120, 96), "multiscan_seq"),
+    "multiscan_each_arith.jpg": (17, (96, 72), "multiscan_each_arith"),
+    "bogus_ac_before_dc.jpg": (18, (96, 72), "bogus_ac_before_dc"),
+    "bogus_refine_first.jpg": (19, (96, 72), "bogus_refine_first"),
+}
+
+
+def decoder_file(encoder, path, img, how):
+    """Writes one file of DECODER."""
+    import cv2 as cv
+
+    bgr = img[..., ::-1]
+    if how.startswith("cut_baseline"):
+        params = [cv.IMWRITE_JPEG_RST_INTERVAL, 2] if how.endswith("rst") else []
+        assert cv.imwrite(path, bgr, params)
+        with open(path, "rb") as f:
+            data = f.read()
+        data = data[:len(data) * 2 // 3] + (b"" if how == "cut_baseline" else b"\xff\xd9")
+    elif how.startswith("cut_progressive"):
+        assert cv.imwrite(path, bgr, [cv.IMWRITE_JPEG_PROGRESSIVE, 1])
+        with open(path, "rb") as f:
+            data = f.read()
+        sos = scan_starts(data)
+        cut = {"dc": sos[1], "scan3": sos[3], "mid5": (sos[4] + sos[5]) // 2}[how.split("_")[-1]]
+        data = data[:cut] + b"\xff\xd9"
+    elif how.startswith("bogus"):
+        assert cv.imwrite(path, bgr, [cv.IMWRITE_JPEG_PROGRESSIVE, 1])
+        with open(path, "rb") as f:
+            head, units, tail = scan_units(f.read())
+        n = len(units)
+        order = (list(range(1, n)) + [0] if how == "bogus_ac_before_dc"
+                 else [0] + list(range(n - 1, 0, -1)))
+        data = head + b"".join(units[i] for i in order) + tail
+    else:
+        kw = {"arith_seq": dict(arith=1),
+              "arith_seq_rst_dac": dict(arith=1, restart=3, dac=1, sampling="11,11,11"),
+              "arith_prog": dict(arith=1, progressive=1),
+              "arith_prog_rst_gray": dict(arith=1, progressive=1, restart=2),
+              "arith_prog_cut": dict(arith=1, progressive=1),
+              "multiscan_seq": dict(script="y_then_cbcr"),
+              "multiscan_each_arith": dict(arith=1, script="each", sampling="21,11,11"),
+              }[how]
+        encode(encoder, path, img[..., 0] if how.endswith("gray") else img, **kw)
+        with open(path, "rb") as f:
+            data = f.read()
+        if how == "arith_prog_cut":
+            data = data[:scan_starts(data)[4]] + b"\xff\xd9"
+    with open(path, "wb") as f:
+        f.write(data)
+
+
+def write_decoder(out_dir, scenes, build_dir):
+    """The decoder fixture: [(relative path, path)]."""
+    import cv2 as cv
+
+    encoder = build_encoder(build_dir)
+    os.makedirs(out_dir, exist_ok=True)
+    paths = []
+    for name, (scene, wh, how) in DECODER.items():
+        img = cv.resize(paint(scenes[scene]), wh, interpolation=cv.INTER_AREA)[..., ::-1]
+        path = os.path.join(out_dir, name)
+        decoder_file(encoder, path, np.ascontiguousarray(img), how)
+        paths.append((f"decoder/{name}", path))
+    return paths
+
+
 def write_crc32(path, decoded):
     with open(path, "w") as f:
         json.dump({rel: {"height": v[0], "width": v[1], "crc32": v[2]}
@@ -189,8 +409,11 @@ def decode_records(paths):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=os.path.join(REPO, "tests", "data_torch_jpeg"))
-    ap.add_argument("--progressive-only", action="store_true",
-                    help="write the progressive files and their CRC32s alone")
+    only = ap.add_mutually_exclusive_group()
+    only.add_argument("--progressive-only", action="store_true",
+                      help="write the progressive files and their CRC32s alone")
+    only.add_argument("--decoder-only", action="store_true",
+                      help="write the decoder/ files and their CRC32s alone")
     args = ap.parse_args(argv)
     import cv2 as cv
 
@@ -198,6 +421,14 @@ def main(argv=None):
     from tests.util_synth import make_synth_coco
 
     gt, dets, scenes = detection_set()
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as build_dir:
+        decoder = write_decoder(os.path.join(args.out, "decoder"), scenes, build_dir)
+    write_crc32(os.path.join(args.out, "decoder", "decoded_crc32.json"), decode_records(decoder))
+    print(f"{len(decoder)} decoder-coverage JPEGs under {args.out}/decoder")
+    if args.decoder_only:
+        return
     progressive = write_progressive(os.path.join(args.out, "progressive"), scenes)
     decoded = decode_records(progressive)
     for rel, path in progressive:

@@ -344,14 +344,20 @@ class PosePipeline:
 
     def dedup_batches_per_epoch(self, epoch: int) -> int:
         """Packed batch count, equalized across processes (each packs every
-        process's plan -- cheap index math -- and takes the min, so
-        collectives can't deadlock on a skewed instance distribution)."""
-        return min(len(self._pack_epoch(epoch, process_index=h))
-                   for h in range(self.process_count))
+        process's plan -- cheap index math), so collectives can't deadlock on
+        a skewed instance distribution: the min with ``drop_last`` (as the
+        JAX pipeline), else the max, a process short of batches padding
+        with empty ones, so that no record is dropped (the JAX pipeline
+        takes the min here too and loses the last records of a process)."""
+        counts = [len(self._pack_epoch(epoch, process_index=h))
+                  for h in range(self.process_count)]
+        return min(counts) if self.drop_last else max(counts)
 
     def _dedup_epoch(self, epoch: int) -> Iterator[dict]:
         plans = self._pack_epoch(epoch)
         nb = self.dedup_batches_per_epoch(epoch) if self.process_count > 1 else len(plans)
+        empty = [([], [(0, None)] * (self.batch_size // self.dedup_buckets))]
+        plans += [empty * self.dedup_buckets] * (nb - len(plans))
         cap_canv = self.dedup_canvases // self.dedup_buckets
         bs, U = self.batch_size, self.dedup_canvases
         ident = np.array([[1, 0, 0], [0, 1, 0]], np.float32)

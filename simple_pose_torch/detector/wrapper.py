@@ -99,13 +99,17 @@ def read_canvases(paths, canvas: int, loader=None):
 def image_batches(img_root, images, batch_size: int, canvas: int, loader=None):
     """COCO ``images`` entries in fixed-size batches of canvases: yields
     (entries, canvases [batch_size, canvas, canvas, 3] BGR, shapes), the
-    last batch padded with empty canvases of shape (canvas, canvas)."""
+    last batch padded with empty canvases of shape (canvas, canvas).  A
+    ``None`` entry (a rank's equalization pad, at the end of ``images``)
+    is an empty canvas too."""
     for start in range(0, len(images), batch_size):
         chunk = images[start:start + batch_size]
+        real = [e for e in chunk if e is not None]
+        assert chunk[:len(real)] == real, "None entries pad the end of images"
         paths = [os.path.join(img_root, e.get("coco_url", e.get("file_name", "")).split("/")[-1])
-                 for e in chunk]
+                 for e in real]
         canvases, shapes = read_canvases(paths, canvas, loader)
-        pad = batch_size - len(chunk)
+        pad = batch_size - len(real)
         if pad:
             canvases = np.concatenate([canvases, np.zeros((pad,) + canvases.shape[1:], np.uint8)])
         yield chunk, canvases, list(shapes) + [(canvas, canvas)] * pad

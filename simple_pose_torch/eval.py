@@ -47,6 +47,16 @@ artifact (evalkit/export.py) and its input contract beside it as
         [--quant w8a8 --scales pose_scales.json] [--fused-layer1] \
         [--batch-size 64 | --batch-size b] [--canvas 640] --out pose_eval.pt2
 
+Several ranks (the JAX CLI's ``--multihost`` and ``--mesh-devices``) on
+``gt``, ``detections`` and ``fused``: each rank takes its stride of the
+images and every rank gathers the full prediction list; rank 0 writes the
+output files and prints the stats, which equal one process's.  ``gen-dets``
+and ``e2e`` run on one rank, and ``--fused-layer1`` too, as in JAX:
+
+    torchrun --nproc_per_node=N -m simple_pose_torch.eval gt ... --multihost
+    python -m simple_pose_torch.eval gt ... --mesh-devices N
+    python -m simple_pose_torch.eval gt ... --mesh-devices 2 --device cpu
+
 ``e2e`` runs gen-dets into ./person_detections.json, then the
 ``detections`` workflow on it; ``fused`` runs evalkit/fused.py's
 FusedDetectPose per image batch (no flip-test, no dark_original).
@@ -64,6 +74,7 @@ import argparse
 import json
 
 from simple_pose_torch.models.quant import load_scales
+from simple_pose_torch.parallel import distributed as D
 
 
 def _model_cfg(args):
@@ -131,6 +142,7 @@ def main(argv=None):
         p.add_argument("--no-amp", action="store_true",
                        help="force float32 compute (default: bf16 on CUDA)")
         p.add_argument("--device", default=None, help="default: cuda")
+        D.add_launch_args(p)
         quant(p)
         if model:
             model_args(p)
@@ -228,13 +240,31 @@ def main(argv=None):
     if args.cmd == "export":
         _export(args, ap)
         return
+    if args.cmd == "rescore":
+        from simple_pose_torch.evalkit import workflows
+
+        stats = workflows.rescore_and_filter(args.preds, args.ann, args.in_vis_thre,
+                                             args.oks_thre)
+        print(json.dumps({k: float(v) for k, v in stats.items()}))
+        return
+    if args.cmd == "fused":
+        if args.flip_test:
+            ap.error("fused runs one forward per crop; flip-test needs the "
+                     "two-stage path (eval e2e --flip-test)")
+        if args.decoder == "dark_original":
+            ap.error("fused decodes on the device (basic/gauss_taylor); "
+                     "dark_original's host decode needs the two-stage path")
+        if args.fused_layer1:
+            ap.error("fused has no fused_layer1; it needs the two-stage path (eval e2e)")
+    D.launch(_run, args)
+
+
+def _run(args):
+    """One rank's (or the one process's) run of an eval subcommand."""
     from simple_pose_torch.evalkit import workflows
 
     amp = False if getattr(args, "no_amp", False) else "auto"
-    if args.cmd == "rescore":
-        stats = workflows.rescore_and_filter(args.preds, args.ann, args.in_vis_thre,
-                                             args.oks_thre)
-    elif args.cmd == "gen-dets":
+    if args.cmd == "gen-dets":
         from simple_pose_torch.detector.wrapper import YOLOv5Detector
 
         det = YOLOv5Detector(weights_path=args.det_weights, scale_name=args.scale_name,
@@ -252,14 +282,6 @@ def main(argv=None):
     elif args.cmd == "fused":
         from simple_pose_torch.evalkit.fused import fused_eval
 
-        if args.flip_test:
-            ap.error("fused runs one forward per crop; flip-test needs the "
-                     "two-stage path (eval e2e --flip-test)")
-        if args.decoder == "dark_original":
-            ap.error("fused decodes on the device (basic/gauss_taylor); "
-                     "dark_original's host decode needs the two-stage path")
-        if args.fused_layer1:
-            ap.error("fused has no fused_layer1; it needs the two-stage path (eval e2e)")
         stats = fused_eval(
             args.img_root, args.ann, _model_cfg(args), pose_weights=args.weights,
             detector_weights=args.det_weights, scale_name=args.scale_name,
@@ -288,7 +310,8 @@ def main(argv=None):
         else:
             stats = workflows.predicts_by_detections(args.img_root, args.dets, args.ann,
                                                      _model_cfg(args), **kw)
-    print(json.dumps({k: float(v) for k, v in stats.items()}))
+    if D.is_main():
+        print(json.dumps({k: float(v) for k, v in stats.items()}))
 
 
 if __name__ == "__main__":

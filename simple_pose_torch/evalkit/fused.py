@@ -25,6 +25,13 @@ networks' convs run in int8 (models/quant.py) on per-net scales
 ``{"detector": {...}, "pose": {...}}``; ``calibrate`` records them with one
 recorder around each net, so the pose scales come from the crops of the
 detector's own boxes.
+
+Under an initialised torch.distributed group of more than one rank
+``fused_eval`` takes this rank's stride of the images, padded with empty
+canvases to the same batch count on every rank, and ``FusedDetectPose``
+gathers every rank's outputs and image ids (JAX fused.py:230-268, 315-330),
+so every rank builds the full prediction list; a ``rect`` batch takes the
+largest bucket over the ranks, as the JAX program does.
 """
 
 from __future__ import annotations
@@ -45,6 +52,7 @@ from simple_pose_torch.detector.wrapper import (
     rect_letterbox_params,
 )
 from simple_pose_torch.evalkit.workflows import (
+    _write_json,
     calibrate_then_replay,
     load_model_variables,
     rescore_and_filter,
@@ -54,6 +62,7 @@ from simple_pose_torch.models.registry import resolve_amp_dtype
 from simple_pose_torch.ops.affine import box_to_center_scale
 from simple_pose_torch.ops.affine_device import affine_crop_separable_multi, boxes_to_crop_affines
 from simple_pose_torch.ops.decode import decode_basic, decode_gauss_taylor, instance_scores
+from simple_pose_torch.parallel import distributed as D
 from simple_pose_torch.utils.device import resolve_device
 
 __all__ = ["FusedDetectPose", "FusedProgram", "fused_eval"]
@@ -214,7 +223,7 @@ class FusedDetectPose:
         """Host geometry and device tensors for one batch:
         (canvases, lb_trans, lb_region, lb_inv_scale, lb_offset, th, tw)."""
         if self.rect:
-            th, tw = self._pick_bucket(shapes)
+            th, tw = (int(v) for v in D.allreduce_max(self._pick_bucket(shapes)))
             geom = self.host_prep(shapes, run_size=(tw, th))
         else:
             tw, th = self.det_size
@@ -256,12 +265,13 @@ class FusedDetectPose:
         """:param canvases_u8: [B, canvas, canvas, 3] uint8 BGR at the origin
         :param shapes: [(h, w)] true image sizes
         :param img_ids: optional per-image ids, returned as ``img_ids``
-        :returns: dict of numpy arrays; entries masked by det_valid"""
+        :returns: dict of numpy arrays, every rank's under a group; entries
+            masked by det_valid"""
         out = self.program(*self.prepare(canvases_u8, shapes))
         out = {k: v.cpu().numpy() for k, v in out.items()}
         if img_ids is not None:
             out["img_ids"] = np.asarray(img_ids, np.int64)
-        return out
+        return D.allgather_tiled(out)
 
 
 def fused_eval(img_root, ann_path, pose_model_cfg, pose_weights=None,
@@ -300,6 +310,11 @@ def fused_eval(img_root, ann_path, pose_model_cfg, pose_weights=None,
         images = json.load(rf)["images"]
     if debug:
         images = images[:debug]
+    rank, world = D.rank_world()
+    if world > 1:  # this rank's stride, padded to the same count on every rank
+        per_rank = -(-len(images) // world)
+        images = list(images[rank::world])
+        images += [None] * (per_rank - len(images))
     loader = _native_loader(use_native, 8)
 
     in_w, in_h = input_shape
@@ -308,7 +323,7 @@ def fused_eval(img_root, ann_path, pose_model_cfg, pose_weights=None,
     if quant_calib and fused.quant:
         stream = calibrate_then_replay(fused, stream, quant_calib, quant_scales_out)
     for chunk, canvases, shapes in stream:
-        ids = [int(e["id"]) for e in chunk] + [-1] * (batch_size - len(chunk))
+        ids = [-1 if e is None else int(e["id"]) for e in chunk] + [-1] * (batch_size - len(chunk))
         out = fused(canvases, shapes, img_ids=ids)
         for i, img_id in enumerate(out["img_ids"]):
             if img_id < 0:
@@ -326,6 +341,5 @@ def fused_eval(img_root, ann_path, pose_model_cfg, pose_weights=None,
                     "score": float(out["det_scores"][i, p]),
                     "img_id": int(img_id),
                 })
-    with open(out_path, "w") as wf:
-        json.dump(predictions, wf)
-    return rescore_and_filter(out_path, ann_path, in_vis_thre, oks_thre, filtered_out_path)
+    _write_json(out_path, predictions)
+    return rescore_and_filter(predictions, ann_path, in_vis_thre, oks_thre, filtered_out_path)

@@ -30,8 +30,16 @@ convention) and averages.  ``weights`` is a reference .pth checkpoint
 key names; none means the seeded init.
 
 The fused detect -> pose program is evalkit/fused.py; the serving export
-of PoseEvaluator is evalkit/export.py.  The multi-device mesh is not
-ported yet (ROADMAP.md).
+of PoseEvaluator is evalkit/export.py.
+
+Under an initialised torch.distributed group of more than one rank
+(parallel/distributed.py, the JAX ``mesh=`` with several processes) the
+GT-box and detector-box workflows take this rank's stride of the records
+(``_process_shard_kwargs``), gather every rank's outputs per batch
+(``_gather_results``), so every rank builds the full prediction list and
+returns the same stats, and rank 0 alone writes each output file before
+any rank reads it.  As in JAX, ``fused_layer1`` and ``gen_detections`` run
+on one rank only.
 """
 
 from __future__ import annotations
@@ -64,6 +72,7 @@ from simple_pose_torch.ops.decode import (
 )
 from simple_pose_torch.ops.oks import oks_nms
 from simple_pose_torch.ops.warp import affine_crop_separable
+from simple_pose_torch.parallel import distributed as D
 from simple_pose_torch.utils.device import resolve_device
 
 __all__ = ["PoseEvaluator", "predicts_by_gt", "predicts_by_detections", "rescore_and_filter",
@@ -93,6 +102,29 @@ def kps_to_dicts(kps, conf, scores, img_ids, out_list):
                 "keypoints": np.concatenate([kp, cf], axis=-1).reshape(-1).tolist(),
             }
         )
+
+
+def _gather_results(out: dict, meta: dict) -> dict:
+    """One numpy dict of evaluator outputs and host metadata for the global
+    batch: every rank's, concatenated in rank order (JAX workflows.py:75-95);
+    this rank's alone without a group."""
+    host = {k: v.cpu().numpy() if torch.is_tensor(v) else np.asarray(v) for k, v in out.items()}
+    return D.allgather_tiled({**host, **{k: np.asarray(v) for k, v in meta.items()}})
+
+
+def _process_shard_kwargs() -> dict:
+    """Pipeline kwargs for this rank's stride of the records (JAX
+    workflows.py:98-103)."""
+    return D.shard_kwargs()
+
+
+def _write_json(path: str, obj) -> None:
+    """``obj`` as JSON at ``path``, written once: by rank 0 under a group."""
+    def write(p):
+        with open(p, "w") as wf:
+            json.dump(obj, wf)
+
+    D.write_once(path, write)
 
 
 def load_model_variables(model_cfg: dict, weights: Union[str, dict, None] = None,
@@ -156,6 +188,10 @@ class PoseEvaluator:
         self._quant = quantized(self.model, quant, quant_scales)
         self._layer1_folded = None
         if fused_layer1:
+            if D.rank_world()[1] > 1:
+                raise ValueError(
+                    "fused_layer1 runs on one rank, as the JAX package's runs on one "
+                    "device (no mesh); drop fused_layer1 or run a single process")
             names = self.model.layer1_block_names()
             if not names:
                 raise ValueError(
@@ -308,19 +344,18 @@ def predicts_by_gt(img_root, ann_path, model_cfg, weights=None, batch_size=32,
     pipe = PosePipeline(records, batch_size, input_shape=input_shape,
                         output_shape=(input_shape[0] // 4, input_shape[1] // 4),
                         canvas=canvas, augment=False, shuffle=False, drop_last=False,
-                        **_dedup_plan(batch_size, dedup))
+                        **_process_shard_kwargs(), **_dedup_plan(batch_size, dedup))
     ev = PoseEvaluator(model_cfg, weights, input_shape, decoder, flip_test, amp=amp,
                        fused_layer1=fused_layer1, device=device, quant=quant,
                        quant_scales=quant_scales)
     _maybe_calibrate(ev, pipe, quant_calib, quant_scales_out)
     results = []
     for batch in pipe.epoch(0):
-        out = {k: v.cpu().numpy() for k, v in ev(batch).items()}
-        keep = batch["valid"] > 0.5
-        kps_to_dicts(out["kps"][keep], out["conf"][keep], out["scores"][keep],
-                     batch["img_id"][keep], results)
-    with open(out_path, "w") as wf:
-        json.dump(results, wf)
+        g = _gather_results(ev(batch), {"img_id": batch["img_id"], "valid": batch["valid"]})
+        keep = g["valid"] > 0.5
+        kps_to_dicts(g["kps"][keep], g["conf"][keep], g["scores"][keep], g["img_id"][keep],
+                     results)
+    _write_json(out_path, results)
     return evaluate_map(out_path, ann_path)
 
 
@@ -341,7 +376,7 @@ def predicts_by_detections(img_root, det_json_path, gt_ann_path, model_cfg, weig
     records = load_detection_boxes(img_root, det_json_path, debug=debug)
     pipe = DetBoxPipeline(records, batch_size, input_shape=input_shape,
                           output_shape=(input_shape[0] // 4, input_shape[1] // 4),
-                          canvas=canvas, use_native=use_native,
+                          canvas=canvas, use_native=use_native, **_process_shard_kwargs(),
                           **_dedup_plan(batch_size, dedup))
     ev = PoseEvaluator(model_cfg, weights, input_shape, decoder, flip_test, amp=amp,
                        fused_layer1=fused_layer1, device=device, quant=quant,
@@ -349,17 +384,19 @@ def predicts_by_detections(img_root, det_json_path, gt_ann_path, model_cfg, weig
     _maybe_calibrate(ev, pipe, quant_calib, quant_scales_out)
     predictions = []
     for batch in pipe.epoch(0):
-        out = {k: v.cpu().numpy() for k, v in ev(batch).items() if k != "scores"}
-        for b in np.flatnonzero(batch["valid"] > 0.5):
+        out = ev(batch)
+        g = _gather_results({"kps": out["kps"], "conf": out["conf"]},
+                            {k: batch[k] for k in ("img_id", "valid", "area", "score")})
+        for b in np.flatnonzero(g["valid"] > 0.5):
             predictions.append({
-                "kps": np.concatenate([out["kps"][b], out["conf"][b]], -1).reshape(-1).tolist(),
-                "area": float(batch["area"][b]),
-                "score": float(batch["score"][b]),
-                "img_id": int(batch["img_id"][b]),
+                "kps": np.concatenate([g["kps"][b], g["conf"][b]], -1).reshape(-1).tolist(),
+                "area": float(g["area"][b]),
+                "score": float(g["score"][b]),
+                "img_id": int(g["img_id"][b]),
             })
-    with open(out_path, "w") as wf:
-        json.dump(predictions, wf)
-    return rescore_and_filter(out_path, gt_ann_path, in_vis_thre, oks_thre, filtered_out_path)
+    _write_json(out_path, predictions)
+    return rescore_and_filter(predictions, gt_ann_path, in_vis_thre, oks_thre,
+                              filtered_out_path)
 
 
 def rescore_and_filter(predictions, gt_ann_path, in_vis_thre=0.2, oks_thre=0.9,
@@ -368,7 +405,8 @@ def rescore_and_filter(predictions, gt_ann_path, in_vis_thre=0.2, oks_thre=0.9,
     eval.py:153-197): each pose scores box score x the mean of its joint
     confidences above ``in_vis_thre``, then OKS-NMS at ``oks_thre``.
     ``predictions`` is a path or the list itself.  Writes the kept poses as
-    COCO results to ``out_path`` and returns their stats dict."""
+    COCO results to ``out_path`` (rank 0 under a group) and returns their
+    stats dict."""
     if isinstance(predictions, str):
         with open(predictions) as rf:
             predictions = json.load(rf)
@@ -401,8 +439,7 @@ def rescore_and_filter(predictions, gt_ann_path, in_vis_thre=0.2, oks_thre=0.9,
                 "category_id": 1,
                 "keypoints": kpt.reshape(-1).tolist(),
             })
-    with open(out_path, "w") as wf:
-        json.dump(filtered, wf)
+    _write_json(out_path, filtered)
     return evaluate_map(out_path, gt_ann_path)
 
 
@@ -426,6 +463,10 @@ def gen_detections(img_root, ann_path, detector=None, out_path="person_detection
     quant_scales_out writes the scales.  Returns the result list."""
     from simple_pose_torch.detector.wrapper import YOLOv5Detector, image_batches
 
+    if D.rank_world()[1] > 1:  # as JAX workflows.py:498-505 refuses a multi-host mesh
+        raise NotImplementedError(
+            "gen_detections runs on one rank; run it in a single process (its output "
+            "json then feeds predicts_by_detections on several ranks)")
     if detector is None:
         detector = YOLOv5Detector(weights_path=weights_path, scale_name=scale_name,
                                   conf_thresh=conf_thresh, iou_thresh=iou_thresh, canvas=canvas,

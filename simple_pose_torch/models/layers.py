@@ -28,6 +28,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -76,13 +77,25 @@ class BatchNorm2d(nn.BatchNorm2d):
     ``update_stats = False`` normalizes with the batch statistics as usual
     but leaves the buffers alone: the recompute of a rematerialized block
     (models/resnet.py) sets it, since that block's forward already moved
-    them once."""
+    them once.
+
+    Under an initialised torch.distributed group of more than one rank the
+    batch statistics are the global batch's, as in the JAX package's SPMD
+    step (train/solver.py:1-10): the per-channel count, sum and sum of
+    squares (f32) are all-reduced, in one call, through the autograd-aware
+    ``torch.distributed.nn.functional.all_reduce``, so the backward is
+    global too; the variance is flax's one-pass E[x^2] - E[x]^2 (biased,
+    clamped at 0).  A recompute makes the same collectives, so every rank
+    makes them in the same order.  ``nn.SyncBatchNorm`` is not used: it
+    refuses CPU tensors."""
 
     update_stats = True
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
+        if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
+            return self._global_batch_forward(x)
         n = x.numel() // x.shape[1]
         mean, var = self.running_mean.clone(), self.running_var.clone()
         y = F.batch_norm(x, mean, var, self.weight, self.bias, True, self.momentum, self.eps)
@@ -95,6 +108,26 @@ class BatchNorm2d(nn.BatchNorm2d):
             self.running_mean.copy_(mean)
             self.num_batches_tracked.add_(1)
         return y
+
+    def _global_batch_forward(self, x):
+        from torch.distributed.nn.functional import all_reduce
+
+        c, shape = x.shape[1], (1, x.shape[1], 1, 1)
+        xf = x.float()
+        count = torch.full((1,), x.numel() // c, dtype=torch.float32, device=x.device)
+        stats = all_reduce(torch.cat([xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3)), count]))
+        n = stats[2 * c]
+        mean = stats[:c] / n
+        var = torch.clamp(stats[c:2 * c] / n - mean * mean, min=0.0)
+        scale = torch.rsqrt(var + self.eps) * self.weight.float()
+        y = (xf - mean.reshape(shape)) * scale.reshape(shape) + self.bias.float().reshape(shape)
+        if self.update_stats:
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(1.0 - m).add_(mean.detach(), alpha=m)
+                self.running_var.mul_(1.0 - m).add_(var.detach(), alpha=m)
+                self.num_batches_tracked.add_(1)
+        return y.to(x.dtype)
 
 
 def batch_norm(channels):

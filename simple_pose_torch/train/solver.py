@@ -1,8 +1,10 @@
-"""Training and validation on one device: the steps and the solver.
+"""Training and validation: the steps and the solver, on one device or
+one rank per device under DistributedDataParallel.
 
 Port of simple_pose_tpu/train/solver.py: 51-192 (the steps), 195-531
-(``PoseSolver``), 257-301 (schedule and optimizer) and 533-552 (weight-decay
-mask and param groups).  The step runs the whole per-batch pipeline on the
+(``PoseSolver``, with its ``mesh=``: 198-246 and the multihost validate
+397-431), 257-301 (schedule and optimizer) and 533-552 (weight-decay mask
+and param groups).  The step runs the whole per-batch pipeline on the
 device:
 
   uint8 canvases -> affine crop (ops/rotate_resample.py, the K1 kernel, or
@@ -21,6 +23,16 @@ parallel/prefetch.device_prefetch, validates to COCO AP and keeps torch
 checkpoints (``<type>_last.pth`` and ``<type>_best.pth``, with the optimizer
 state and step, in place of the JAX package's Orbax directories) for
 ``run(resume=True)``.
+
+Under an initialised torch.distributed group of more than one rank
+(parallel/distributed.py) the JAX SPMD program's semantics hold: the model
+runs inside ``DistributedDataParallel`` (its initial state broadcast from
+rank 0), so gradients are means over the global batch; BatchNorm's batch
+statistics are the global batch's (models/layers.BatchNorm2d); the step's
+loss and accuracy are the global batch's; each rank feeds its stride of the
+records with its own dedup bucket (``data.batch_size`` is per rank);
+``validate`` gathers every rank's predictions, so every rank gets the same
+AP; checkpoints and the results file are written by rank 0 alone.
 """
 
 from __future__ import annotations
@@ -39,13 +51,18 @@ from torch import nn
 
 from simple_pose_torch.data.coco import load_coco_keypoints
 from simple_pose_torch.data.pipeline import RGB_MEAN, PosePipeline
-from simple_pose_torch.metrics.acc import heatmap_accuracy
+from simple_pose_torch.metrics.acc import (
+    accuracy_from_counts,
+    heatmap_accuracy,
+    heatmap_accuracy_counts,
+)
 from simple_pose_torch.metrics.cocoeval import evaluate_map
 from simple_pose_torch.models.registry import build_from_cfg
 from simple_pose_torch.ops.decode import decode_basic, decode_gauss_taylor, instance_scores
 from simple_pose_torch.ops.heatmap import encode_biased, encode_unbiased
 from simple_pose_torch.ops.rotate_resample import affine_crop_two_stage
 from simple_pose_torch.ops.warp import affine_crop, affine_crop_separable
+from simple_pose_torch.parallel import distributed as D
 from simple_pose_torch.parallel.prefetch import device_prefetch
 from simple_pose_torch.train import schedules as S
 from simple_pose_torch.train.config import OptimConfig, TrainConfig, load_config
@@ -61,7 +78,10 @@ class TrainState:
     """:param schedules: one step -> lr function per optimizer param group
     :param ema_params: name -> EMA of the parameter (reference key names)
     :param ema_buffers: name -> EMA of a BN running mean or variance
-    :param step: updates taken so far"""
+    :param step: updates taken so far
+    :param ddp: the ``DistributedDataParallel`` wrapper of ``model`` that the
+        train step runs under a group of more than one rank; ``model``
+        stays the plain module (its key names, its EMA)"""
 
     model: nn.Module
     optimizer: torch.optim.Optimizer
@@ -69,6 +89,7 @@ class TrainState:
     ema_params: Dict[str, torch.Tensor]
     ema_buffers: Dict[str, torch.Tensor]
     step: int = 0
+    ddp: Optional[nn.Module] = None
 
     def ema_pairs(self):
         """(EMA tensors, the live tensors they follow), in the same order."""
@@ -182,13 +203,22 @@ def init_train_state(cfg, device=None, steps_per_epoch: int = 1000) -> TrainStat
     if cfg.model.pretrained:
         load_pretrained(model, cfg.model.pretrained)
     model.to(dev)
+    ddp = None
+    if D.rank_world()[1] > 1:
+        # the constructor broadcasts rank 0's parameters and buffers; the
+        # buffers need no broadcast after that: the global-batch BatchNorm
+        # moves them identically on every rank
+        ids = None
+        if dev.type == "cuda":
+            ids = [dev.index if dev.index is not None else torch.cuda.current_device()]
+        ddp = nn.parallel.DistributedDataParallel(model, device_ids=ids, broadcast_buffers=False)
     opt, schedules = build_optimizer(cfg.optim, model.named_parameters(), steps_per_epoch)
     buffers = dict(model.named_buffers())
     return TrainState(
         model=model, optimizer=opt, schedules=schedules,
         ema_params={k: p.detach().clone() for k, p in model.named_parameters()},
         ema_buffers={k: buffers[k].clone() for k in _ema_buffer_names(model)},
-        step=0)
+        step=0, ddp=ddp)
 
 
 def _normalize(crops):
@@ -219,6 +249,8 @@ def make_train_step(out_shape=(64, 48), crop_shape=(256, 192), amp=False, crop_i
 
     crop_impl: 'kernel' (the two-stage crop with the K1 kernel; under amp it
     writes bf16 crops) or 'gather' (the exact 4-tap crop, f32).
+    Under ``state.ddp`` (a group of more than one rank) the batch is this
+    rank's and the metrics are the global batch's.
     amp: normalize in bf16; the model's own ``dtype`` sets its autocast.
     ema=False: the EMA slots track the raw weights (solver.py:84-88).
     encoding: 'unbiased' (RefineSimpleTransform) or 'biased'
@@ -250,7 +282,7 @@ def make_train_step(out_shape=(64, 48), crop_shape=(256, 192), amp=False, crop_i
             targets, weights = encode_fn(_to(batch["joints"], device))
             mask = weights[..., None, None]
         model.train()
-        preds = model(x).float()
+        preds = (state.ddp or model)(x).float()
         loss = 0.5 * torch.mean((preds * mask - targets * mask) ** 2)
         opt.zero_grad(set_to_none=True)
         loss.backward()
@@ -265,8 +297,12 @@ def make_train_step(out_shape=(64, 48), crop_shape=(256, 192), amp=False, crop_i
                 ema_update(ema_tensors, live, state.step)
             else:
                 torch._foreach_copy_(ema_tensors, live)
-            acc = heatmap_accuracy(preds.detach() * mask, targets * mask)
-        return state, {"loss": loss.detach(), "acc": acc}
+            # summed over the ranks (their own values on one rank)
+            correct, valid = heatmap_accuracy_counts(preds.detach() * mask, targets * mask)
+            c = correct.shape[0]
+            sums = D.allreduce_sum(torch.cat([correct, valid, loss.detach()[None]]))
+        return state, {"loss": sums[2 * c] / D.rank_world()[1],
+                       "acc": accuracy_from_counts(sums[:c], sums[c:2 * c])}
 
     return train_step
 
@@ -302,11 +338,13 @@ def make_val_step(decoder="basic", out_shape=(64, 48), crop_shape=(256, 192), us
 
 
 class PoseSolver:
-    """End-to-end trainer on one device (the DP Processor equivalent).
+    """End-to-end trainer (the DP and DDP Processor equivalent): one device,
+    or one rank of an initialised torch.distributed group.
 
-    :param cfg: a TrainConfig, a dict or a YAML path (train/config.py)
-    :param device: None means CUDA (raises where no GPU is present); pass
-        "cpu" explicitly to run on the CPU"""
+    :param cfg: a TrainConfig, a dict or a YAML path (train/config.py); its
+        ``mesh.data`` must be -1 or the number of ranks
+    :param device: None means CUDA (the rank's pinned card; raises where no
+        GPU is present); pass "cpu" explicitly to run on the CPU"""
 
     _TRAIN_DEVICE_KEYS = ("canvas", "canvas_idx", "trans", "joints")
     _VAL_DEVICE_KEYS = ("canvas", "canvas_idx", "trans", "trans_inv", "joints")
@@ -315,6 +353,12 @@ class PoseSolver:
         self.cfg: TrainConfig = cfg if isinstance(cfg, TrainConfig) else load_config(cfg)
         cfgd = self.cfg
         self.device = resolve_device(device)
+        rank, world = D.rank_world()
+        n_data = int((cfgd.mesh or {}).get("data", -1))
+        if n_data not in (-1, world):
+            raise ValueError(f"mesh.data is {n_data}, but {world} rank(s) run: give -1 "
+                             f"or {world}")
+        shard = D.shard_kwargs()
         in_w, in_h = cfgd.data.input_shape
         self.crop_shape = (in_h, in_w)
         self.out_shape = (in_h // 4, in_w // 4)
@@ -326,18 +370,19 @@ class PoseSolver:
         if cfgd.data.train_ann_path:
             recs = load_coco_keypoints(cfgd.data.train_img_root, cfgd.data.train_ann_path,
                                        cfgd.data.debug, check_center=cfgd.data.check_center)
-            dedup_canvases = 0  # one device: one bucket (JAX solver.py:217-223)
+            # one device per rank: one bucket per rank (JAX solver.py:217-223)
+            dedup_canvases = 0
             if cfgd.data.dedup and cfgd.data.dedup_ratio > 0:
                 dedup_canvases = max(1, int(round(cfgd.data.batch_size * cfgd.data.dedup_ratio)))
             self.train_pipe = PosePipeline(
                 recs, cfgd.data.batch_size, augment=cfgd.data.augment,
                 aug_scale=cfgd.data.aug_scale, aug_rot=cfgd.data.aug_rot,
-                aug_flip=cfgd.data.aug_flip, dedup_canvases=dedup_canvases, **common)
+                aug_flip=cfgd.data.aug_flip, dedup_canvases=dedup_canvases, **shard, **common)
         if cfgd.data.val_ann_path:
             recs = load_coco_keypoints(cfgd.data.val_img_root, cfgd.data.val_ann_path,
                                        cfgd.data.debug, check_center=cfgd.data.check_center)
             self.val_pipe = PosePipeline(recs, cfgd.data.batch_size, augment=False,
-                                         shuffle=False, drop_last=False, **common)
+                                         shuffle=False, drop_last=False, **shard, **common)
 
         # The schedule counts plain batches per epoch even where dedup
         # packing yields another number of batches, as the JAX solver does
@@ -386,20 +431,25 @@ class PoseSolver:
 
         batches = device_prefetch(self.train_pipe.epoch(epoch), self.device,
                                   device_keys=self._TRAIN_DEVICE_KEYS)
+        global_batch = self.cfg.data.batch_size * D.rank_world()[1]
         for i, batch in enumerate(batches):
             self.state, metrics = self._train_step(self.state, batch)
             pending.append(torch.stack([metrics["loss"], metrics["acc"]]))
             if log_every and (i + 1) % log_every == 0:
                 drain()
                 dt = time.time() - t0
-                print(
-                    f"train epoch:{epoch + 1:3d}|iter:{i + 1:4d}|loss:{loss_sum / n:8.6f}"
-                    f"|acc:{acc_sum / n * 100:6.4f}|{self.cfg.data.batch_size * n / dt:7.1f} crops/s"
-                )
+                if D.is_main():
+                    print(
+                        f"train epoch:{epoch + 1:3d}|iter:{i + 1:4d}|loss:{loss_sum / n:8.6f}"
+                        f"|acc:{acc_sum / n * 100:6.4f}|{global_batch * n / dt:7.1f} crops/s")
         drain()
         return {"loss": loss_sum / max(n, 1), "acc": acc_sum / max(n, 1)}
 
     def validate(self, epoch: int, results_path: str = "temp_test.json"):
+        """COCO AP of the live weights on the val set.  Under a group every
+        rank evaluates its stride of the records and gathers every rank's
+        predictions per batch (JAX solver.py:397-431), rank 0 writes
+        ``results_path``, and every rank scores it: the same stats on each."""
         self._compile()
         results = []
         loss_sum, acc_sum, n = 0.0, 0.0, 0
@@ -409,10 +459,14 @@ class PoseSolver:
         # result building overlap the device's work.
         def process(out, valid, img_ids):
             nonlocal loss_sum, acc_sum, n
-            host = {k: v.cpu().numpy() for k, v in out.items()}
-            loss_sum += float(host["loss"])
-            acc_sum += float(host["acc"])
+            loss_sum += float(D.allreduce_mean(out["loss"]))
+            acc_sum += float(D.allreduce_mean(out["acc"]))
             n += 1
+            host = D.allgather_tiled({
+                "kps": out["kps"].cpu().numpy(), "kp_conf": out["kp_conf"].cpu().numpy(),
+                "scores": out["scores"].cpu().numpy(), "valid": np.asarray(valid),
+                "img_id": np.asarray(img_ids)})
+            valid, img_ids = host["valid"], host["img_id"]
             kps, conf, scores = host["kps"], host["kp_conf"], host["scores"]
             for b in range(kps.shape[0]):
                 if valid[b] < 0.5:
@@ -434,13 +488,18 @@ class PoseSolver:
             pending = (out, batch["valid"], batch["img_id"])
         if pending is not None:
             process(*pending)
-        with open(results_path, "w") as wf:
-            json.dump(results, wf)
+
+        def write(path):
+            with open(path, "w") as wf:
+                json.dump(results, wf)
+
+        D.write_once(results_path, write)
         stats = evaluate_map(results_path, self.cfg.data.val_ann_path)
-        print(
-            f"eval epoch:{epoch + 1:d}|mean_loss:{loss_sum / max(n, 1):8.6f}"
-            f"|mean_acc:{acc_sum / max(n, 1) * 100:6.4f}|val_ap:{stats['AP']:6.4f}"
-        )
+        if D.is_main():
+            print(
+                f"eval epoch:{epoch + 1:d}|mean_loss:{loss_sum / max(n, 1):8.6f}"
+                f"|mean_acc:{acc_sum / max(n, 1) * 100:6.4f}|val_ap:{stats['AP']:6.4f}"
+            )
         return stats
 
     # -- checkpoints ---------------------------------------------------------
@@ -452,7 +511,8 @@ class PoseSolver:
 
     def save_checkpoint(self, epoch: int, val_ap: float):
         """Write ``_last.pth``, and ``_best.pth`` when ``val_ap`` beats the
-        best so far.  The file holds ``model`` (the state_dict), ``ema`` (the
+        best so far; under a group rank 0 writes, and every rank waits for
+        it.  The file holds ``model`` (the state_dict), ``ema`` (the
         EMA weights and BN statistics as a state_dict under the reference's
         key names, so the file loads as a reference checkpoint:
         ``PoseEvaluator(weights=)`` or ``model.pretrained``), ``optimizer``,
@@ -468,16 +528,21 @@ class PoseSolver:
             "epoch": epoch,
             "val_ap": float(val_ap),
         }
-        last = self.checkpoint_path()
-        os.makedirs(os.path.dirname(last), exist_ok=True)
-        tmp = f"{last}.{os.getpid()}.tmp"
-        torch.save(ckpt, tmp)
-        os.replace(tmp, last)  # a cut-off save never leaves a torn _last
-        if val_ap > self.best_ap:
+        best = val_ap > self.best_ap
+        if best:
             self.best_ap = val_ap
-            best = self.checkpoint_path(f"{self.cfg.model.type}_best")
-            shutil.copyfile(last, f"{best}.tmp")
-            os.replace(f"{best}.tmp", best)
+
+        def write(last):
+            os.makedirs(os.path.dirname(last), exist_ok=True)
+            tmp = f"{last}.{os.getpid()}.tmp"
+            torch.save(ckpt, tmp)
+            os.replace(tmp, last)  # a cut-off save never leaves a torn _last
+            if best:
+                path = self.checkpoint_path(f"{self.cfg.model.type}_best")
+                shutil.copyfile(last, f"{path}.tmp")
+                os.replace(f"{path}.tmp", path)
+
+        D.write_once(self.checkpoint_path(), write)
 
     def restore_checkpoint(self, name: Optional[str] = None) -> int:
         """Load a checkpoint of :meth:`save_checkpoint` into the state (resume,

@@ -194,30 +194,228 @@ def _check_crc32(loader, name):
     return rels
 
 
-def test_baseline_decoder_fixture_and_limits(tmp_path, baseline_loader):
-    """The committed fixture and the progressive one to their CRC32s; a
-    progressive file decodes as libjpeg does; a missing file, a progressive
-    file cut after a scan (libjpeg would smooth its blocks), and
-    arithmetic-coded and lossless frames raise FileNotFoundError."""
+def test_baseline_decoder_fixture_and_limits(tmp_path, baseline_loader, libjpeg_encoder):
+    """The committed fixtures to their CRC32s; a progressive file decodes as
+    libjpeg does; a progressive file cut before its last scan (libjpeg
+    smooths its blocks) and a real arithmetic-coded file decode as libjpeg
+    does; a lossless frame and a missing file raise FileNotFoundError."""
     _check_crc32(baseline_loader, "decoded_crc32.json")
     assert len(_check_crc32(baseline_loader, os.path.join("progressive",
                                                           "decoded_crc32.json"))) == 6
+    assert len(_check_crc32(baseline_loader, os.path.join("decoder", "decoded_crc32.json"))) == 15
     progressive = str(tmp_path / "p.jpg")
-    cv.imwrite(progressive, _smooth(np.random.default_rng(0), 40, 40, 3),
-               [cv.IMWRITE_JPEG_PROGRESSIVE, 1])
-    np.testing.assert_array_equal(baseline_loader.load_batch([progressive], 64)[0],
-                                  native.NativeCanvasLoader(1).load_batch([progressive], 64)[0])
+    img = _smooth(np.random.default_rng(0), 40, 40, 3)
+    cv.imwrite(progressive, img, [cv.IMWRITE_JPEG_PROGRESSIVE, 1])
     with open(progressive, "rb") as f:
         data = f.read()
     sos = [i for i in range(len(data) - 1) if data[i:i + 2] == b"\xff\xda"]
-    bad = {"cut.jpg": data[:sos[-1]] + b"\xff\xd9",
-           "arithmetic.jpg": data.replace(b"\xff\xc2", b"\xff\xca", 1),
-           "lossless.jpg": data.replace(b"\xff\xc2", b"\xff\xc3", 1)}
-    for name, blob in bad.items():
-        (tmp_path / name).write_bytes(blob)
-    for name in (*bad, "nope.jpg"):
+    (tmp_path / "cut.jpg").write_bytes(data[:sos[-1]] + b"\xff\xd9")
+    _load_script().encode(libjpeg_encoder, str(tmp_path / "arithmetic.jpg"), img, arith=1,
+                          progressive=1)
+    with open(tmp_path / "arithmetic.jpg", "rb") as f:
+        assert b"\xff\xca" in f.read()
+    paths = [progressive, str(tmp_path / "cut.jpg"), str(tmp_path / "arithmetic.jpg")]
+    want = jnative.NativeCanvasLoader(1).load_batch(paths, 64)
+    for g, w in zip(baseline_loader.load_batch(paths, 64), want):
+        np.testing.assert_array_equal(g, w)
+    (tmp_path / "lossless.jpg").write_bytes(data.replace(b"\xff\xc2", b"\xff\xc3", 1))
+    for name in ("lossless.jpg", "nope.jpg"):
         with pytest.raises(FileNotFoundError, match=name):
             baseline_loader.load_batch([str(tmp_path / name)], 64)
+
+
+@pytest.fixture(scope="module")
+def libjpeg_encoder(tmp_path_factory):
+    """The fixture script's encoder (arithmetic coding, scan scripts, DAC),
+    built against this machine's libjpeg."""
+    return _load_script().build_encoder(str(tmp_path_factory.mktemp("encoder")))
+
+
+def _same_as_libjpeg(loader, paths, canvas=128):
+    """Each file decodes in the port exactly as the JAX package's loader
+    (libjpeg) decodes it, or both raise (a cut inside a marker segment can
+    leave libjpeg a table it refuses).  Returns the paths that decoded."""
+    jloader = jnative.NativeCanvasLoader(1)
+    decoded = []
+    for path in paths:
+        try:
+            want = jloader.load_batch([path], canvas)
+        except FileNotFoundError:
+            with pytest.raises(FileNotFoundError):
+                loader.load_batch([path], canvas)
+            continue
+        got = loader.load_batch([path], canvas)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w, err_msg=path)
+        decoded.append(path)
+    return decoded
+
+
+def _cuts(tmp_path, name, data, points):
+    """The file cut at each point, with and without a trailing EOI."""
+    paths = []
+    for i, cut in enumerate(points):
+        assert cut < len(data)
+        for eoi in (False, True):
+            paths.append(str(tmp_path / f"{name}_{i}_{int(eoi)}.jpg"))
+            with open(paths[-1], "wb") as f:
+                f.write(data[:cut] + (b"\xff\xd9" if eoi else b""))
+    return paths
+
+
+# (sampling, height, width, progressive, restart interval) of the files cut
+CUT_CASES = [("420", 64, 64, 0, 0), ("444", 37, 53, 0, 2), ("422", 121, 99, 0, 1),
+             ("420", 64, 64, 1, 0), ("420", 33, 47, 1, 1), ("420", 17, 90, 1, 0),
+             ("444", 96, 120, 1, 3), ("gray", 41, 30, 1, 0)]
+
+
+@pytest.mark.parametrize("case", range(len(CUT_CASES)))
+def test_baseline_decoder_matches_libjpeg_cut(tmp_path, baseline_loader, case):
+    """Files cut short decode as libjpeg decodes them: a Huffman scan that
+    runs out of data leaves the rest of its restart interval at the
+    coefficients so far (mid-gray in a sequential file), with and without
+    EOI, across restart markers; a progressive file cut after each scan or
+    inside one is block-smoothed as libjpeg smooths it.  Cut points inside
+    the entropy data decode to wild coefficients too, which libjpeg-turbo's
+    SIMD IDCT wraps and saturates."""
+    sampling, h, w, progressive, restart = CUT_CASES[case]
+    rng = np.random.default_rng(200 + case)
+    c = 1 if sampling == "gray" else 3
+    img = _smooth(rng, h, w, c)  # (h, w) for grayscale
+    params = [cv.IMWRITE_JPEG_PROGRESSIVE, progressive, cv.IMWRITE_JPEG_RST_INTERVAL, restart]
+    if c == 3:
+        params += [cv.IMWRITE_JPEG_SAMPLING_FACTOR, BASELINE_SAMPLING[sampling]]
+    path = str(tmp_path / "full.jpg")
+    assert cv.imwrite(path, img, params)
+    with open(path, "rb") as f:
+        data = f.read()
+    sos = _load_script().scan_starts(data)
+    body = len(data) - sos[0]  # every cut point lies past the first scan's header
+    at_scans = _cuts(tmp_path, "scan", data, sos[1:])
+    inside = _cuts(tmp_path, "cut", data,
+                   [sos[0] + body * k // 10 for k in range(1, 10)] + [s + 24 for s in sos])
+    decoded = _same_as_libjpeg(baseline_loader, at_scans + inside)
+    assert set(at_scans) <= set(decoded) and len(decoded) > len(at_scans) + len(inside) // 2
+
+
+# (arith, progressive, sampling, restart interval, DAC conditioning)
+ARITH_CASES = [(0, "22,11,11", 0, 0), (0, "11,11,11", 3, 1), (0, "21,11,11", 0, 1),
+               (0, "41,11,11", 2, 0), (1, "22,11,11", 0, 0), (1, "12,11,11", 3, 1),
+               (1, "22,21,12", 1, 0), (1, "11", 2, 1)]
+
+
+@pytest.mark.parametrize("case", range(len(ARITH_CASES)))
+def test_baseline_decoder_matches_libjpeg_arithmetic(tmp_path, baseline_loader, libjpeg_encoder,
+                                                     case):
+    """SOF9 and SOF10 files from libjpeg's encoder (every sampling layout,
+    restart intervals, DAC conditioning, grayscale), smooth and noise, whole
+    and cut short, decode as libjpeg decodes them."""
+    progressive, sampling, restart, dac = ARITH_CASES[case]
+    rng = np.random.default_rng(300 + case)
+    paths, inside = [], []  # whole and cut at a scan; cut inside the data
+    for i, noise in enumerate((False, True)):
+        h, w = [(40, 48), (33, 71)][i]
+        c = 1 if sampling == "11" else 3
+        img = rng.integers(0, 256, (h, w, c), dtype=np.uint8) if noise else _smooth(rng, h, w, c)
+        paths.append(str(tmp_path / f"{i}.jpg"))
+        _load_script().encode(libjpeg_encoder, paths[-1], img.reshape(h, w, c),
+                              quality=[90, 60][i], arith=1, progressive=progressive,
+                              restart=restart, sampling=sampling, dac=dac)
+        with open(paths[-1], "rb") as f:
+            data = f.read()
+        assert (b"\xff\xca" if progressive else b"\xff\xc9") in data
+        assert (b"\xff\xcc" in data) and (b"\xff\xdd" in data) == bool(restart)
+        sos = _load_script().scan_starts(data)
+        paths += _cuts(tmp_path, f"cut{i}", data, sos[1:3])
+        inside += _cuts(tmp_path, f"inside{i}", data, [(sos[0] + len(data)) // 2])
+    decoded = _same_as_libjpeg(baseline_loader, paths + inside)
+    assert decoded[:len(paths)] == paths and len(decoded) > len(paths)
+
+
+@pytest.mark.parametrize("script", ["y_then_cbcr", "each"])
+@pytest.mark.parametrize("arith", [0, 1])
+def test_baseline_decoder_matches_libjpeg_multiscan(tmp_path, baseline_loader, libjpeg_encoder,
+                                                    script, arith):
+    """Sequential files of several scans (a scan of fewer components decodes
+    into the whole-image coefficient buffer), Huffman and arithmetic, with
+    and without restart intervals, whole and cut short."""
+    rng = np.random.default_rng(400 + arith)
+    paths = []
+    for i, (sampling, restart) in enumerate([("22,11,11", 0), ("21,11,11", 2), ("11,11,11", 1)]):
+        paths.append(str(tmp_path / f"{i}.jpg"))
+        _load_script().encode(libjpeg_encoder, paths[-1], _smooth(rng, 50, 61, 3), arith=arith,
+                              sampling=sampling, restart=restart, script=script)
+        with open(paths[-1], "rb") as f:
+            data = f.read()
+        assert len(_load_script().scan_starts(data)) == (2 if script == "y_then_cbcr" else 3)
+        sos = _load_script().scan_starts(data)
+        paths += _cuts(tmp_path, f"cut{i}", data, [(sos[-1] + len(data)) // 2])
+    assert _same_as_libjpeg(baseline_loader, paths) == paths
+
+
+@pytest.mark.parametrize("arith", [0, 1])
+def test_baseline_decoder_matches_libjpeg_bogus_progression(tmp_path, baseline_loader,
+                                                            libjpeg_encoder, arith):
+    """Progressive files whose scans libjpeg only warns about decode as it
+    decodes them: an AC scan before the DC scan, refinements before the
+    first scans, the last refinement early, and scans left out."""
+    rng = np.random.default_rng(500 + arith)
+    script = _load_script()
+    paths = []
+    for k, noise in enumerate((False, True)):
+        img = (rng.integers(0, 256, (40, 56, 3), dtype=np.uint8) if noise
+               else _smooth(rng, 40, 56, 3))
+        path = str(tmp_path / f"src{k}.jpg")
+        if arith:
+            script.encode(libjpeg_encoder, path, img, arith=1, progressive=1)
+        else:
+            assert cv.imwrite(path, img, [cv.IMWRITE_JPEG_PROGRESSIVE, 1])
+        with open(path, "rb") as f:
+            head, units, tail = script.scan_units(f.read())
+        n = len(units)
+        orders = [list(range(1, n)) + [0], [0] + list(range(n - 1, 0, -1)),
+                  [0, n - 1] + list(range(1, n - 1)), [0] + [i for i in range(1, n) if i % 3]]
+        for o, order in enumerate(orders):
+            paths.append(str(tmp_path / f"{k}_{o}.jpg"))
+            with open(paths[-1], "wb") as f:
+                f.write(head + b"".join(units[i] for i in order) + tail)
+    assert _same_as_libjpeg(baseline_loader, paths) == paths
+
+
+def _check_only_file(tmp_path, encoder, kind):
+    img = _smooth(np.random.default_rng(600), 40, 48, 3)
+    path = str(tmp_path / f"{kind}.jpg")
+    if kind == "cmyk":
+        _load_script().encode(encoder, path, np.concatenate([img, img[..., :1]], -1),
+                              sampling="11,11,11,11")
+        return path
+    assert cv.imwrite(path, img, [cv.IMWRITE_JPEG_SAMPLING_FACTOR,
+                                  cv.IMWRITE_JPEG_SAMPLING_FACTOR_444])
+    with open(path, "rb") as f:
+        data = bytearray(f.read())
+    sof = data.index(b"\xff\xc0")
+    if kind == "12bit":
+        data[sof + 4] = 12
+    elif kind == "lossless":
+        data[sof + 1] = 0xC3
+    else:  # fractional sampling: Y 3x1, Cb 2x1, Cr 1x1
+        data[sof + 11], data[sof + 14] = 0x31, 0x21
+    with open(path, "wb") as f:
+        f.write(bytes(data))
+    return path
+
+
+@pytest.mark.parametrize("kind", ["cmyk", "12bit", "lossless", "fractional"])
+def test_check_only_formats_fail_in_both_loaders(tmp_path, baseline_loader, libjpeg_encoder, kind):
+    """CMYK (no CMYK -> RGB conversion in libjpeg), 12-bit and lossless
+    frames (an 8-bit libjpeg-turbo 2.1 refuses them) and sampling factors
+    that do not divide the largest one: the JAX package's loader raises,
+    and so does the port's."""
+    path = _check_only_file(tmp_path, libjpeg_encoder, kind)
+    with pytest.raises(FileNotFoundError):
+        jnative.NativeCanvasLoader(1).load_batch([path], 64)
+    with pytest.raises(FileNotFoundError):
+        baseline_loader.load_batch([path], 64)
 
 
 _BUILD = r"""
@@ -300,6 +498,7 @@ def test_fixture_decodes_to_committed_crc32():
     loader = native.NativeCanvasLoader(4)
     assert len(_check_crc32(loader, "decoded_crc32.json")) == 48
     assert len(_check_crc32(loader, os.path.join("progressive", "decoded_crc32.json"))) == 6
+    assert len(_check_crc32(loader, os.path.join("decoder", "decoded_crc32.json"))) == 15
     for rel in sorted(os.listdir(os.path.join(FIXTURE, "progressive"))):
         if rel.endswith(".jpg"):  # every committed file is progressive
             with open(os.path.join(FIXTURE, "progressive", rel), "rb") as f:
