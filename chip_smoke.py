@@ -2806,7 +2806,8 @@ real_save(out, os.path.join(workdir, f"{mode}_rank{rank}.pt"))
 def check_decoder_fixture():
     """13a: the committed decoder-coverage files (cut baseline and
     progressive files, arithmetic coding, multi-scan sequential, warned
-    progressions) through the port's decoder against their CRC32s."""
+    progressions, sequential files without DHT segments, a damaged DHT)
+    through the port's decoder against their CRC32s."""
     with open(os.path.join(DECODER_DIR, "decoded_crc32.json")) as f:
         want = json.load(f)
     rels = sorted(want)
@@ -2815,7 +2816,8 @@ def check_decoder_fixture():
     bad = [r for r, c, h, w in zip(rels, canvases, hs, ws)
            if (h, w) != (want[r]["height"], want[r]["width"])
            or zlib.crc32(np.ascontiguousarray(c[:h, :w]).tobytes()) != want[r]["crc32"]]
-    out = {"decoder": loader.decoder, "images": len(rels), "crc32_equal": len(rels) - len(bad)}
+    out = {"decoder": loader.decoder, "images": len(rels), "crc32_equal": len(rels) - len(bad),
+           "kinds": sorted({os.path.basename(r).split("_")[0] for r in rels})}
     loader.close()
     log("phase 13a, decoder coverage: " + json.dumps(out))
     assert loader.decoder == "baseline", "13a holds the port's decoder; this machine has libjpeg"

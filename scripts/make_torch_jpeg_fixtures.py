@@ -26,7 +26,7 @@ seeds.  It writes:
                               interval, and an odd 121x99 4:2:0; their
                               CRC32s as above, each checked against cv2's
                               decode (--progressive-only writes these alone)
-  decoder/*.jpg,              15 files of the kinds csrc/jpeg_canvas.cc
+  decoder/*.jpg,              19 files of the kinds csrc/jpeg_canvas.cc
   decoder/decoded_crc32.json  decodes as libjpeg does since it repeats
                               libjpeg's handling of them (DECODER): baseline
                               and progressive files cut short (with and
@@ -35,10 +35,16 @@ seeds.  It writes:
                               smoothing), arithmetic-coded sequential and
                               progressive files (restart intervals, DAC
                               conditioning, cut short), multi-scan
-                              sequential files, and progressive files whose
+                              sequential files, progressive files whose
                               scans libjpeg only warns about (AC before DC,
-                              refinements first); their CRC32s as above
-                              (--decoder-only writes these alone)
+                              refinements first), sequential files without
+                              DHT segments as Motion-JPEG frames are written
+                              (4:2:0, 4:2:2 with restarts, grayscale: the
+                              standard tables of T.81 Annex K.3), and an
+                              optimized-table file whose first DHT marker is
+                              damaged (its slot takes the standard table);
+                              their CRC32s as above (--decoder-only writes
+                              these alone)
 
 The JSON files are a function of the seeds alone (tests regenerate and
 compare them); the JPEG bytes depend on the encoder's libjpeg.
@@ -185,11 +191,12 @@ def write_progressive(out_dir, scenes):
 
 # A JPEG encoder over this machine's libjpeg, for what cv2 cannot set:
 #   encoder in.raw out.jpg width height components quality arith progressive
-#           restart sampling script dac
+#           restart sampling script dac optimize
 # sampling is "hv,hv,hv" per component; script "none" (libjpeg's default),
 # "y_then_cbcr" (sequential: Y, then Cb and Cr interleaved) or "each"
 # (sequential: one scan per component, Cr first); dac 1 sets DC conditioning
-# L=1 U=3 and AC K=2 in place of the defaults 0, 1 and 5.
+# L=1 U=3 and AC K=2 in place of the defaults 0, 1 and 5; optimize 1 writes
+# Huffman tables made for the image, each before the first scan that takes it.
 ENCODER_SOURCE = r"""
 #include <stdio.h>
 #include <stdlib.h>
@@ -197,7 +204,7 @@ ENCODER_SOURCE = r"""
 #include <jpeglib.h>
 
 int main(int argc, char** argv) {
-  if (argc != 13) return 2;
+  if (argc != 14) return 2;
   const int w = atoi(argv[3]), h = atoi(argv[4]), nc = atoi(argv[5]);
   FILE* in = fopen(argv[1], "rb");
   FILE* out = fopen(argv[2], "wb");
@@ -217,6 +224,7 @@ int main(int argc, char** argv) {
   jpeg_set_quality(&c, atoi(argv[6]), TRUE);
   c.arith_code = atoi(argv[7]);
   c.restart_interval = atoi(argv[9]);
+  c.optimize_coding = atoi(argv[13]);
   const char* samp = argv[10];
   for (int i = 0; i < nc && samp[3 * i] && samp[3 * i + 1]; ++i) {
     c.comp_info[i].h_samp_factor = samp[3 * i] - '0';
@@ -268,7 +276,7 @@ def build_encoder(build_dir):
 
 
 def encode(encoder, path, img, quality=90, arith=0, progressive=0, restart=0,
-           sampling="22,11,11", script="none", dac=0):
+           sampling="22,11,11", script="none", dac=0, optimize=0):
     """img (h, w) or (h, w, c) uint8 RGB/gray/CMYK written through the encoder."""
     h, w = img.shape[:2]
     c = 1 if img.ndim == 2 else img.shape[2]
@@ -276,7 +284,8 @@ def encode(encoder, path, img, quality=90, arith=0, progressive=0, restart=0,
     np.ascontiguousarray(img, np.uint8).tofile(raw)
     try:
         subprocess.run([encoder, raw, path, str(w), str(h), str(c), str(quality), str(arith),
-                        str(progressive), str(restart), sampling, script, str(dac)],
+                        str(progressive), str(restart), sampling, script, str(dac),
+                        str(optimize)],
                        check=True, capture_output=True)
     finally:
         os.remove(raw)
@@ -285,6 +294,37 @@ def encode(encoder, path, img, quality=90, arith=0, progressive=0, restart=0,
 def scan_starts(data):
     """The offsets of a file's SOS markers."""
     return [m.start() for m in re.finditer(b"\xff\xda", data)]
+
+
+def drop_huffman_tables(data, keep=lambda tc, th: False, before_scan=None):
+    """The file without the Huffman tables of its DHT segments for which
+    keep(class, slot) is false (all by default), as Motion-JPEG frames leave
+    them out; a segment left empty goes whole.  before_scan=k touches only
+    the segments before the file's k-th scan (0-based)."""
+    out, p, scans = bytearray(data[:2]), 2, 0
+    while p + 1 < len(data) and data[p + 1] != 0xD9:
+        marker, length = data[p + 1], (data[p + 2] << 8) | data[p + 3]
+        seg = data[p:p + 2 + length]
+        if marker == 0xC4 and (before_scan is None or scans < before_scan):
+            q, kept = 4, b""
+            while q < len(seg):
+                n = 17 + sum(seg[q + 1:q + 17])
+                if keep(seg[q] >> 4, seg[q] & 15):
+                    kept += seg[q:q + n]
+                q += n
+            seg = b"\xff\xc4" + (len(kept) + 2).to_bytes(2, "big") + kept if kept else b""
+        out += seg
+        p += 2 + length
+        if marker == 0xDA:  # the entropy data, up to the next marker not RSTn
+            q = p
+            while q + 1 < len(data) and not (data[q] == 0xFF and data[q + 1] not in _IN_DATA):
+                q += 1
+            out += data[p:q]
+            p, scans = q, scans + 1
+    return bytes(out + data[p:])
+
+
+_IN_DATA = (0x00, 0xFF, *range(0xD0, 0xD8))  # after FF inside entropy data
 
 
 def scan_units(data):
@@ -324,6 +364,10 @@ DECODER = {
     "multiscan_each_arith.jpg": (17, (96, 72), "multiscan_each_arith"),
     "bogus_ac_before_dc.jpg": (18, (96, 72), "bogus_ac_before_dc"),
     "bogus_refine_first.jpg": (19, (96, 72), "bogus_refine_first"),
+    "nodht_420.jpg": (20, (128, 96), "nodht_420"),
+    "nodht_422_rst.jpg": (21, (120, 96), "nodht_422_rst"),
+    "nodht_gray.jpg": (22, (96, 72), "nodht_gray"),
+    "damaged_dht.jpg": (23, (120, 96), "damaged_dht"),
 }
 
 
@@ -353,6 +397,21 @@ def decoder_file(encoder, path, img, how):
         order = (list(range(1, n)) + [0] if how == "bogus_ac_before_dc"
                  else [0] + list(range(n - 1, 0, -1)))
         data = head + b"".join(units[i] for i in order) + tail
+    elif how.startswith("nodht"):
+        params = {"nodht_420": [cv.IMWRITE_JPEG_SAMPLING_FACTOR, cv.IMWRITE_JPEG_SAMPLING_FACTOR_420],
+                  "nodht_422_rst": [cv.IMWRITE_JPEG_SAMPLING_FACTOR,
+                                    cv.IMWRITE_JPEG_SAMPLING_FACTOR_422,
+                                    cv.IMWRITE_JPEG_RST_INTERVAL, 2],
+                  "nodht_gray": []}[how]
+        assert cv.imwrite(path, bgr[..., 1] if how == "nodht_gray" else bgr, params)
+        with open(path, "rb") as f:
+            data = drop_huffman_tables(f.read())
+    elif how == "damaged_dht":  # FF C4 -> FF 00: libjpeg skips the segment as stray bytes
+        assert cv.imwrite(path, bgr, [cv.IMWRITE_JPEG_OPTIMIZE, 1])
+        with open(path, "rb") as f:
+            data = bytearray(f.read())
+        data[data.index(b"\xff\xc4") + 1] = 0
+        data = bytes(data)
     else:
         kw = {"arith_seq": dict(arith=1),
               "arith_seq_rst_dac": dict(arith=1, restart=3, dac=1, sampling="11,11,11"),

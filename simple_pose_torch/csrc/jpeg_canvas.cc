@@ -7,7 +7,16 @@
 // decompression bit for bit, because each stage repeats its arithmetic:
 //   * the marker reader (jdmarker.c): SOF0/1/2/9/10, DHT, DAC, DQT, DRI,
 //     APP0/APP14, and the skipping of bytes between markers; a file that
-//     ends early reads as followed by EOI markers (jdatasrc.c);
+//     ends early reads as followed by EOI markers (jdatasrc.c).  A DHT,
+//     DAC or DQT segment whose tables do not use up its length fails
+//     (JERR_BAD_LENGTH), a DQT of any nonzero precision holds 16-bit
+//     entries, an APPn or COM length below 2 skips nothing, and a scan may
+//     not take a component twice;
+//   * the standard Huffman tables (jstdhuff.c, T.81 Annex K.3): once the
+//     markers up to the first SOS are read, each DC and AC slot 0 and 1
+//     that no DHT has defined gets its standard table, in sequential
+//     Huffman frames only (jdhuff.c), so that Motion-JPEG frames, which
+//     leave their tables out, decode;
 //   * every scan decodes into a whole-image coefficient buffer, so that
 //     sequential files of several scans decode as single-scan ones do; a
 //     single-component scan covers the component's own ceil(width / 8) x
@@ -26,7 +35,10 @@
 //     past the data, as jdarith.c does;
 //   * progressive scans checked as libjpeg checks them: a bad Ss/Se/Ah/Al
 //     fails; an AC scan before the DC scan or a coefficient refined out of
-//     order (which libjpeg only warns about) decodes;
+//     order (which libjpeg only warns about) decodes; a scan checks only the
+//     Huffman table it decodes with (the DC table of a DC first scan, none
+//     in a DC refinement, the AC table of an AC scan), a sequential scan
+//     both;
 //   * block smoothing of a progressive file whose low coefficients are not
 //     fully refined (jdcoefct.c smoothing_ok and decompress_smooth_data: the
 //     5x5 DC window, the 10-coefficient form while no AC coefficient of the
@@ -44,10 +56,10 @@
 //     replicated to RGB.
 // What libjpeg refuses fails to decode (height and width 0): 12-bit and
 // lossless frames, CMYK and other colour spaces without an RGB conversion,
-// sampling factors that do not divide the largest one.  So do a few files
-// libjpeg would decode into garbage (a marker segment cut by the end of
-// the file, a corrupt Huffman table that no scan uses, a missing Huffman
-// table).  A decode is libjpeg's pixels or a failure, never other pixels.
+// sampling factors that do not divide the largest one, a scan whose
+// Huffman table is in no slot (progressive and arithmetic frames get no
+// standard tables, and no frame gets them in slots 2 and 3).  A decode is
+// libjpeg's pixels or a failure, never other pixels.
 //
 // C API (ctypes-friendly):
 //   void* cl_create(int num_threads);
@@ -105,11 +117,61 @@ const uint32_t kAritab[114] = {
     0x4c0f676a, 0x4639686b, 0x415e6367, 0x56276ae9, 0x50e76b6c, 0x4b85676d,
     0x55976d6e, 0x504f6b6f, 0x5a106fee, 0x55226d70, 0x59eb6ff0, 0x5a1d7171};
 
+// The tables of ITU-T T.81 Annex K.3 (K.3-K.6), as libjpeg writes them
+// unoptimized and as jstdhuff.c holds them: class (0 DC, 1 AC), slot, the
+// number of codes of each length 1-16, the symbols.
+struct StdHuffman {
+  int tc, th;
+  u8 bits[16];
+  u8 vals[162];
+};
+const StdHuffman kStdHuffman[4] = {
+    // DC luminance (K.3)
+    {0, 0, {0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0},
+     {0x00, 0x01, 0x02, 0x03, 0x04, 0x05, 0x06, 0x07, 0x08, 0x09, 0x0a, 0x0b}},
+    // AC luminance (K.5)
+    {1, 0, {0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 125},
+     {0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12, 0x21, 0x31, 0x41, 0x06,
+      0x13, 0x51, 0x61, 0x07, 0x22, 0x71, 0x14, 0x32, 0x81, 0x91, 0xa1, 0x08,
+      0x23, 0x42, 0xb1, 0xc1, 0x15, 0x52, 0xd1, 0xf0, 0x24, 0x33, 0x62, 0x72,
+      0x82, 0x09, 0x0a, 0x16, 0x17, 0x18, 0x19, 0x1a, 0x25, 0x26, 0x27, 0x28,
+      0x29, 0x2a, 0x34, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44, 0x45,
+      0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58, 0x59,
+      0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75,
+      0x76, 0x77, 0x78, 0x79, 0x7a, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89,
+      0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a, 0xa2, 0xa3,
+      0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6,
+      0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9,
+      0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda, 0xe1, 0xe2,
+      0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf1, 0xf2, 0xf3, 0xf4,
+      0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa}},
+    // DC chrominance (K.4)
+    {0, 1, {0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0},
+     {0x00, 0x01, 0x02, 0x03, 0x04, 0x05, 0x06, 0x07, 0x08, 0x09, 0x0a, 0x0b}},
+    // AC chrominance (K.6)
+    {1, 1, {0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 119},
+     {0x00, 0x01, 0x02, 0x03, 0x11, 0x04, 0x05, 0x21, 0x31, 0x06, 0x12, 0x41,
+      0x51, 0x07, 0x61, 0x71, 0x13, 0x22, 0x32, 0x81, 0x08, 0x14, 0x42, 0x91,
+      0xa1, 0xb1, 0xc1, 0x09, 0x23, 0x33, 0x52, 0xf0, 0x15, 0x62, 0x72, 0xd1,
+      0x0a, 0x16, 0x24, 0x34, 0xe1, 0x25, 0xf1, 0x17, 0x18, 0x19, 0x1a, 0x26,
+      0x27, 0x28, 0x29, 0x2a, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44,
+      0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58,
+      0x59, 0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74,
+      0x75, 0x76, 0x77, 0x78, 0x79, 0x7a, 0x82, 0x83, 0x84, 0x85, 0x86, 0x87,
+      0x88, 0x89, 0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a,
+      0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4,
+      0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7,
+      0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda,
+      0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf2, 0xf3, 0xf4,
+      0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa}},
+};
+
 struct Huffman {
-  // usable: defined, its codes fitting their lengths; dc_usable: also its symbols
-  // all DC categories 0-15.  libjpeg checks both only when a scan takes
-  // the table (jpeg_make_d_derived_tbl).
-  bool usable = false, dc_usable = false;
+  // defined: by a DHT segment or as a standard table; usable: also its codes
+  // fitting their lengths; dc_usable: also its symbols all DC categories
+  // 0-15.  libjpeg checks both only when a scan takes the table
+  // (jpeg_make_d_derived_tbl).
+  bool defined = false, usable = false, dc_usable = false;
   int maxcode[18];
   int valoffset[18];
   u8 values[256];
@@ -200,6 +262,20 @@ bool build_huffman(Huffman* t, const u8* bits, const u8* vals, int count) {
   t->maxcode[17] = 0x7fffffff;  // sentinel: ends a corrupt code
   t->dc_usable = std::all_of(vals, vals + count, [](u8 v) { return v <= 15; });
   return true;
+}
+
+// jstdhuff.c std_huff_tables, which jinit_huff_decoder calls once the
+// markers up to the first SOS are read: each DC and AC slot 0 and 1 that no
+// DHT has defined gets its standard table (Motion-JPEG frames leave them out).
+void std_huff_tables(Jpeg* j) {
+  for (const StdHuffman& s : kStdHuffman) {
+    Huffman* t = s.tc ? &j->ac[s.th] : &j->dc[s.th];
+    if (t->defined) continue;
+    int count = 0;
+    for (u8 b : s.bits) count += b;
+    t->defined = true;
+    t->usable = build_huffman(t, s.bits, s.vals, count);
+  }
 }
 
 // jdmarker.c next_marker: skips to the next marker from j->pos and returns
@@ -611,16 +687,19 @@ bool start_scan(Jpeg* j, Scan* s) {
       for (int c = s->ss; c <= s->se; ++c) k.bits[c] = s->al;
     }
   }
+  // the tables the scan takes, as jdhuff.c and jdphuff.c check them: a
+  // sequential scan both, a progressive one only the table it decodes with
+  // (none in a DC refinement); a missing or corrupt table fails (dc_usable
+  // implies usable)
   for (int i = 0; i < s->ns; ++i) {
     const Component& k = j->comp[s->cs[i]];
     if (j->arith) {
       if (k.td > 15 || k.ta > 15) return false;
-    } else if (k.td > 3 || k.ta > 3) {
+    } else if (!j->progressive) {
+      if (k.td > 3 || k.ta > 3 || !j->dc[k.td].dc_usable || !j->ac[k.ta].usable) return false;
+    } else if (dc ? s->ah == 0 && (k.td > 3 || !j->dc[k.td].dc_usable)
+                  : k.ta > 3 || !j->ac[k.ta].usable) {
       return false;
-    } else if (!j->progressive ? !j->dc[k.td].dc_usable || !j->ac[k.ta].usable
-                               : dc ? s->ah == 0 && !j->dc[k.td].dc_usable
-                                    : !j->ac[k.ta].usable) {
-      return false;  // a missing or corrupt table (dc_usable implies usable)
     }
   }
   j->insufficient = false;
@@ -1160,6 +1239,8 @@ bool read_sos(Jpeg* j, const u8* d, size_t seg, int len, Scan* s) {
     while (c < j->ncomp && (j->comp[c].id != id || taken[c])) ++c;
     if (c == j->ncomp) return false;
     taken[i] = true;  // libjpeg marks the scan slot, not the component
+    for (int p = 0; p < i; ++p)
+      if (s->cs[p] == c) return false;  // but refuses a component taken twice
     s->cs[i] = c;
     j->comp[c].td = t >> 4;
     j->comp[c].ta = t & 15;
@@ -1193,7 +1274,11 @@ bool read_file_scans(Jpeg* j) {
     // the segment, from its length bytes on; one cut by the end of the file
     // goes on with the fake EOI markers, as libjpeg reads it
     const int len = (byte_at(*j, j->pos) << 8) | byte_at(*j, j->pos + 1);
-    if (len < 2) return false;
+    if (len < 2) {  // fails where the length is checked; skipped segments skip nothing
+      if (marker != 0xDC && marker != 0xFE && (marker < 0xE0 || marker > 0xEF)) return false;
+      j->pos += 2;
+      continue;
+    }
     std::vector<u8> copy;
     const u8* d = j->data + j->pos;
     if (j->pos + len > j->size) {
@@ -1212,13 +1297,14 @@ bool read_file_scans(Jpeg* j) {
       size_t q = seg;
       while (q < end) {
         const int pq = d[q] >> 4, tq = d[q] & 15;
-        if (tq > 3 || q + 1 + 64 * (pq + 1) > end) return false;
+        const size_t bytes = 1 + (pq ? 128 : 64);  // 16-bit entries for any nonzero Pq
+        if (tq > 3 || q + bytes > end) return false;  // JERR_BAD_LENGTH
         for (int i = 0; i < 64; ++i) {
           const int v = pq ? be16(d + q + 1 + 2 * i) : d[q + 1 + i];
           j->qt[tq][kNatural[i]] = static_cast<uint16_t>(v);
         }
         j->qt_defined[tq] = true;
-        q += 1 + 64 * (pq + 1);
+        q += bytes;
       }
     } else if (marker == 0xC4) {  // DHT
       size_t q = seg;
@@ -1228,11 +1314,14 @@ bool read_file_scans(Jpeg* j) {
         for (int i = 0; i < 16; ++i) count += d[q + 1 + i];
         if (tc > 1 || th > 3 || count > 256 || q + 17 + count > end) return false;
         Huffman* t = tc ? &j->ac[th] : &j->dc[th];
+        t->defined = true;
         t->usable = build_huffman(t, d + q + 1, d + q + 17, count);
         q += 17 + count;
       }
+      if (q != end) return false;  // tables that leave bytes over: JERR_BAD_LENGTH
     } else if (marker == 0xCC) {  // DAC
-      for (size_t q = seg; q + 2 <= end; q += 2) {
+      if ((end - seg) % 2) return false;  // JERR_BAD_LENGTH
+      for (size_t q = seg; q < end; q += 2) {
         const int index = d[q], val = d[q + 1];
         if (index >= 32) return false;
         if (index >= 16) {
@@ -1258,6 +1347,7 @@ bool read_file_scans(Jpeg* j) {
       if (!have_sof || !read_sos(j, d, seg, len, &s)) return false;
       if (j->scans == 0) {
         if (!setup_frame(j)) return false;
+        if (!j->progressive && !j->arith) std_huff_tables(j);
         j->multiscan = j->progressive || s.ns < j->ncomp;
       } else if (!j->multiscan) {
         return false;  // a second scan of a single-scan file: JERR_EOI_EXPECTED

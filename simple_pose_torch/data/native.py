@@ -10,11 +10,15 @@ sources have that C API, and the machine decides which one a loader uses
 * ``libjpeg`` where the compiler finds ``jpeglib.h``: the shared
   native/canvas_loader.cc, linked with -ljpeg;
 * ``baseline`` where it does not (the H100 machine has no libjpeg):
-  csrc/jpeg_canvas.cc, a sequential and progressive JPEG decoder that
-  repeats libjpeg's default integer arithmetic (islow IDCT, fancy
-  upsampling, fixed-point YCbCr), so its pixels equal libjpeg's bit for
-  bit.  Arithmetic-coded, lossless, 12-bit and CMYK files, and progressive
-  files that libjpeg would block-smooth, fail to decode.
+  csrc/jpeg_canvas.cc, a JPEG decoder that repeats libjpeg-turbo 2.1's
+  default decode (its marker and table checks, Huffman and arithmetic
+  entropy decoding, block smoothing, the islow IDCT, fancy upsampling,
+  fixed-point YCbCr), so its pixels equal libjpeg's bit for bit:
+  sequential (also multi-scan), progressive and arithmetic-coded files,
+  files cut short, and sequential files without DHT segments (Motion-JPEG
+  frames, decoded with the standard tables of T.81 Annex K.3).  What
+  libjpeg refuses fails: lossless, 12-bit and CMYK frames, a progressive
+  file without its Huffman tables.
 
 Each is built with g++ at first use into ``build/``::
 

@@ -3,6 +3,7 @@ JAX package's binding and cv2, the port's PosePipeline(use_native=True)
 against the JAX pipeline's, and the committed JPEG fixture
 (tests/data_torch_jpeg, scripts/make_torch_jpeg_fixtures.py)."""
 
+import collections
 import importlib.util
 import json
 import os
@@ -202,7 +203,7 @@ def test_baseline_decoder_fixture_and_limits(tmp_path, baseline_loader, libjpeg_
     _check_crc32(baseline_loader, "decoded_crc32.json")
     assert len(_check_crc32(baseline_loader, os.path.join("progressive",
                                                           "decoded_crc32.json"))) == 6
-    assert len(_check_crc32(baseline_loader, os.path.join("decoder", "decoded_crc32.json"))) == 15
+    assert len(_check_crc32(baseline_loader, os.path.join("decoder", "decoded_crc32.json"))) == 19
     progressive = str(tmp_path / "p.jpg")
     img = _smooth(np.random.default_rng(0), 40, 40, 3)
     cv.imwrite(progressive, img, [cv.IMWRITE_JPEG_PROGRESSIVE, 1])
@@ -389,6 +390,13 @@ def _check_only_file(tmp_path, encoder, kind):
         _load_script().encode(encoder, path, np.concatenate([img, img[..., :1]], -1),
                               sampling="11,11,11,11")
         return path
+    if kind == "progressive_without_dht":  # libjpeg gives progressive frames no standard tables
+        assert cv.imwrite(path, img, [cv.IMWRITE_JPEG_PROGRESSIVE, 1])
+        with open(path, "rb") as f:
+            data = _load_script().drop_huffman_tables(f.read())
+        with open(path, "wb") as f:
+            f.write(data)
+        return path
     assert cv.imwrite(path, img, [cv.IMWRITE_JPEG_SAMPLING_FACTOR,
                                   cv.IMWRITE_JPEG_SAMPLING_FACTOR_444])
     with open(path, "rb") as f:
@@ -398,6 +406,10 @@ def _check_only_file(tmp_path, encoder, kind):
         data[sof + 4] = 12
     elif kind == "lossless":
         data[sof + 1] = 0xC3
+    elif kind == "empty_dc_slot2":  # the scan's first component takes DC table 2, never defined
+        sos = data.index(b"\xff\xda")
+        assert data[sos + 6] == 0x00
+        data[sos + 6] = 0x20
     else:  # fractional sampling: Y 3x1, Cb 2x1, Cr 1x1
         data[sof + 11], data[sof + 14] = 0x31, 0x21
     with open(path, "wb") as f:
@@ -405,17 +417,266 @@ def _check_only_file(tmp_path, encoder, kind):
     return path
 
 
-@pytest.mark.parametrize("kind", ["cmyk", "12bit", "lossless", "fractional"])
+@pytest.mark.parametrize("kind", ["cmyk", "12bit", "lossless", "fractional",
+                                  "progressive_without_dht", "empty_dc_slot2"])
 def test_check_only_formats_fail_in_both_loaders(tmp_path, baseline_loader, libjpeg_encoder, kind):
     """CMYK (no CMYK -> RGB conversion in libjpeg), 12-bit and lossless
-    frames (an 8-bit libjpeg-turbo 2.1 refuses them) and sampling factors
-    that do not divide the largest one: the JAX package's loader raises,
-    and so does the port's."""
+    frames (an 8-bit libjpeg-turbo 2.1 refuses them), sampling factors
+    that do not divide the largest one, a progressive file without DHT
+    segments and a sequential scan that names DC slot 2 with no table in
+    it (libjpeg fills only slots 0 and 1 of sequential frames with the
+    standard tables): the JAX package's loader raises, and so does the
+    port's."""
     path = _check_only_file(tmp_path, libjpeg_encoder, kind)
     with pytest.raises(FileNotFoundError):
         jnative.NativeCanvasLoader(1).load_batch([path], 64)
     with pytest.raises(FileNotFoundError):
         baseline_loader.load_batch([path], 64)
+
+
+# name -> (sampling, restart interval, optimized tables, the tables dropped,
+# cut short): sequential files without some or all of their Huffman tables
+STANDARD_TABLE_CASES = {
+    "420": ("420", 0, 0, "all", False), "422": ("422", 0, 0, "all", False),
+    "444": ("444", 0, 0, "all", False), "gray": ("gray", 0, 0, "all", False),
+    "420_restart": ("420", 2, 0, "all", False), "optimized": ("422", 0, 1, "all", False),
+    "slot1_only": ("420", 0, 1, "slot1", False), "cut": ("420", 1, 0, "all", True),
+    "multiscan": ("22,11,11", 0, 1, "all", False),
+    "multiscan_later_dht": ("21,11,11", 2, 1, "first scan", False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(STANDARD_TABLE_CASES))
+def test_baseline_decoder_matches_libjpeg_standard_tables(tmp_path, baseline_loader,
+                                                          libjpeg_encoder, case):
+    """Sequential files without DHT segments, as Motion-JPEG frames are
+    written, decode as libjpeg decodes them: each DC and AC slot 0 and 1
+    that no DHT defined by the first scan takes the table of T.81 Annex
+    K.3.  From cv2's standard tables that gives the file's own pixels; from
+    optimized tables, libjpeg's pixels of the mismatched codes.  Also only
+    slot 1's tables dropped, a file cut short (insufficient data), and
+    multi-scan files with every DHT dropped or only those before the first
+    scan (a later DHT replaces the standard table)."""
+    sampling, restart, optimize, dropped, cut = STANDARD_TABLE_CASES[case]
+    script = _load_script()
+    rng = np.random.default_rng(700 + sorted(STANDARD_TABLE_CASES).index(case))
+    keep = (lambda tc, th: th == 0) if dropped == "slot1" else (lambda tc, th: False)
+    paths, whole = [], []
+    for i, (noise, (h, w)) in enumerate([(False, (96, 128)), (True, (37, 53))]):
+        c = 1 if sampling == "gray" else 3
+        img = rng.integers(0, 256, (h, w, c), dtype=np.uint8) if noise else _smooth(rng, h, w, c)
+        src = str(tmp_path / f"src{i}.jpg")
+        if case.startswith("multiscan"):
+            script.encode(libjpeg_encoder, src, img, sampling=sampling, restart=restart,
+                          script="each" if case == "multiscan" else "y_then_cbcr",
+                          optimize=optimize)
+        else:
+            params = [cv.IMWRITE_JPEG_QUALITY, 90, cv.IMWRITE_JPEG_RST_INTERVAL, restart,
+                      cv.IMWRITE_JPEG_OPTIMIZE, optimize]
+            if c == 3:
+                params += [cv.IMWRITE_JPEG_SAMPLING_FACTOR, BASELINE_SAMPLING[sampling]]
+            assert cv.imwrite(src, img[..., 0] if c == 1 else img, params)
+        with open(src, "rb") as f:
+            data = f.read()
+        stripped = script.drop_huffman_tables(
+            data, keep, before_scan=1 if dropped == "first scan" else None)
+        assert len(stripped) < len(data)
+        if dropped == "first scan":
+            assert b"\xff\xc4" in stripped and stripped.index(b"\xff\xc4") > stripped.index(b"\xff\xda")
+        elif dropped == "all":
+            assert b"\xff\xc4" not in stripped[:stripped.index(b"\xff\xda")]
+        if cut:
+            paths += _cuts(tmp_path, f"cut{i}", stripped, [len(stripped) * 2 // 3])
+        else:
+            paths.append(str(tmp_path / f"{i}.jpg"))
+            with open(paths[-1], "wb") as f:
+                f.write(stripped)
+            whole.append((src, paths[-1]))
+    assert _same_as_libjpeg(baseline_loader, paths) == paths
+    if not optimize:  # the standard tables are cv2's: the file's own pixels
+        for src, path in whole:
+            for g, w in zip(baseline_loader.load_batch([path], 128),
+                            baseline_loader.load_batch([src], 128)):
+                np.testing.assert_array_equal(g, w)
+
+
+def _segment_at(data, marker):
+    """(offset, length) of the first marker segment of this marker."""
+    return next((p, length) for p, m, length in _segments(data) if m == marker)
+
+
+def _edited(data, case):
+    """A cv2 4:2:0 (or progressive) file with one marker segment edited."""
+    b = bytearray(data)
+    if case in ("dht_1_byte_over", "dht_16_bytes_over"):
+        p, length = _segment_at(b, 0xC4)
+        extra = 1 if case == "dht_1_byte_over" else 16
+        b[p + 2:p + 4] = (length + extra).to_bytes(2, "big")
+        b[p + 2 + length:p + 2 + length] = bytes(extra)
+    elif case == "dht_dc_symbol_16":
+        p, _ = _segment_at(b, 0xC4)
+        b[p + 4 + 17] = 16  # the first DC symbol: no DC category
+    elif case in ("dqt_precision_1", "dqt_precision_2"):
+        p, length = _segment_at(b, 0xDB)
+        pq = 1 if case == "dqt_precision_1" else 2
+        table = bytes([pq << 4 | b[p + 4] & 15]) + b"".join(
+            int(v).to_bytes(2, "big") for v in b[p + 5:p + 5 + 64])
+        b[p:p + 2 + length] = b"\xff\xdb" + (len(table) + 2).to_bytes(2, "big") + table
+    elif case.startswith("progressive"):  # table 8 where the scan kind takes no table
+        kind, tables = {"progressive_dc_first_ac_8": ("dc_first", 0x08),
+                        "progressive_dc_refine_8": ("dc_refine", 0x88),
+                        "progressive_ac_dc_8": ("ac", 0x80)}[case]
+        for p in _load_script().scan_starts(bytes(b)):
+            ns = b[p + 4]
+            ss, ah = b[p + 5 + 2 * ns], b[p + 7 + 2 * ns] >> 4
+            if kind == ("ac" if ss else "dc_refine" if ah else "dc_first"):
+                for i in range(ns):
+                    b[p + 6 + 2 * i] = tables
+    elif case == "sos_component_twice":
+        p, _ = _segment_at(b, 0xDA)
+        b[p + 7] = b[p + 9]
+    else:
+        p, _ = _segment_at(b, 0xDB)
+        b[p:p] = {"dac_odd_length": b"\xff\xcc\x00\x05\x00\x10\x01",
+                  "dac_even_length": b"\xff\xcc\x00\x04\x00\x10",
+                  "com_length_0": b"\xff\xfe\x00\x00",
+                  "app1_length_1": b"\xff\xe1\x00\x01"}[case]
+    return bytes(b)
+
+
+# edit -> whether libjpeg decodes the file (jdmarker.c, jdhuff.c, jdphuff.c)
+SEGMENT_CASES = {
+    "dht_1_byte_over": False, "dht_16_bytes_over": False, "dht_dc_symbol_16": False,
+    "dqt_precision_1": True, "dqt_precision_2": True, "dac_odd_length": False,
+    "dac_even_length": True, "com_length_0": True, "app1_length_1": True,
+    "sos_component_twice": False, "progressive_dc_first_ac_8": True,
+    "progressive_dc_refine_8": True, "progressive_ac_dc_8": True,
+}
+
+
+@pytest.mark.parametrize("case", sorted(SEGMENT_CASES))
+def test_baseline_decoder_matches_libjpeg_marker_segments(tmp_path, baseline_loader, case):
+    """Marker segments read as jdmarker.c reads them: a DHT or DAC whose
+    contents leave bytes of its declared length over fails
+    (JERR_BAD_LENGTH), a DQT of any nonzero precision holds 16-bit
+    entries, an APPn or COM length below 2 skips nothing, a scan may not
+    take a component twice; a progressive scan checks only the table it
+    decodes with.  Each decodes exactly as libjpeg decodes it or fails in
+    both."""
+    img = _smooth(np.random.default_rng(900), 48, 64, 3)
+    progressive = int(case.startswith("progressive"))
+    ok, buf = cv.imencode(".jpg", img, [cv.IMWRITE_JPEG_PROGRESSIVE, progressive])
+    path = str(tmp_path / f"{case}.jpg")
+    with open(path, "wb") as f:
+        f.write(_edited(buf.tobytes(), case))
+    decoded = _same_as_libjpeg(baseline_loader, [path])
+    assert bool(decoded) == SEGMENT_CASES[case]
+
+
+# name -> cv2 parameters of the fuzz's sources (88x72, quality 90); the
+# "nodht" ones lose their DHT segments
+FUZZ_SOURCES = {
+    "420": [cv.IMWRITE_JPEG_SAMPLING_FACTOR, cv.IMWRITE_JPEG_SAMPLING_FACTOR_420],
+    "420_restart": [cv.IMWRITE_JPEG_SAMPLING_FACTOR, cv.IMWRITE_JPEG_SAMPLING_FACTOR_420,
+                    cv.IMWRITE_JPEG_RST_INTERVAL, 2],
+    "progressive": [cv.IMWRITE_JPEG_PROGRESSIVE, 1],
+    "progressive_restart": [cv.IMWRITE_JPEG_PROGRESSIVE, 1, cv.IMWRITE_JPEG_RST_INTERVAL, 3],
+    "optimized_422": [cv.IMWRITE_JPEG_OPTIMIZE, 1, cv.IMWRITE_JPEG_SAMPLING_FACTOR,
+                      cv.IMWRITE_JPEG_SAMPLING_FACTOR_422],
+    "444": [cv.IMWRITE_JPEG_SAMPLING_FACTOR, cv.IMWRITE_JPEG_SAMPLING_FACTOR_444],
+    "gray": [],
+    "nodht_420_restart": [cv.IMWRITE_JPEG_SAMPLING_FACTOR, cv.IMWRITE_JPEG_SAMPLING_FACTOR_420,
+                          cv.IMWRITE_JPEG_RST_INTERVAL, 2],
+    "nodht_gray": [],
+}
+FUZZ_MUTATIONS = ("entropy_bytes", "header_byte", "dropped_span", "inserted_bytes",
+                  "segment_byte", "segment_length")
+FUZZ_FILES = 450  # per mutation
+
+
+def _segments(data):
+    """(offset, marker, length) of each marker segment up to the first SOS."""
+    out, p = [], 2
+    while p + 4 <= len(data):
+        marker, length = data[p + 1], (data[p + 2] << 8) | data[p + 3]
+        out.append((p, marker, length))
+        if marker == 0xDA:
+            return out
+        p += 2 + length
+    return out
+
+
+def _mutate(rng, data, mutation):
+    """One seeded mutation of a JPEG file's bytes."""
+    data = bytearray(data)
+    segments = _segments(data)
+    sos = segments[-1][0]
+    if mutation == "entropy_bytes":  # 1-3 random bytes in the entropy data
+        for _ in range(int(rng.integers(1, 4))):
+            data[int(rng.integers(sos + 14, len(data) - 2))] = int(rng.integers(256))
+    elif mutation == "header_byte":  # one random byte before the first scan's data
+        data[int(rng.integers(2, sos))] = int(rng.integers(256))
+    elif mutation == "dropped_span":
+        p = int(rng.integers(2, len(data) - 2))
+        del data[p:p + int(rng.integers(1, 20))]
+    elif mutation == "inserted_bytes":
+        p = int(rng.integers(2, len(data) - 2))
+        data[p:p] = rng.integers(0, 256, int(rng.integers(1, 6)), dtype=np.uint8).tobytes()
+    elif mutation == "segment_byte":  # a byte of a marker segment's contents, or one bit of it
+        p0, _, length = segments[int(rng.integers(len(segments)))]
+        p = int(rng.integers(p0 + 4, p0 + 2 + length))
+        data[p] = int(rng.integers(256)) if rng.random() < 0.5 else data[p] ^ 1 << int(rng.integers(8))
+    else:  # a marker segment's length moved by -3..3
+        p0, _, length = segments[int(rng.integers(len(segments)))]
+        data[p0 + 2:p0 + 4] = max(0, length + int(rng.integers(-3, 4))).to_bytes(2, "big")
+    return bytes(data)
+
+
+def _decode_or_none(loader, path):
+    try:
+        return loader.load_batch([path], 96)[0]
+    except FileNotFoundError:
+        return None
+
+
+@pytest.mark.parametrize("mutation", FUZZ_MUTATIONS)
+def test_baseline_decoder_differential_fuzz(tmp_path, baseline_loader, mutation):
+    """A seeded differential fuzz against the JAX package's loader
+    (libjpeg): damaged files of every source decode to equal pixels in both
+    loaders or fail in both.  What it found before the loaders agreed: DHT
+    segments lost (the slot takes the standard table), a progressive DC
+    scan naming an AC table past 3, tables that leave bytes of their DHT
+    over, short APPn/COM lengths, and a scan taking a component twice."""
+    rng = np.random.default_rng(800 + FUZZ_MUTATIONS.index(mutation))
+    script = _load_script()
+    sources = {}
+    for name, params in FUZZ_SOURCES.items():
+        img = _smooth(rng, 72, 88, 1 if name.endswith("gray") else 3)
+        ok, buf = cv.imencode(".jpg", img[..., 0] if name.endswith("gray") else img,
+                              [cv.IMWRITE_JPEG_QUALITY, 90, *params])
+        assert ok
+        sources[name] = (script.drop_huffman_tables(buf.tobytes()) if name.startswith("nodht")
+                         else buf.tobytes())
+    jloader, names = jnative.NativeCanvasLoader(1), sorted(sources)
+    path, outcomes, differ = str(tmp_path / "fuzzed.jpg"), collections.Counter(), []
+    for i in range(FUZZ_FILES):
+        name = names[i % len(names)]
+        data = _mutate(rng, sources[name], mutation)
+        with open(path, "wb") as f:
+            f.write(data)
+        want, got = _decode_or_none(jloader, path), _decode_or_none(baseline_loader, path)
+        if want is None or got is None:
+            outcome = ("both fail" if want is None and got is None
+                       else "libjpeg fails" if want is None else "port fails")
+        else:
+            outcome = "equal" if np.array_equal(want, got) else "different pixels"
+        outcomes[outcome] += 1
+        if outcome not in ("equal", "both fail"):
+            differ.append(str(tmp_path / f"{i}_{name}.jpg"))
+            with open(differ[-1], "wb") as f:
+                f.write(data)
+    assert not differ, (dict(outcomes), differ[:5])
+    assert outcomes["equal"] > FUZZ_FILES // 10, dict(outcomes)  # not all refused
 
 
 _BUILD = r"""
@@ -498,7 +759,7 @@ def test_fixture_decodes_to_committed_crc32():
     loader = native.NativeCanvasLoader(4)
     assert len(_check_crc32(loader, "decoded_crc32.json")) == 48
     assert len(_check_crc32(loader, os.path.join("progressive", "decoded_crc32.json"))) == 6
-    assert len(_check_crc32(loader, os.path.join("decoder", "decoded_crc32.json"))) == 15
+    assert len(_check_crc32(loader, os.path.join("decoder", "decoded_crc32.json"))) == 19
     for rel in sorted(os.listdir(os.path.join(FIXTURE, "progressive"))):
         if rel.endswith(".jpg"):  # every committed file is progressive
             with open(os.path.join(FIXTURE, "progressive", rel), "rb") as f:
