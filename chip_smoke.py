@@ -1,8 +1,8 @@
 """Chip smoke test of the PyTorch + CUDA port: drives the serving path, the
 training step, the training solver, the detect -> pose programs, W8A8
-serving, the serving export, the fused export, the demos and the
-multi-process (DDP) training and eval on one CUDA card and holds every
-kernel against its plain PyTorch version.
+serving, the serving export, the fused export, the demos, the
+multi-process (DDP) training and eval and the wide ResNets' fused layer1
+on one CUDA card and holds every kernel against its plain PyTorch version.
 
     python3 chip_smoke.py
 
@@ -15,7 +15,8 @@ raises, and the script exits non-zero without a result line):
      source, all started together, timed;
   3. each kernel against its plain version at the main path's shapes (the
      flagship ResNet-50+SE layer1: x [32, 64, 64, 48], 3 blocks, SE and a
-     projection in block 0, BN folded from seeded non-trivial statistics),
+     projection in block 0, BN folded from seeded non-trivial statistics;
+     bands of 4 whole rows),
      in bf16 and f32, then timed beside the plain version and the library
      call (the unfused cuDNN layer1 of the port's own model) at batch 32 and
      128;
@@ -211,6 +212,19 @@ raises, and the script exits non-zero without a result line):
         ResNet-50-DConv+SE, f32, decoder basic) in one process and through
         torchrun as two ranks on cuda:0 with --multihost: the stats and the
         predictions equal.
+ 14. K2 on every layer1 the JAX kernel takes (Bottleneck width 128, maps
+     wider than a band of whole rows):
+     a. K2 at wide_resnet50_2+SE's seeded layer1 (width 128: 64 -> 128 ->
+        256 channels, 3 blocks, SE, a projection in block 0) against its
+        plain version as in phase 3, bf16 and f32 at batch 32, timed at
+        batch 32 and 128 beside the plain version and its cuDNN layer1;
+     b. K2 at ResNet-50+SE's layer1 on 64x97 and 64x128 maps (2-D tiles)
+        against its plain version, bf16 and f32, at batch 8, timed there;
+     c. phase 4's checks and rates for wide_resnet50_2 (256x192, bf16,
+        fused_layer1, flip-test; K2 twice per batch), crops/s at batch 128;
+     d. eval gt --fused-layer1 --flip-test with it on the fixture's JPEGs
+        (K2 twice per pipeline batch, one prediction per person);
+     e. eval export --fused-layer1 of it, served by serve_artifact (K2 once).
 
 The line before the last holds the kernels' JSON; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -516,13 +530,16 @@ def errors(got, want):
     return d.max().item(), d.max().item() / scale, d.mean().item() / scale
 
 
-def check_chain_kernel(layer1, label="layer1 chain", batches=(BATCH, THROUGHPUT_BATCH)):
+def check_chain_kernel(layer1, label="layer1 chain", batches=(BATCH, THROUGHPUT_BATCH),
+                       chw=(64, 64, 48), check_batch=BATCH):
     """``layer1``'s folded chain through the kernel against its plain version
-    at batch 32 (bf16 and f32), then timed at ``batches`` beside the plain
-    version and ``layer1`` itself (cuDNN)."""
+    on x [check_batch, *chw] (bf16 and f32), then timed at ``batches``
+    beside the plain version and ``layer1`` itself (cuDNN)."""
     folded = fold_bottleneck_blocks(list(layer1))
+    cout, (_, h, w) = folded[-1]["w3"].shape[1], chw
     rng = np.random.default_rng(1)
-    x32 = torch.from_numpy(np.abs(rng.normal(0, 1, (BATCH, 64, 64, 48))).astype(np.float32)).cuda()
+    x32 = torch.from_numpy(np.abs(rng.normal(0, 1, (check_batch, *chw))).astype(np.float32))
+    x32 = x32.cuda()
     report = {}
     for name, dt in DTYPES.items():
         blocks = prepare_blocks(folded, dt)
@@ -530,7 +547,7 @@ def check_chain_kernel(layer1, label="layer1 chain", batches=(BATCH, THROUGHPUT_
         want = bottleneck_chain_reference(x, blocks, dt)
         got = bottleneck_chain(x, blocks, dt)
         torch.cuda.synchronize()
-        assert got.shape == (BATCH, 256, 64, 48) and got.dtype == dt
+        assert got.shape == (check_batch, cout, h, w) and got.dtype == dt
         assert torch.isfinite(got.float()).all()
         max_abs, max_rel, mean_rel = errors(got, want)
         tol_max, tol_mean = TOL[name]
@@ -541,12 +558,12 @@ def check_chain_kernel(layer1, label="layer1 chain", batches=(BATCH, THROUGHPUT_
 
     timing = {}
     for batch in batches:
-        xb = torch.from_numpy(np.abs(rng.normal(0, 1, (batch, 64, 64, 48))).astype(np.float32))
+        xb = torch.from_numpy(np.abs(rng.normal(0, 1, (batch, *chw))).astype(np.float32))
         xb = xb.cuda()
         for name, dt in DTYPES.items():
             blocks = prepare_blocks(folded, dt)
             x = xb.to(dt)
-            flops, nbytes = chain_work(blocks, batch, 64, 48, x.element_size())
+            flops, nbytes = chain_work(blocks, batch, h, w, x.element_size())
             peak = PEAK_BF16_FLOPS if dt == torch.bfloat16 else PEAK_F32_FLOPS
             bound_ms = max(flops / peak, nbytes / PEAK_BYTES) * 1e3
             amp = torch.autocast("cuda", dtype=torch.bfloat16, enabled=dt == torch.bfloat16)
@@ -648,7 +665,7 @@ def run_main_path(workdir, cfg=CFG, label="main path"):
     unfused = PoseEvaluator(cfg, None, INPUT_SHAPE, amp="auto", fused_layer1=False,
                             flip_test=True)
     hf, hu = ev.heatmaps(batches[0]), unfused.heatmaps(batches[0])
-    assert hf.shape == (BATCH, 17, 64, 48) and torch.isfinite(hf).all()
+    assert hf.shape == (BATCH, 17, *HEAT_HW) and torch.isfinite(hf).all()
     _, max_rel, mean_rel = errors(hf, hu)
     log(f"{label} fused vs unfused heatmaps (bf16): max rel {max_rel:.3e} "
         f"(< {FUSED_HEAT_TOL[0]})  mean rel {mean_rel:.3e} (< {FUSED_HEAT_TOL[1]})")
@@ -3069,6 +3086,122 @@ def run_ddp_phase(card, step_rate):
     return summary, b["crop_launches_per_rank"], b["f32_steps_per_rank"]
 
 
+# ---------------------------------------------------------------------------
+# phase 14: K2 at the wide ResNets' layer1 and on maps wider than 96 columns
+# ---------------------------------------------------------------------------
+
+WIDE_CFG = {"type": "pose_resnet_dconv", "name": "wide_resnet50_2", "num_joints": 17,
+            "reduction": True}
+# ResNet-50+SE's layer1 on 2-D tiles: layer1 at 64 x W, an input of 4W
+# columns (no config has one; the JAX kernel takes any)
+WIDE_MAP_WIDTHS, WIDE_MAP_BATCH = (97, 128), 8
+
+
+def run_wide_entry_points(workdir):
+    """14d-e: ``eval gt --fused-layer1 --flip-test`` with wide_resnet50_2 on
+    the fixture (K2 twice per pipeline batch), then ``eval export
+    --fused-layer1`` of it served by serve_artifact (K2 once)."""
+    from simple_pose_torch import eval as teval
+    from simple_pose_torch import serve_artifact
+
+    res = {}
+    out = os.path.join(workdir, "wide_gt.json")
+    with open(DET_GT) as f:
+        people = len(json.load(f)["annotations"])
+    batches = []  # the evaluator's calls: one per pipeline batch
+    evaluate = PoseEvaluator.__call__
+    PoseEvaluator.__call__ = lambda ev, batch: batches.append(1) or evaluate(ev, batch)
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()) as buf:
+            teval.main(["gt", "--img-root", DET_IMAGES, "--ann", DET_GT, "--model-name",
+                        "wide_resnet50_2", "--reduction", "--fused-layer1", "--flip-test",
+                        "--batch-size", str(BATCH), "--input-w", str(INPUT_SHAPE[0]),
+                        "--input-h", str(INPUT_SHAPE[1]), "--out", out])
+    finally:
+        PoseEvaluator.__call__ = evaluate
+    launches = launch_counts()
+    stats = [json.loads(x) for x in buf.getvalue().splitlines() if x.startswith('{"AP"')][-1]
+    with open(out) as f:
+        preds = json.load(f)
+    res["eval_gt"] = {"launches": launches, "batches": len(batches), "predictions": len(preds),
+                      "seconds": time.perf_counter() - t0, "AP": stats["AP"]}
+    assert launches == {"bottleneck_chain": 2 * len(batches), "rotate_resample": 0,
+                        "rotate_resample_crop": 0, "int8_conv": 0}, res["eval_gt"]
+    assert len(preds) == people and 0.0 <= stats["AP"] <= 1.0, res["eval_gt"]
+    assert np.isfinite([p["keypoints"] for p in preds]).all()
+
+    artifact = os.path.join(workdir, "wide_l1.pt2")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        teval.main(["export", "--model-name", "wide_resnet50_2", "--reduction",
+                    "--fused-layer1", "--batch-size", "2", "--canvas", str(CANVAS),
+                    "--input-w", str(INPUT_SHAPE[0]), "--input-h", str(INPUT_SHAPE[1]),
+                    "--out", artifact])
+    export_s = time.perf_counter() - t0
+    box = tuple(float(v) for v in DEMO_BOX.split(","))
+    zero_launch_counts()
+    served = serve_artifact.serve(artifact, DECODE_SCENE["baseline"], [box])
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    kps = [p["keypoints"] for p in served["people"]]
+    res["serve_artifact"] = {"launches": launches, "export_s": export_s,
+                             "bytes": os.path.getsize(artifact), "people": len(kps)}
+    assert launches["bottleneck_chain"] == 1 and len(kps) == 1, res["serve_artifact"]
+    assert np.isfinite(kps).all()
+    return res
+
+
+def run_wide_layer1(card):
+    """Phase 14.  Returns {row name: K2's errors, timing, main-path launches,
+    main path and other launch counts} for the kernels' JSON line, and the
+    summary."""
+    t_phase = time.perf_counter()
+    rows, summary = {}, {"card": card}
+    t0 = time.perf_counter()
+    report, timing = check_chain_kernel(seeded_layer1(build_resnet("wide_resnet50_2", se=True)),
+                                        "phase 14a, wide_resnet50_2 layer1 chain")
+    for key, row in timing.items():
+        report_numbers(card, f"phase 14a, wide_resnet50_2 layer1 chain {key}",
+                       {k: row[k] for k in ("kernel_ms", "plain_ms", "library_ms", "bound_ms")})
+    log(f"phase 14a: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    r50 = seeded_layer1(build_resnet("resnet50", se=True))
+    for w in WIDE_MAP_WIDTHS:
+        r_report, r_timing = check_chain_kernel(
+            r50, f"phase 14b, resnet50 layer1 chain at 64x{w}", batches=(WIDE_MAP_BATCH,),
+            chw=(64, 64, w), check_batch=WIDE_MAP_BATCH)
+        rows[f"resnet50 layer1 at 64x{w}"] = {
+            "report": r_report, "timing": r_timing, "launches": 0, "extra": {},
+            "main_path": f"none: no config's input is {4 * w} columns wide (the JAX kernel "
+                         "takes it)"}
+    del r50
+    log(f"phase 14b: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as workdir:
+        launches, stats, rates = run_main_path(workdir, WIDE_CFG, "phase 14c, wide_resnet50_2")
+        report_numbers(card, "phase 14c, wide_resnet50_2 serving crops/s at batch "
+                       f"{THROUGHPUT_BATCH} (bf16, fused_layer1, flip-test)", rates)
+        summary["14c_serving"] = {"launches": launches, "AP": stats["AP"], "crops_per_s": rates}
+        torch.cuda.empty_cache()
+        log(f"phase 14c: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        summary.update(run_wide_entry_points(workdir))
+        log("phase 14d-e: " + json.dumps(summary) + f" ({time.perf_counter() - t0:.1f} s)")
+    rows["wide_resnet50_2 layer1"] = {
+        "report": report, "timing": timing, "launches": launches["bottleneck_chain"],
+        "main_path": "phase 14c: PoseEvaluator(wide_resnet50_2, fused_layer1, flip-test)",
+        "extra": {"launches_eval_gt": summary["eval_gt"]["launches"]["bottleneck_chain"],
+                  "launches_loaded_artifact":
+                      summary["serve_artifact"]["launches"]["bottleneck_chain"]}}
+    torch.cuda.empty_cache()
+    log(f"phase 14: {time.perf_counter() - t_phase:.1f} s")
+    return rows, summary
+
+
 def k2_row(name, launches, report, row):
     """A K2 row of the kernels' JSON line."""
     return {
@@ -3147,6 +3280,8 @@ def main() -> int:
     log("phase 12: " + json.dumps(apps))
     ddp, ddp_launches, ddp_steps = run_ddp_phase(card, train["crops_per_s"])
     log("phase 13: " + json.dumps(ddp))
+    wide_rows, wide = run_wide_layer1(card)
+    log("phase 14: " + json.dumps(wide))
 
     kernels = [{**k2_row("bottleneck_chain", launches["bottleneck_chain"], report,
                          timing[f"b{BATCH}_bf16"]),
@@ -3160,6 +3295,11 @@ def main() -> int:
                                  fam_timing[f"b{BATCH}_bf16"]),
                         "main_path": f"phase 9b: PoseEvaluator({fam}, fused_layer1, flip-test)",
                         "timing": fam_timing})
+    for name, r in wide_rows.items():
+        batch = min(int(k[1:].split("_")[0]) for k in r["timing"])
+        kernels.append({**k2_row(f"bottleneck_chain ({name})", r["launches"], r["report"],
+                                 r["timing"][f"b{batch}_bf16"]),
+                        "main_path": r["main_path"], "timing": r["timing"], **r["extra"]})
     rot_row = rot_timing[f"b{TRAIN_BATCH}_bf16"]
     kernels.append({
         "name": "rotate_resample",

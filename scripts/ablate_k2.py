@@ -37,21 +37,20 @@ NEVER = "a.h > 0x40000000"
 
 VARIANTS = {
     "nostore": [
-        ("if (a.se) idn[(size_t)n * HW + p] = acc[i][j][2 * h + e];\n            else out[",
-         f"if ({NEVER}) {{ if (a.se) idn[(size_t)n * HW + p] = acc[i][j][2 * h + e];\n"
-         "            else out["),
+        ("if (a.se) idn[o] = acc[i][j][2 * h + e];\n            else out[",
+         f"if ({NEVER}) {{ if (a.se) idn[o] = acc[i][j][2 * h + e];\n            else out["),
         ("from_f<TO>(fmaxf(acc[i][j][2 * h + e], 0.f));\n          }\n  }\n}",
          "from_f<TO>(fmaxf(acc[i][j][2 * h + e], 0.f)); }\n          }\n  }\n}"),
-        ("if (n < cout) pre[(size_t)n * HW + p] = acc[i][j][2 * h + e];",
-         f"if (n < cout && {NEVER}) pre[(size_t)n * HW + p] = acc[i][j][2 * h + e];"),
+        ("if (n < cout) pre[(size_t)n * HW + g.band.lin(p)] = acc[i][j][2 * h + e];",
+         f"if (n < cout && {NEVER}) pre[(size_t)n * HW + g.band.lin(p)] = acc[i][j][2 * h + e];"),
     ],
     "no3x3": [
-        ("warp_mma(acc, a_addr, mt, smem_u32(w2s) + b_off, kw / 16);",
-         f"if ({NEVER}) warp_mma(acc, a_addr, mt, smem_u32(w2s) + b_off, kw / 16);"),
+        ("warp_mma<kP>(acc, a_addr, mt, smem_u32(w2s) + b_off, kw / 16);",
+         f"if ({NEVER}) warp_mma<kP>(acc, a_addr, mt, smem_u32(w2s) + b_off, kw / 16);"),
     ],
     "noxload": [
-        ("const bool ok = i < total && r < rows && lin >= 0 && lin < HW;",
-         "const bool ok = i < total && r < rows && lin >= 0 && lin < HW && HW < 0;"),
+        ("const bool ok = i < total && r < rows;",
+         "const bool ok = i < total && r < rows && HW < 0;"),
     ],
 }
 
@@ -78,28 +77,32 @@ extern "C" int k2_phase_ns(unsigned long long* out) {
   return (int)e;
 }
 '''
-KERNEL_HEAD = ("template <typename TI, typename TO>\n"
-               "__global__ void __launch_bounds__(kThreads, 2) bottleneck_block_tc_kernel")
+KERNEL_HEAD = ("template <int kWMax, typename TI, typename TO>\n"
+               "__global__ void __launch_bounds__(kThreads, Cfg<kWMax>::kMinBlocks)\n"
+               "    bottleneck_block_tc_kernel")
 TIMER_EDITS = [  # (anchor, text put after it)
     ("  bf16* m1s = reinterpret_cast<bf16*>(tc_smem);  // [m1_stride pixels][kP]\n",
      "  unsigned long long t_ = k2_now();\n"),
     ("    reinterpret_cast<uint4*>(m1s)[i] = make_uint4(0, 0, 0, 0);\n", "  K2_TICK(0);\n"),
-    ("        stage_w(ws, w1, width, k0, kpad, cin, 0, width);\n        __syncthreads();\n",
-     "        K2_TICK(1);\n"),
-    ("        warp_mma(acc, a_addr, rmt, smem_u32(ws) + b_off, kpad / 16);\n",
+    ("        stage_w<kWMax, kP>(ws, w1, width, k0, kpad, cin, 0, width);\n"
+     "        __syncthreads();\n", "        K2_TICK(1);\n"),
+    ("        warp_mma<kP>(acc, a_addr, rmt, smem_u32(ws) + b_off, kpad / 16);\n",
      "        K2_TICK(2);\n"),
-    ("      stage_w(w2s, w2 + (size_t)tap * width * width, width, 0, kw, width, 0, width);\n"
-     "      __syncthreads();\n", "      K2_TICK(4);\n"),
-    ("      warp_mma(acc, a_addr, mt, smem_u32(w2s) + b_off, kw / 16);\n", "      K2_TICK(5);\n"),
-    ("    stage_w(w3s, w3, cout, 0, kw, width, n0, cout);\n    __syncthreads();\n",
+    ("      stage_w<kWMax, kP>(w2s, w2 + (size_t)tap * width * width, width, 0, kw, width, 0, "
+     "width);\n      __syncthreads();\n", "      K2_TICK(4);\n"),
+    ("      warp_mma<kP>(acc, a_addr, mt, smem_u32(w2s) + b_off, kw / 16);\n",
+     "      K2_TICK(5);\n"),
+    ("    stage_w<kWMax, kP>(w3s, w3, cout, 0, kw, width, n0, cout);\n    __syncthreads();\n",
      "    K2_TICK(7);\n"),
-    ("    warp_mma(acc, a_addr, mt, smem_u32(w3s) + b_off, kw / 16);\n", "    K2_TICK(8);\n"),
-    ("red[2 * kNTile + tid]) + red[3 * kNTile + tid];\n", "      K2_TICK(9);\n"),
-    ("        stage_w(wds, wd, cout, k0, kpad, cin, n0, cout);\n        __syncthreads();\n",
-     "        K2_TICK(10);\n"),
-    ("        warp_mma(acc, a_addr, mt, smem_u32(wds) + b_off, kpad / 16);\n",
+    ("    warp_mma<kP>(acc, a_addr, mt, smem_u32(w3s) + b_off, kw / 16);\n",
+     "    K2_TICK(8);\n"),
+    ("        a.partial[((size_t)b * a.tiles + blockIdx.x) * cout + n0 + tid] = s;\n      }\n",
+     "      K2_TICK(9);\n"),
+    ("        stage_w<kWMax, kP>(wds, wd, cout, k0, kpad, cin, n0, cout);\n"
+     "        __syncthreads();\n", "        K2_TICK(10);\n"),
+    ("        warp_mma<kP>(acc, a_addr, mt, smem_u32(wds) + b_off, kpad / 16);\n",
      "        K2_TICK(11);\n"),
-    ("            else out[(size_t)n * HW + p] = from_f<TO>(fmaxf(acc[i][j][2 * h + e], 0.f));\n"
+    ("            else out[o] = from_f<TO>(fmaxf(acc[i][j][2 * h + e], 0.f));\n"
      "          }\n", "    K2_TICK(12);\n"),
 ]
 TIMER_BEFORE = [("  // ---- B: m2 = relu(3x3(m1) + b2): 9", "  K2_TICK(3);\n"),
@@ -109,11 +112,13 @@ TIMER_RUN = r'''
 import ctypes, json, sys
 import numpy as np, torch
 sys.path.insert(0, ".")
-from chip_smoke import flagship_layer1
+from chip_smoke import seeded_layer1
+from simple_pose_torch.models.resnet import build_resnet
 from simple_pose_torch.ops.bottleneck_chain import (
     _lib, bottleneck_chain, fold_bottleneck_blocks, prepare_blocks)
 batch = int(sys.argv[1])
-blocks = prepare_blocks(fold_bottleneck_blocks(list(flagship_layer1())), torch.bfloat16)
+blocks = prepare_blocks(fold_bottleneck_blocks(list(seeded_layer1(build_resnet("resnet50", se=True)))),
+                        torch.bfloat16)
 x = torch.from_numpy(np.abs(np.random.default_rng(1).normal(0, 1, (batch, 64, 64, 48)))
                      .astype(np.float32)).cuda().to(torch.bfloat16)
 lib = _lib()

@@ -36,11 +36,13 @@ from chip_smoke import (  # noqa: E402
     PEAK_BYTES,
     card_line,
     chain_work,
-    flagship_layer1,
+    seeded_layer1,
 )
+from simple_pose_torch.models.resnet import build_resnet  # noqa: E402
 from simple_pose_torch.ops.bottleneck_chain import (  # noqa: E402
     bottleneck_chain,
     fold_bottleneck_blocks,
+    launch_plan,
     prepare_blocks,
 )
 from simple_pose_torch.utils.cuda_build import build_library  # noqa: E402
@@ -109,7 +111,7 @@ def main() -> int:
     lib_path, _ = build_library("bottleneck_chain")
     print(json.dumps({"card": card, "hmma_per_kernel": hmma_counts(lib_path)}))
 
-    layer1 = flagship_layer1()
+    layer1 = seeded_layer1(build_resnet("resnet50", se=True))
     blocks = prepare_blocks(fold_bottleneck_blocks(list(layer1)), torch.bfloat16)
     rng = np.random.default_rng(1)
     x = torch.from_numpy(np.abs(rng.normal(0, 1, (args.batch, 64, 64, 48)))
@@ -131,7 +133,7 @@ def main() -> int:
         by_group[g] = by_group.get(g, 0.0) + (e.time_range.end - e.time_range.start) / args.calls
     total_us = sum(by_group.values())
 
-    th = 4  # bottleneck_band_rows(64, 48)
+    th = launch_plan(64, 48, 64, True).th  # bands of whole rows at 64x48
     nbytes, weight_rereads = design_bytes(blocks, args.batch, 64, 48, th)
     flops, io_bytes = chain_work(blocks, args.batch, 64, 48, 2)
     split = {}

@@ -1,0 +1,81 @@
+"""Time the fused layer1 kernel K2 in one or more checkouts: `chip_smoke.py`'s
+phase 3 (the flagship ResNet-50+SE layer1, x [32, 64, 64, 48], against its
+plain version in bf16 and f32, then timed at batch 32 and 128 beside the
+plain version and cuDNN's layer1), one process per checkout, in the order
+given, after each checkout's registers and spills per kernel.
+
+    python scripts/time_torch_k2.py [TREE ...]        (default: .)
+
+To compare two commits on one card, unpack the older one into a directory
+that .gitignore lists and run both in the order old, new, new, old:
+
+    mkdir -p archive_check/parent
+    git archive HEAD~1 | tar -x -C archive_check/parent
+    python scripts/time_torch_k2.py archive_check/parent . . archive_check/parent
+
+Each checkout builds its own library into its own build/.  Prints the
+card's name and power limit, then per run one JSON line of the kernel's
+resources (``cuobjdump -res-usage``) and one of its errors and times.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import re
+import shutil
+import subprocess
+import sys
+
+CHILD = r"""
+import json
+import torch
+import chip_smoke as C
+from simple_pose_torch.models.resnet import build_resnet
+from simple_pose_torch.utils.cuda_build import build_library
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+path, seconds = build_library("bottleneck_chain")
+print(json.dumps({"library": path, "nvcc_s": seconds}), flush=True)
+report, timing = C.check_chain_kernel(C.seeded_layer1(build_resnet("resnet50", se=True)))
+print(json.dumps({"errors": report, "timing": timing}))
+"""
+
+
+def resources(lib_path: str) -> dict:
+    """Registers, stack and local (spill) bytes of each block kernel."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([tool, "-res-usage", lib_path], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function (\S+):", line)
+        if m:
+            name = m.group(1)
+        elif name and "bottleneck_block" in name and "REG:" in line:
+            out[name] = {k: int(v) for k, v in re.findall(r"(REG|STACK|LOCAL):(\d+)", line)}
+    return out
+
+
+def main(argv=None):
+    trees = (argv if argv is not None else sys.argv[1:]) or ["."]
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+    for tree in trees:
+        tree = os.path.abspath(tree)
+        proc = subprocess.run([sys.executable, "-c", CHILD], cwd=tree, capture_output=True,
+                              text=True, env={**os.environ, "PYTHONPATH": tree})
+        if proc.returncode != 0:
+            print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
+            raise SystemExit(f"{tree}: rc {proc.returncode}")
+        lines = [json.loads(x) for x in proc.stdout.splitlines() if x.startswith("{")]
+        print(json.dumps({"tree": os.path.relpath(tree), "nvcc_s": lines[0]["nvcc_s"],
+                          "resources": resources(lines[0]["library"])}), flush=True)
+        res = lines[-1]
+        print(json.dumps({"tree": os.path.relpath(tree),
+                          "kernel_ms": {k: v["kernel_ms"] for k, v in res["timing"].items()},
+                          **res}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

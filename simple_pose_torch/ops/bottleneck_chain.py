@@ -34,7 +34,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import List, Optional, Sequence
+from typing import List, NamedTuple, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -42,7 +42,7 @@ import torch.nn.functional as F
 from simple_pose_torch.utils.cuda_build import counts_launches, load_library
 
 __all__ = ["fold_conv_bn", "fold_bottleneck_blocks", "bottleneck_chain_reference",
-           "bottleneck_chain", "prepare_blocks"]
+           "bottleneck_chain", "prepare_blocks", "launch_plan", "LaunchPlan"]
 
 _MATRIX_KEYS = ("w1", "w2", "w3", "wd", "sf1", "sf2")
 
@@ -145,11 +145,68 @@ def bottleneck_chain_reference(x, blocks: Sequence[dict], compute_dtype=torch.fl
 
 
 # ---------------------------------------------------------------------------
-# the kernel's wrapper
+# the kernel's launch plan and wrapper
 # ---------------------------------------------------------------------------
 
 _KERNEL = "bottleneck_chain"
 _SUPPORTED = (torch.float32, torch.bfloat16)
+# csrc/bottleneck_chain.cu's Cfg: for Bottleneck widths up to 64 and up to
+# 128, the most pixels a tile holds (TH * TW) and the bound on (TH + 2) * TW
+_TILE_LIMITS = {64: (192, 288), 128: (96, 192)}
+MAX_WIDTH = 128
+SMEM_LIMIT = 232448  # one block of threads' shared memory on Hopper (227 KB)
+# the columns of a 2-D tile: one warp's pixels, so that a warp's 32 loads
+# along pixels of one channel read one contiguous span
+_TILE_W = 32
+
+
+class LaunchPlan(NamedTuple):
+    """One block launch: tiles of ``th`` rows by ``tw`` columns, ``tiles_h``
+    by ``tiles_w`` of them per sample, the kernel shape for widths up to
+    ``wmax``, and the shared memory one block of threads takes."""
+    th: int
+    tw: int
+    tiles_h: int
+    tiles_w: int
+    wmax: int
+    smem_bytes: int
+
+    @property
+    def tiles(self) -> int:
+        return self.tiles_h * self.tiles_w
+
+
+def _smem_bytes(th: int, tw: int, wmax: int, bf16: bool) -> int:
+    """Shared memory of one block of threads (bottleneck_smem_bytes)."""
+    band = _TILE_LIMITS[wmax][0]
+    store = (th + 2) * (tw + 2)  # m1 on the tile and its 1-pixel ring
+    if bf16:
+        pitch, m_warps = wmax + 8, 8 // (wmax // 32)
+        work = max(2 * (band + wmax) * pitch, 2 * (2 * wmax + band) * pitch + 4 * m_warps * wmax)
+        return 2 * store * pitch + work
+    kc, halo_round, k_chunk = 16, 32 * (9 if wmax == 64 else 3), 64 if wmax == 64 else 32
+    work = max(kc * halo_round + kc * wmax, k_chunk * wmax, k_chunk * wmax + kc * band + kc * wmax)
+    return 4 * (wmax * store + work)
+
+
+@functools.lru_cache(maxsize=None)
+def launch_plan(h: int, w: int, width: int, bf16: bool) -> LaunchPlan:
+    """The tiles of one block launch on an [h, w] map at Bottleneck width
+    ``width`` (``bf16``: bf16 compute, else f32).  A tile spans whole rows
+    (TW = w) where a band of them fits, so its loads and stores stay
+    contiguous; wider maps take 2-D tiles of ``_TILE_W`` columns and as many
+    rows as fit.  Needs no library: the wrapper checks the result against
+    the kernel's ``bottleneck_smem_bytes``."""
+    if not 0 < width <= MAX_WIDTH:
+        raise ValueError(f"the kernel takes Bottleneck widths 1..{MAX_WIDTH}, got {width} "
+                         "(every trunk layer1_block_names accepts has 64 or 128)")
+    if h < 1 or w < 1:
+        raise ValueError(f"empty map {h}x{w}")
+    wmax = 64 if width <= 64 else 128
+    band, halo = _TILE_LIMITS[wmax]
+    tw = w if min(halo // w - 2, band // w) >= 1 else _TILE_W
+    th = min(halo // tw - 2, band // tw, h)
+    return LaunchPlan(th, tw, -(-h // th), -(-w // tw), wmax, _smem_bytes(th, tw, wmax, bf16))
 
 
 @functools.lru_cache(maxsize=None)
@@ -157,10 +214,10 @@ def _lib():
     """The kernel's library (built on first use), with its C signatures."""
     lib = load_library(_KERNEL)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.bottleneck_block_forward.argtypes = [p] * 18 + [i] * 10 + [p]
+    lib.bottleneck_block_forward.argtypes = [p] * 18 + [i] * 12 + [p]
     lib.bottleneck_block_forward.restype = i
-    lib.bottleneck_band_rows.argtypes = [i, i]
-    lib.bottleneck_band_rows.restype = i
+    lib.bottleneck_smem_bytes.argtypes = [i] * 4
+    lib.bottleneck_smem_bytes.restype = i
     return lib
 
 
@@ -185,8 +242,6 @@ def _check_block(blk, cin, cd, dev):
         if tuple(t.shape) != shape or t.dtype != want or t.device != dev or not t.is_contiguous():
             raise ValueError(f"block weight {k}: {tuple(t.shape)} {t.dtype} on {t.device}; "
                              f"expected contiguous {shape} {want} on {dev}")
-    if width > 64:
-        raise ValueError(f"the kernel supports Bottleneck width <= 64, got {width}")
     return width, cout
 
 
@@ -197,15 +252,17 @@ def _bottleneck_chain_cuda(x, blocks, compute_dtype):
         raise ValueError("x must be a contiguous NCHW tensor with 1..65535 samples")
     lib = _lib()
     bsz, cin, h, w = x.shape
-    th = lib.bottleneck_band_rows(h, w)
-    if th == 0:
-        raise ValueError(f"the kernel supports layer widths W <= 96, got {w}")
-    bands = -(-h // th)
+    bf16 = compute_dtype == torch.bfloat16
     blocks = prepare_blocks(blocks, compute_dtype)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     y = x
     for i, blk in enumerate(blocks):
         width, cout = _check_block(blk, cin, compute_dtype, x.device)
+        plan = launch_plan(h, w, width, bf16)
+        smem = lib.bottleneck_smem_bytes(plan.th, plan.tw, width, int(bf16))
+        if smem != plan.smem_bytes:
+            raise RuntimeError(f"launch plan {plan} disagrees with the kernel's limits "
+                               f"(bottleneck_smem_bytes: {smem})")
         last = i == len(blocks) - 1
         out = torch.empty((bsz, cout, h, w), device=x.device,
                           dtype=x.dtype if last else torch.float32)
@@ -215,7 +272,7 @@ def _bottleneck_chain_cuda(x, blocks, compute_dtype):
             hidden = blk["sf1"].shape[1]
             pre = torch.empty((bsz, cout, h, w), device=x.device, dtype=torch.float32)
             idn = torch.empty_like(pre)
-            partial = torch.empty((bsz, bands, cout), device=x.device, dtype=torch.float32)
+            partial = torch.empty((bsz, plan.tiles, cout), device=x.device, dtype=torch.float32)
             gate = torch.empty((bsz, cout), device=x.device, dtype=torch.float32)
         rc = lib.bottleneck_block_forward(
             _ptr(y), _ptr(out), _ptr(pre), _ptr(idn), _ptr(partial), _ptr(gate),
@@ -223,9 +280,8 @@ def _bottleneck_chain_cuda(x, blocks, compute_dtype):
             _ptr(blk["w3"]), _ptr(blk["b3"]), _ptr(blk.get("wd")), _ptr(blk.get("bd")),
             _ptr(blk.get("sf1")), _ptr(blk.get("sb1")), _ptr(blk.get("sf2")),
             _ptr(blk.get("sb2")),
-            bsz, cin, width, cout, hidden, h, w,
-            int(y.dtype == torch.bfloat16), int(compute_dtype == torch.bfloat16),
-            int(out.dtype == torch.bfloat16), stream)
+            bsz, cin, width, cout, hidden, h, w, plan.th, plan.tw,
+            int(y.dtype == torch.bfloat16), int(bf16), int(out.dtype == torch.bfloat16), stream)
         if rc != 0:
             raise RuntimeError(f"bottleneck_block_forward (block {i}) failed: "
                                f"cudaError {rc}")

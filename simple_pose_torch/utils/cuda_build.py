@@ -4,7 +4,12 @@ Each ``csrc/<name>.cu`` exposes a plain C interface.  On first use it is
 compiled for Hopper into ``build/`` at the root of the checkout:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o build/lib<name>-<hash>.so csrc/<name>.cu
+         -Xcompiler -fPIC --split-compile=0 -o build/lib<name>-<hash>.so \
+         csrc/<name>.cu
+
+``--split-compile=0`` runs the optimizer over a source's kernels on all
+cores (bottleneck_chain.cu holds 32 kernel instantiations); the registers
+per kernel stay the same (scripts/time_torch_k2.py prints them).
 
 The file name carries a hash of the source, so an edited source is rebuilt
 and concurrent processes never load a half-written library (each writes a
@@ -32,7 +37,7 @@ __all__ = ["CSRC_DIR", "BUILD_DIR", "build_library", "load_library", "counts_lau
 CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(CSRC_DIR)), "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-shared", "-Xcompiler", "-fPIC", "--split-compile=0"]
 
 
 def _nvcc() -> str:

@@ -9,9 +9,12 @@ import pytest
 import torch
 
 from simple_pose_torch.ops.bottleneck_chain import (
+    MAX_WIDTH,
+    SMEM_LIMIT,
     bottleneck_chain,
     bottleneck_chain_reference,
     fold_bottleneck_blocks,
+    launch_plan,
 )
 
 torch.set_num_threads(1)
@@ -122,6 +125,124 @@ def test_reference_matches_pallas_no_se_chain(dtype, n_blocks):
     else:
         assert err.max() < BF16_MAX_REL * scale and err.mean() < BF16_MEAN_REL * scale, (
             err.max(), err.mean(), scale)
+
+
+def _fan_in_scaled(blocks):
+    """Weights scaled by their fan-in, so every block keeps its size."""
+    for blk in blocks:
+        for k in ("w1", "w3", "wd", "sf1", "sf2"):
+            if k in blk:
+                blk[k] *= 4.0 / np.sqrt(blk[k].shape[0])
+        blk["w2"] *= 10.0 / np.sqrt(9 * blk["w2"].shape[2])
+    return blocks
+
+
+# the shapes beyond a band of whole rows at width 64: the wide ResNets'
+# width 128 (SE and a projection, then an identity block) on a small map,
+# and maps wider than 96 columns at narrow channels
+_WIDE_CASES = {
+    "width128": ((2, 6, 5), 32, 128, 64),
+    "w97": ((1, 3, 97), 16, 8, 32),
+    "w130": ((1, 3, 130), 16, 8, 32),
+}
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("case", sorted(_WIDE_CASES))
+def test_reference_matches_pallas_wide(dtype, case):
+    """The plain version against the JAX kernel where the card's kernel
+    takes 2-D tiles or the width-128 shape (tolerances as above)."""
+    (batch, h, w), cin, width, cout = _WIDE_CASES[case]
+    rng = np.random.default_rng(30)
+    blocks = _fan_in_scaled([_rand_block(rng, cin, width, cout, True, True, hidden=16),
+                             _rand_block(rng, cout, width, cout, False, False)])
+    x = rng.normal(0, 1, (batch, h, w, cin)).astype(np.float32)
+    want = _pallas(x, blocks, dtype)
+    cd = {"f32": torch.float32, "bf16": torch.bfloat16}[dtype]
+    got = bottleneck_chain(_nchw(x), _torch_blocks(blocks), compute_dtype=cd)
+    err = np.abs(got.permute(0, 2, 3, 1).numpy() - want)
+    scale = np.abs(want).max()
+    if dtype == "f32":
+        assert err.max() < 1e-5 * scale, (err.max(), scale)
+    else:
+        assert err.max() < BF16_MAX_REL * scale and err.mean() < BF16_MEAN_REL * scale, (
+            err.max(), err.mean(), scale)
+
+
+def _layer1_widths(name):
+    """Bottleneck widths of a trunk's layer1 blocks, or None where the
+    fused layer1 does not take the trunk (built on the meta device)."""
+    from simple_pose_torch.models.hrnet import HRNET_W32_CFG, HRNET_W48_CFG, PoseHRNet
+    from simple_pose_torch.models.resnet import RESNET_SPECS, PoseResNet
+
+    with torch.device("meta"):
+        if name.startswith("hrnet"):
+            model = PoseHRNet({"hrnet_w32": HRNET_W32_CFG, "hrnet_w48": HRNET_W48_CFG}[name])
+        else:
+            block, layers, extra = RESNET_SPECS[name]
+            model = PoseResNet(block=block, layers=layers, **extra)
+    names = model.layer1_block_names()
+    return None if names is None else {model.get_submodule(n).conv2.weight.shape[0]
+                                       for n in names}
+
+
+# the trunks whose layer1 the fused path folds (layer1_block_names)
+_FOLDABLE = ("hrnet_w32", "hrnet_w48", "resnet101", "resnet152", "resnet50", "wide_resnet101_2",
+             "wide_resnet50_2")
+
+
+def test_foldable_trunks():
+    from simple_pose_torch.models.resnet import RESNET_SPECS
+
+    trunks = sorted(RESNET_SPECS) + ["hrnet_w32", "hrnet_w48"]
+    assert tuple(t for t in sorted(trunks) if _layer1_widths(t) is not None) == _FOLDABLE
+
+
+@pytest.mark.parametrize("trunk", _FOLDABLE)
+def test_launch_plan_covers_every_trunk(trunk):
+    """For every trunk the fused layer1 takes, at the configs' input sizes
+    and at input widths up to 1024 (layer1 at a quarter of the input): the
+    kernel's tiles cover the map once, stay within its tile limits, and
+    their shared memory fits one block of threads (227 KB)."""
+    import glob
+
+    from simple_pose_torch.train.config import load_config
+
+    widths = _layer1_widths(trunk)
+    assert widths <= {64, 128} and max(widths) <= MAX_WIDTH
+    repo = __file__.rsplit("/tests/", 1)[0]
+    sizes = {tuple(load_config(p).data.input_shape) for p in glob.glob(f"{repo}/configs/*.yaml")}
+    assert (192, 256) in sizes
+    maps = {(ih // 4, iw // 4) for iw, ih in sizes}
+    maps |= {(h, iw // 4) for h in (1, 7, 64, 96) for iw in range(4, 1025, 4)}
+    limits = {64: (192, 288), 128: (96, 192)}
+    for width in widths:
+        for h, w in sorted(maps):
+            for bf16 in (False, True):
+                plan = launch_plan(h, w, width, bf16)
+                band, halo = limits[plan.wmax]
+                assert plan.wmax == (64 if width <= 64 else 128)
+                assert 1 <= plan.th <= h and 1 <= plan.tw <= w, (h, w, plan)
+                assert plan.th * plan.tw <= band and (plan.th + 2) * plan.tw <= halo, plan
+                rows = np.zeros(h, int)
+                cols = np.zeros(w, int)
+                for t in range(plan.tiles_h):
+                    rows[t * plan.th:(t + 1) * plan.th] += 1
+                for t in range(plan.tiles_w):
+                    cols[t * plan.tw:(t + 1) * plan.tw] += 1
+                assert (rows == 1).all() and (cols == 1).all(), (h, w, plan)
+                assert 0 < plan.smem_bytes <= SMEM_LIMIT, (h, w, width, bf16, plan)
+                if w <= 96 and width <= 64:  # a band of whole rows, as before 2-D tiles
+                    assert plan.tw == w
+    # the flagship's layer1 keeps its bands of 4 whole rows
+    assert launch_plan(64, 48, 64, True)[:4] == (4, 48, 16, 1)
+
+
+def test_launch_plan_refuses_beyond_the_kernel():
+    with pytest.raises(ValueError, match="widths 1..128"):
+        launch_plan(64, 48, 256, True)
+    with pytest.raises(ValueError, match="empty map"):
+        launch_plan(0, 48, 64, True)
 
 
 def test_zero_pad_after_relu():
@@ -249,10 +370,12 @@ def _check_cuda_chain(device, x, blocks, x_dtype, cd):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("x_dtype,cd", [("f32", "f32"), ("bf16", "bf16"), ("f32", "bf16")])
-@pytest.mark.parametrize("shape", [(3, 16, 12), (2, 7, 48), (1, 5, 70)])
+@pytest.mark.parametrize("shape", [(3, 16, 12), (2, 7, 48), (1, 5, 70), (2, 9, 97), (1, 6, 128),
+                                   (1, 5, 200)])
 def test_kernel_matches_reference_cuda(cuda_device, x_dtype, cd, shape):
     """Kernel vs plain version on the card at odd shapes: a ragged last band
-    (7 rows of 48), a band of 2 rows (W=70), narrow widths."""
+    (7 rows of 48), a band of 2 rows (W=70), 2-D tiles with ragged right and
+    bottom edges (W = 97, 128, 200), narrow widths."""
     batch, h, w = shape
     x, blocks = _chain_np(seed=11, batch=batch, h=h, w=w)
     _check_cuda_chain(cuda_device, x, blocks, x_dtype, cd)
@@ -272,19 +395,16 @@ def test_kernel_ragged_channels_cuda(cuda_device, x_dtype, cd):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("x_dtype,cd", [("f32", "f32"), ("bf16", "bf16"), ("f32", "bf16")])
-def test_kernel_layer1_widths_cuda(cuda_device, x_dtype, cd):
-    """layer1's own widths: 64 -> 64 -> 256, three SE blocks (hidden 16),
-    the first with a projection, batch 2 at 64x48."""
+@pytest.mark.parametrize("width", [64, 72, 128])
+def test_kernel_layer1_widths_cuda(cuda_device, x_dtype, cd, width):
+    """layer1's own widths: 64 -> width -> 256 (64: ResNet-50, HRNet; 128:
+    the wide ResNets; 72: ragged in the width-128 kernel), three SE blocks
+    (hidden 16), the first with a projection, batch 2 at 64x48."""
     rng = np.random.default_rng(13)
-    blocks = [_rand_block(rng, 64, 64, 256, True, True, hidden=16)]
-    blocks += [_rand_block(rng, 256, 64, 256, False, True, hidden=16) for _ in range(2)]
-    for blk in blocks:  # fan-in scaled, so the three blocks keep their size
-        for k in ("w1", "w3", "wd", "sf1", "sf2"):
-            if k in blk:
-                blk[k] *= 4.0 / np.sqrt(blk[k].shape[0])
-        blk["w2"] *= 10.0 / np.sqrt(9 * blk["w2"].shape[2])
+    blocks = [_rand_block(rng, 64, width, 256, True, True, hidden=16)]
+    blocks += [_rand_block(rng, 256, width, 256, False, True, hidden=16) for _ in range(2)]
     x = rng.normal(0, 1, (2, 64, 48, 64)).astype(np.float32)
-    _check_cuda_chain(cuda_device, x, blocks, x_dtype, cd)
+    _check_cuda_chain(cuda_device, x, _fan_in_scaled(blocks), x_dtype, cd)
 
 
 @pytest.mark.cuda
@@ -298,3 +418,21 @@ def test_kernel_no_se_layer1_cuda(cuda_device, x_dtype, cd, n_blocks):
     blocks = _no_se_chain_np(rng, n_blocks, 64, 64, 256)
     x = rng.normal(0, 1, (2, 64, 48, 64)).astype(np.float32)
     _check_cuda_chain(cuda_device, x, blocks, x_dtype, cd)
+
+
+@pytest.mark.cuda
+def test_kernel_checks_the_launch_plan_cuda(cuda_device):
+    """The library's shared memory for each plan equals launch_plan's, and
+    it refuses tiles beyond its limits."""
+    from simple_pose_torch.ops.bottleneck_chain import _lib
+
+    lib = _lib()
+    for width in (8, 64, 72, 128):
+        for h, w in ((64, 48), (64, 97), (7, 200), (1, 1024)):
+            for bf16 in (False, True):
+                plan = launch_plan(h, w, width, bf16)
+                assert lib.bottleneck_smem_bytes(plan.th, plan.tw, width, int(bf16)) == \
+                    plan.smem_bytes
+    assert lib.bottleneck_smem_bytes(4, 48, 129, 1) == 0
+    assert lib.bottleneck_smem_bytes(5, 48, 64, 1) == 0  # 240 pixels > 192
+    assert lib.bottleneck_smem_bytes(3, 48, 128, 1) == 0  # 144 pixels > 96

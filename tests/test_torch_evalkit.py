@@ -20,6 +20,7 @@ torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 R50 = {"type": "pose_resnet_dconv", "name": "resnet50", "num_joints": 17}
 R18 = {"type": "pose_resnet_dconv", "name": "resnet18", "num_joints": 17}
+WIDE50 = {"type": "pose_resnet_dconv", "name": "wide_resnet50_2", "num_joints": 17}
 
 
 def _batch(b=2, canvas=128, out=64):
@@ -45,6 +46,22 @@ def test_fused_evaluator_matches_jax(flip_test):
                        fused_layer1=True, flip_test=flip_test, device="cpu")
     got = ev(batch)
     assert got["kps"].shape == (2, 17, 2) and got["conf"].shape == (2, 17, 1)
+    np.testing.assert_allclose(got["kps"].numpy(), np.asarray(want["kps"]), atol=0.15)
+    np.testing.assert_allclose(got["conf"].numpy(), np.asarray(want["conf"]), atol=1e-3)
+    np.testing.assert_allclose(got["scores"].numpy(), np.asarray(want["scores"]), atol=2e-3)
+
+
+def test_fused_evaluator_wide_layer1_matches_jax():
+    """fused_layer1=True at layer1 width 128 (wide_resnet50_2, amp=False,
+    64x64, batch 2): the same keypoints as the JAX evaluator on its own
+    weights, with the tolerances of the test above."""
+    batch = _batch()
+    jev = jwf.PoseEvaluator(WIDE50, None, (64, 64), amp=False, fused_layer1=True)
+    want = jev(batch)
+    ev = PoseEvaluator(WIDE50, flax_to_torch_state(jev.variables), (64, 64), amp=False,
+                       fused_layer1=True, device="cpu")
+    assert ev._layer1_folded[0]["w2"].shape == (3, 3, 128, 128)
+    got = ev(batch)
     np.testing.assert_allclose(got["kps"].numpy(), np.asarray(want["kps"]), atol=0.15)
     np.testing.assert_allclose(got["conf"].numpy(), np.asarray(want["conf"]), atol=1e-3)
     np.testing.assert_allclose(got["scores"].numpy(), np.asarray(want["scores"]), atol=2e-3)
