@@ -215,9 +215,12 @@ raises, and the script exits non-zero without a result line):
  14. K2 on every layer1 the JAX kernel takes (Bottleneck width 128, maps
      wider than a band of whole rows):
      a. K2 at wide_resnet50_2+SE's seeded layer1 (width 128: 64 -> 128 ->
-        256 channels, 3 blocks, SE, a projection in block 0) against its
+        256 channels, 3 blocks, SE and a projection in block 0) against its
         plain version as in phase 3, bf16 and f32 at batch 32, timed at
         batch 32 and 128 beside the plain version and its cuDNN layer1;
+        bf16 runs the wgmma kernel (bands of 4 whole rows, one block of
+        threads per SM), f32 the CUDA-core kernel; the kernels' line names
+        both, the tile and the blocks per SM;
      b. K2 at ResNet-50+SE's layer1 on 64x97 and 64x128 maps (2-D tiles)
         against its plain version, bf16 and f32, at batch 8, timed there;
      c. phase 4's checks and rates for wide_resnet50_2 (256x192, bf16,
@@ -281,9 +284,11 @@ from simple_pose_torch.models.registry import build_from_cfg
 from simple_pose_torch.models.resnet import build_resnet
 from simple_pose_torch.ops import affine as A
 from simple_pose_torch.ops.bottleneck_chain import (
+    _lib,
     bottleneck_chain,
     bottleneck_chain_reference,
     fold_bottleneck_blocks,
+    launch_plan,
     prepare_blocks,
 )
 from simple_pose_torch.ops import int8_conv as i8
@@ -3191,12 +3196,20 @@ def run_wide_layer1(card):
         t0 = time.perf_counter()
         summary.update(run_wide_entry_points(workdir))
         log("phase 14d-e: " + json.dumps(summary) + f" ({time.perf_counter() - t0:.1f} s)")
+    plan = launch_plan(64, 48, 128, True)
     rows["wide_resnet50_2 layer1"] = {
         "report": report, "timing": timing, "launches": launches["bottleneck_chain"],
         "main_path": "phase 14c: PoseEvaluator(wide_resnet50_2, fused_layer1, flip-test)",
         "extra": {"launches_eval_gt": summary["eval_gt"]["launches"]["bottleneck_chain"],
                   "launches_loaded_artifact":
-                      summary["serve_artifact"]["launches"]["bottleneck_chain"]}}
+                      summary["serve_artifact"]["launches"]["bottleneck_chain"],
+                  "width_128_kernels": {
+                      "bf16": "wide::bottleneck_block_wgmma_kernel (TMA ring of 3 x 32 KB "
+                              "weight chunks, wgmma m64n128k16)",
+                      "f32": "bottleneck_block_kernel<128> (CUDA cores)"},
+                  "bf16_tile": {"th": plan.th, "tw": plan.tw, "smem_bytes": plan.smem_bytes,
+                                "blocks_per_sm": _lib().bottleneck_blocks_per_sm(
+                                    plan.th, plan.tw, 128, 1, 1)}}}
     torch.cuda.empty_cache()
     log(f"phase 14: {time.perf_counter() - t_phase:.1f} s")
     return rows, summary

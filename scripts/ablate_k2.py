@@ -41,8 +41,9 @@ VARIANTS = {
          f"if ({NEVER}) {{ if (a.se) idn[o] = acc[i][j][2 * h + e];\n            else out["),
         ("from_f<TO>(fmaxf(acc[i][j][2 * h + e], 0.f));\n          }\n  }\n}",
          "from_f<TO>(fmaxf(acc[i][j][2 * h + e], 0.f)); }\n          }\n  }\n}"),
-        ("if (n < cout) pre[(size_t)n * HW + g.band.lin(p)] = acc[i][j][2 * h + e];",
-         f"if (n < cout && {NEVER}) pre[(size_t)n * HW + g.band.lin(p)] = acc[i][j][2 * h + e];"),
+        ("if (n < cout) pre[(size_t)n * HW + g.band.lin<kRows>(p)] = acc[i][j][2 * h + e];",
+         f"if (n < cout && {NEVER}) pre[(size_t)n * HW + g.band.lin<kRows>(p)] = "
+         "acc[i][j][2 * h + e];"),
     ],
     "no3x3": [
         ("warp_mma<kP>(acc, a_addr, mt, smem_u32(w2s) + b_off, kw / 16);",
@@ -77,13 +78,14 @@ extern "C" int k2_phase_ns(unsigned long long* out) {
   return (int)e;
 }
 '''
-KERNEL_HEAD = ("template <int kWMax, typename TI, typename TO>\n"
+KERNEL_HEAD = ("template <int kWMax, bool kRows, typename TI, typename TO>\n"
                "__global__ void __launch_bounds__(kThreads, Cfg<kWMax>::kMinBlocks)\n"
                "    bottleneck_block_tc_kernel")
 TIMER_EDITS = [  # (anchor, text put after it)
     ("  bf16* m1s = reinterpret_cast<bf16*>(tc_smem);  // [m1_stride pixels][kP]\n",
      "  unsigned long long t_ = k2_now();\n"),
-    ("    reinterpret_cast<uint4*>(m1s)[i] = make_uint4(0, 0, 0, 0);\n", "  K2_TICK(0);\n"),
+    ("  for (int i = tid; i < m1_stride * kP / 8; i += kThreads)\n"
+     "    reinterpret_cast<uint4*>(m1s)[i] = make_uint4(0, 0, 0, 0);\n", "  K2_TICK(0);\n"),
     ("        stage_w<kWMax, kP>(ws, w1, width, k0, kpad, cin, 0, width);\n"
      "        __syncthreads();\n", "        K2_TICK(1);\n"),
     ("        warp_mma<kP>(acc, a_addr, rmt, smem_u32(ws) + b_off, kpad / 16);\n",
@@ -96,7 +98,8 @@ TIMER_EDITS = [  # (anchor, text put after it)
      "    K2_TICK(7);\n"),
     ("    warp_mma<kP>(acc, a_addr, mt, smem_u32(w3s) + b_off, kw / 16);\n",
      "    K2_TICK(8);\n"),
-    ("        a.partial[((size_t)b * a.tiles + blockIdx.x) * cout + n0 + tid] = s;\n      }\n",
+    ("        for (int m = 1; m < kMG; ++m) s += red[m * kNTile + tid];\n"
+     "        a.partial[((size_t)b * a.tiles + blockIdx.x) * cout + n0 + tid] = s;\n      }\n",
      "      K2_TICK(9);\n"),
     ("        stage_w<kWMax, kP>(wds, wd, cout, k0, kpad, cin, n0, cout);\n"
      "        __syncthreads();\n", "        K2_TICK(10);\n"),

@@ -1,17 +1,31 @@
 """Where the fused layer1 kernel K2's time goes, on one CUDA card.
 
-    python scripts/profile_torch_k2.py [--batch 128] [--calls 3]
+    python scripts/profile_torch_k2.py [--batch 128] [--calls 3] [--model wide_resnet50_2]
+    python scripts/profile_torch_k2.py --timers [--batch 128]
 
 Builds csrc/bottleneck_chain.cu, counts the tensor-core instructions
-(``HMMA``) of each kernel in its SASS (``cuobjdump -sass``), then traces
-``--calls`` bf16 calls of the chain at chip_smoke.py's layer1 shapes (the
-flagship ResNet-50+SE layer1, x [batch, 64, 64, 48], BN folded from seeded
+(``HMMA``: mma.sync, ``HGMMA``: wgmma) of each kernel in its SASS
+(``cuobjdump -sass``), then traces
+``--calls`` bf16 calls of the chain at chip_smoke.py's layer1 shapes
+(``--model``'s layer1 with SE: the flagship resnet50, width 64, or
+wide_resnet50_2, width 128; x [batch, 64, 64, 48], BN folded from seeded
 statistics) with torch.profiler.  Prints, as JSON lines: the card (nvidia-smi
 name and power limit), the HMMA counts, and per kernel (the block kernel,
 ``se_gate_kernel``, ``se_apply_kernel``) the device ms per call, its share,
 and the bytes that the code moves counted from its loads and stores (no
 cache reuse assumed) over 3.35 TB/s, beside the chain's operations bound;
 and the block kernel's device ms for each Bottleneck block.
+
+``--timers`` instead copies the package to build/k2_timers/ with the kernel
+source built under ``K2_PHASE_TIMERS`` (cycle counters in the wgmma kernel,
+see ``wide::kTimers``) and runs wide_resnet50_2+SE's layer1 one Bottleneck
+block at a time (x bf16 into block 0, f32 into blocks 1-2): per block the
+cycles per block of threads that a consumer warp spends in each region the
+kernel's ``kTimers`` names (waiting for a weight chunk, its products,
+staging x, the epilogues, the barriers, all), and that the producer spends
+waiting for a free stage, with their shares.  The counters cost
+time, so the shares are what the copy is for, beside the ms of the same
+launch without them.
 Needs a card; imports torch, numpy and simple_pose_torch only.
 """
 
@@ -47,7 +61,7 @@ from simple_pose_torch.ops.bottleneck_chain import (  # noqa: E402
 )
 from simple_pose_torch.utils.cuda_build import build_library  # noqa: E402
 
-KERNEL_GROUPS = {"block": "bottleneck_block_tc_kernel", "se_gate": "se_gate_kernel",
+KERNEL_GROUPS = {"block": "bottleneck_block", "se_gate": "se_gate_kernel",
                  "se_apply": "se_apply_kernel"}
 
 
@@ -65,9 +79,10 @@ def hmma_counts(lib_path: str) -> dict:
         m = re.search(r"Function : (\S+)", line)
         if m:
             current = m.group(1)
-            counts[current] = 0
-        elif current is not None and re.search(r"\bHMMA\b", line):
-            counts[current] += 1
+            counts[current] = {"HMMA": 0, "HGMMA": 0}
+        elif current is not None:
+            for op in re.findall(r"\b(HG?MMA)\b", line):
+                counts[current][op] += 1
     return counts
 
 
@@ -99,19 +114,85 @@ def design_bytes(blocks, batch, h, w, th) -> tuple:
     return out, weight_rereads
 
 
+TIMERS_CHILD = r"""
+import ctypes, json, sys
+import numpy as np, torch
+sys.path.insert(0, ".")
+from chip_smoke import cuda_ms, seeded_layer1
+from simple_pose_torch.models.resnet import build_resnet
+from simple_pose_torch.ops.bottleneck_chain import (
+    _lib, bottleneck_chain, fold_bottleneck_blocks, launch_plan, prepare_blocks)
+batch = int(sys.argv[1])
+blocks = prepare_blocks(fold_bottleneck_blocks(list(seeded_layer1(
+    build_resnet("wide_resnet50_2", se=True)))), torch.bfloat16)
+lib = _lib()
+lib.k2_phase_cycles.argtypes = [ctypes.c_void_p]
+names = ("wait_chunk", "products", "stage_x", "store_m1", "barriers_after_a_b", "store_m2",
+         "bias3_and_se", "identity", "store_out", "all")
+buf = (ctypes.c_ulonglong * (len(names) + 2))()
+rng = np.random.default_rng(1)
+tiles = launch_plan(64, 48, 128, True).tiles
+for i, blk in enumerate(blocks):
+    cin = blk["w1"].shape[0]
+    x = torch.from_numpy(np.abs(rng.normal(0, 1, (batch, cin, 64, 48))).astype(np.float32)).cuda()
+    x = x.to(torch.bfloat16) if i == 0 else x
+    ms = cuda_ms(lambda: bottleneck_chain(x, [blk], torch.bfloat16), iters=5)
+    assert lib.k2_phase_cycles(ctypes.addressof(buf)) == 0
+    bottleneck_chain(x, [blk], torch.bfloat16)
+    torch.cuda.synchronize()
+    assert lib.k2_phase_cycles(ctypes.addressof(buf)) == 0
+    ctas = batch * tiles
+    warp = {n: buf[k] / (12 * ctas) for k, n in enumerate(names)}
+    prod = {"wait_stage": buf[len(names)] / ctas, "all": buf[len(names) + 1] / ctas}
+    shares = {n: warp[n] / warp["all"] for n in names[:-1]}
+    shares["rest"] = 1 - sum(shares.values())
+    print(json.dumps({"block": i, "ms_with_timers": ms, "ctas": ctas,
+                      "consumer_warp_cycles_per_cta": warp, "consumer_shares": shares,
+                      "producer_cycles_per_cta": prod,
+                      "producer_wait_share": prod["wait_stage"] / prod["all"]}), flush=True)
+"""
+
+
+def run_timers(batch: int) -> None:
+    """--timers: the cycle counters of the wgmma kernel, in a copy of the
+    package whose kernel source defines K2_PHASE_TIMERS."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    dst = os.path.join(root, "build", "k2_timers")
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(os.path.join(root, "simple_pose_torch"), os.path.join(dst, "simple_pose_torch"),
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(os.path.join(root, "chip_smoke.py"), dst)
+    src = os.path.join(dst, "simple_pose_torch", "csrc", "bottleneck_chain.cu")
+    with open(src) as f:
+        text = f.read()
+    with open(src, "w") as f:
+        f.write("#define K2_PHASE_TIMERS\n" + text)
+    proc = subprocess.run([sys.executable, "-c", TIMERS_CHILD, str(batch)], cwd=dst,
+                          capture_output=True, text=True, timeout=900)
+    if proc.returncode != 0:
+        raise SystemExit(f"timers run failed:\n{proc.stdout[-3000:]}\n{proc.stderr[-6000:]}")
+    print(proc.stdout, end="")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=128)
     ap.add_argument("--calls", type=int, default=3)
+    ap.add_argument("--model", default="resnet50", choices=("resnet50", "wide_resnet50_2"))
+    ap.add_argument("--timers", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_k2: no CUDA device", file=sys.stderr)
         return 2
     card = card_line()
+    if args.timers:
+        print(json.dumps({"card": card, "timers": "wide_resnet50_2 layer1", "batch": args.batch}))
+        run_timers(args.batch)
+        return 0
     lib_path, _ = build_library("bottleneck_chain")
     print(json.dumps({"card": card, "hmma_per_kernel": hmma_counts(lib_path)}))
 
-    layer1 = seeded_layer1(build_resnet("resnet50", se=True))
+    layer1 = seeded_layer1(build_resnet(args.model, se=True))
     blocks = prepare_blocks(fold_bottleneck_blocks(list(layer1)), torch.bfloat16)
     rng = np.random.default_rng(1)
     x = torch.from_numpy(np.abs(rng.normal(0, 1, (args.batch, 64, 64, 48)))
@@ -133,7 +214,7 @@ def main() -> int:
         by_group[g] = by_group.get(g, 0.0) + (e.time_range.end - e.time_range.start) / args.calls
     total_us = sum(by_group.values())
 
-    th = launch_plan(64, 48, 64, True).th  # bands of whole rows at 64x48
+    th = launch_plan(64, 48, blocks[0]["w1"].shape[1], True).th  # whole-row bands at 64x48
     nbytes, weight_rereads = design_bytes(blocks, args.batch, 64, 48, th)
     flops, io_bytes = chain_work(blocks, args.batch, 64, 48, 2)
     split = {}
@@ -142,7 +223,8 @@ def main() -> int:
         split[key] = {"device_ms_per_call": us / 1e3, "share": us / total_us if total_us else 0.0,
                       "design_mbytes": nbytes[key] / 1e6,
                       "design_bytes_ms_at_peak": nbytes[key] / PEAK_BYTES * 1e3}
-    print(json.dumps({"card": card, "batch": args.batch, "calls": args.calls,
+    print(json.dumps({"card": card, "model": args.model, "batch": args.batch,
+                      "calls": args.calls,
                       "device_ms_per_call": total_us / 1e3,
                       "kernel_launches_per_call": len(kernels) / args.calls, "split": split,
                       "block_kernel_ms_by_block": [

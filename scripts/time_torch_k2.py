@@ -1,8 +1,10 @@
 """Time the fused layer1 kernel K2 in one or more checkouts: `chip_smoke.py`'s
-phase 3 (the flagship ResNet-50+SE layer1, x [32, 64, 64, 48], against its
-plain version in bf16 and f32, then timed at batch 32 and 128 beside the
-plain version and cuDNN's layer1), one process per checkout, in the order
-given, after each checkout's registers and spills per kernel.
+phase 3 (the flagship ResNet-50+SE layer1, width 64) and phase 14a
+(wide_resnet50_2+SE's layer1, width 128), each on x [32, 64, 64, 48]
+against its plain version in bf16 and f32, then timed at batch 32 and 128
+beside the plain version and cuDNN's layer1 of the same model, in the same
+process; one process per checkout, in the order given, after each
+checkout's registers, stack, static shared memory and spills per kernel.
 
     python scripts/time_torch_k2.py [TREE ...]        (default: .)
 
@@ -14,8 +16,10 @@ that .gitignore lists and run both in the order old, new, new, old:
     python scripts/time_torch_k2.py archive_check/parent . . archive_check/parent
 
 Each checkout builds its own library into its own build/.  Prints the
-card's name and power limit, then per run one JSON line of the kernel's
-resources (``cuobjdump -res-usage``) and one of its errors and times.
+card's name and power limit, then per run one JSON line of the kernels'
+resources (``cuobjdump -res-usage``; with the dynamic shared memory and the
+blocks per SM of the wide layer1's launch where the library reports them)
+and one of errors and times per layer1.
 """
 
 from __future__ import annotations
@@ -35,10 +39,17 @@ from simple_pose_torch.models.resnet import build_resnet
 from simple_pose_torch.utils.cuda_build import build_library
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+from simple_pose_torch.ops.bottleneck_chain import _lib, launch_plan
 path, seconds = build_library("bottleneck_chain")
-print(json.dumps({"library": path, "nvcc_s": seconds}), flush=True)
-report, timing = C.check_chain_kernel(C.seeded_layer1(build_resnet("resnet50", se=True)))
-print(json.dumps({"errors": report, "timing": timing}))
+plan = launch_plan(64, 48, 128, True)
+lib = _lib() if hasattr(_lib(), "bottleneck_blocks_per_sm") else None
+occupancy = lib and lib.bottleneck_blocks_per_sm(plan.th, plan.tw, 128, 1, 1)
+print(json.dumps({"library": path, "nvcc_s": seconds, "wide_plan": plan._asdict(),
+                  "wide_blocks_per_sm": occupancy}), flush=True)
+for model in ("resnet50", "wide_resnet50_2"):
+    report, timing = C.check_chain_kernel(C.seeded_layer1(build_resnet(model, se=True)),
+                                          f"{model} layer1 chain")
+    print(json.dumps({"layer1": model, "errors": report, "timing": timing}), flush=True)
 """
 
 
@@ -53,7 +64,7 @@ def resources(lib_path: str) -> dict:
         if m:
             name = m.group(1)
         elif name and "bottleneck_block" in name and "REG:" in line:
-            out[name] = {k: int(v) for k, v in re.findall(r"(REG|STACK|LOCAL):(\d+)", line)}
+            out[name] = {k: int(v) for k, v in re.findall(r"(REG|STACK|SHARED|LOCAL):(\d+)", line)}
     return out
 
 
@@ -69,12 +80,16 @@ def main(argv=None):
             print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
             raise SystemExit(f"{tree}: rc {proc.returncode}")
         lines = [json.loads(x) for x in proc.stdout.splitlines() if x.startswith("{")]
-        print(json.dumps({"tree": os.path.relpath(tree), "nvcc_s": lines[0]["nvcc_s"],
-                          "resources": resources(lines[0]["library"])}), flush=True)
-        res = lines[-1]
-        print(json.dumps({"tree": os.path.relpath(tree),
-                          "kernel_ms": {k: v["kernel_ms"] for k, v in res["timing"].items()},
-                          **res}), flush=True)
+        head = lines[0]
+        print(json.dumps({"tree": os.path.relpath(tree), "nvcc_s": head["nvcc_s"],
+                          "wide_plan": head["wide_plan"],
+                          "wide_blocks_per_sm": head["wide_blocks_per_sm"],
+                          "resources": resources(head["library"])}), flush=True)
+        for res in lines[1:]:
+            print(json.dumps({"tree": os.path.relpath(tree),
+                              "kernel_ms": {k: v["kernel_ms"] for k, v in res["timing"].items()},
+                              "library_ms": {k: v["library_ms"] for k, v in res["timing"].items()},
+                              **res}), flush=True)
 
 
 if __name__ == "__main__":

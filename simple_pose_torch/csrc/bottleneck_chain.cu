@@ -18,15 +18,38 @@
 // 64x48x256 out, width 64) the chain is ~1.3 GFLOP per sample against
 // ~2 MB of bf16 in and out, far above the H100's ~295 FLOP/byte ridge:
 // it is bound by operations (the wide ResNets' width 128: ~3.9 GFLOP per
-// sample on the same bytes).  Two kernels, chosen by the compute type:
-//   bf16: bottleneck_block_tc_kernel, all four products (conv1, the 3x3,
-//         conv3, the projection) through one warp-level bf16 tensor-core
-//         routine (mma.sync m16n8k16, f32 accumulate, ldmatrix operands);
+// sample on the same bytes).  Three kernels, chosen by the compute type
+// and the width:
+//   bf16, width <= 64: bottleneck_block_tc_kernel, all four products
+//         (conv1, the 3x3, conv3, the projection) through one warp-level
+//         bf16 tensor-core routine (mma.sync m16n8k16, f32 accumulate,
+//         ldmatrix operands);
+//   bf16, widths 65-128: wide::bottleneck_block_wgmma_kernel (below);
 //   f32:  bottleneck_block_kernel, f32 FMAs on the CUDA cores, since tensor
 //         cores would round f32 operands (TF32 or bf16).
 // With the products on tensor cores, what the design still moves (the f32
 // pre/idn scratch of the SE pass, the f32 carry read twice, each tile's
 // halo) and its unoverlapped staging set the pace, not the products.
+//
+// Width 128 (wide_resnet50_2 / 101_2): ~3.9 GFLOP per sample, ~70% of it
+// the 3x3 (9 x 128 x 128 per pixel), so every block of threads needs all
+// ~420 KB of the block's bf16 weights, more than its shared memory, for
+// every tile it takes: the weights stream from L2 through shared memory
+// once per tile, and each output pixel's share of that stream is what the
+// tile size sets.  Staged by the threads themselves, with a barrier before
+// and after each tap, the stream and the products took turns (the
+// mma.sync kernel of widths up to 128: 5.6% of the operations bound, 1.62x
+// cuDNN's layer1).  The wgmma kernel takes 192-pixel tiles (twice the
+// old kernel's, so half the weight bytes per pixel) and hands the stream
+// to TMA: a producer warpgroup keeps a ring of three 32 KB weight chunks in
+// flight on mbarriers while three consumer warpgroups multiply the chunk
+// that has arrived with wgmma, the only instruction that reaches the
+// tensor cores' full rate on Hopper.  Its products now run near that rate
+// and the producer mostly waits for a free stage; what sets its pace is
+// the activations' global memory latency in each block of threads (one per
+// SM, with all SMs of a wave in the same phase): staging x for conv1, the
+// identity's loads and the epilogue's global stores (scripts/
+// profile_torch_k2.py --timers).
 //
 // Design.  The TPU kernel keeps a whole 64x48x256 sample in VMEM (~1.5 MB);
 // a Hopper block has 227 KB of shared memory.  So each thread block owns one
@@ -53,17 +76,14 @@
 //
 // Width.  Every output channel of the 3x3 reads every m1 channel of the
 // halo, and m2 overwrites m1 in place once the 3x3 is done, so one pass of
-// the 3x3 covers all `width` output channels.  The tile therefore shrinks as
-// the width grows, with the same 8 warps and the same accumulator registers
-// per thread (Cfg below): up to width 64, tiles of up to 192 pixels and
-// passes of 64 channels (the bf16 kernel's warps 4 along pixels x 2 along
-// channels); up to width 128 (wide_resnet50_2 / 101_2), tiles of up to 96
-// pixels and passes of 128 channels (2 x 4).  Taking m1 and w2 through in
-// 64-channel chunks instead would keep the tile, but the 3x3's sums for
-// all 128 channels would then live across the chunks: twice the
-// accumulator registers, or m2 in a buffer of its own beside m1.  At width
-// 128 a block takes ~150 KB (bf16), so one block runs per SM, against two
-// at width 64.
+// the 3x3 covers all `width` output channels.  The f32 kernel's tile
+// therefore shrinks as the width grows, with the same 8 warps and the same
+// accumulator registers per thread (Cfg below): up to width 64, tiles of up
+// to 192 pixels and passes of 64 channels; up to width 128, tiles of up to
+// 96 pixels and passes of 128 channels.  The bf16 kernels: up to width 64,
+// mma.sync with Cfg<64>'s tiles (warps 4 along pixels x 2 along channels);
+// widths 65-128, the wgmma kernel with 16 warps and 192-pixel tiles (its
+// section below says why).
 //
 // SE needs the spatial mean over the whole sample before the residual add,
 // so an SE block runs in two passes: pass 1 writes the pre-gate output, the
@@ -77,8 +97,10 @@
 // memory and the B operand is a warp-wide broadcast.  The bf16 kernel's
 // tiling is at bottleneck_block_tc_kernel.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <dlfcn.h>
 #include <stdint.h>
 
 namespace {
@@ -89,8 +111,9 @@ constexpr int kMaxSmem = 232448;      // one block's shared memory (227 KB)
 
 constexpr int cmax(int a, int b) { return a > b ? a : b; }
 
-// The tile limits and the two kernels' shapes for Bottleneck widths up to
-// kWMax (64 or 128).
+// The tile limits and the shapes of the f32 kernel for Bottleneck widths up
+// to kWMax (64 or 128), and of the mma.sync kernel (kWMax 64 only: wider
+// bf16 blocks run the wgmma kernel, namespace wide).
 template <int kWMax>
 struct Cfg {
   static_assert(kWMax == 64 || kWMax == 128, "the kernels take widths up to 64 or up to 128");
@@ -109,7 +132,7 @@ struct Cfg {
   // (a K chunk of one 3x3 tap), phase C (w3 chunk + x chunk + wd chunk)
   static constexpr int kWork = cmax(cmax(kKC * kPA * 32 + kKC * kNTile, kKB * kNTile),
                                     kKB * kNTile + kKC * kBand + kKC * kNTile);
-  // bf16 kernel: row pitch of the smem tiles (144 or 272 B, so the 8 rows of
+  // mma.sync kernel: row pitch of the smem tiles (144 B, so the 8 rows of
   // an ldmatrix fall in distinct banks), warps along N (32 channels each)
   // and along M (pixels), m16 tiles per warp
   static constexpr int kP = kWMax + 8;
@@ -597,8 +620,8 @@ __device__ __forceinline__ void stage_w(__nv_bfloat16* ws, const __nv_bfloat16* 
   }
 }
 
-// The bf16 block: the same three phases, tiles and epilogue as
-// bottleneck_block_kernel, with every product in warp_mma.  Shared memory
+// The bf16 block up to width 64: the same three phases, tiles and epilogue
+// as bottleneck_block_kernel, with every product in warp_mma.  Shared memory
 // holds activations as [pixel][channel] bf16 and weights as [n][k] bf16.
 // Warp g owns m-tiles g/kNG, g/kNG + kMG, g/kNG + 2kMG of up to kBand
 // pixels and 32 of a pass's kNTile channels; an f32 C fragment holds pixels
@@ -839,6 +862,622 @@ __global__ void __launch_bounds__(kThreads, Cfg<kWMax>::kMinBlocks)
   }
 }
 
+// ---- the width-128 bf16 kernel (Bottleneck widths 65-128, wgmma) ------------
+//
+// One block of threads takes one tile of up to kBand = 192 pixels (4 whole
+// rows of the 64x48 map: three 64-row wgmma tiles) with 4 warpgroups:
+// warpgroups 0-2 compute, warpgroup w on tile pixels 64w .. 64w + 63 with its
+// 64 x 128 f32 sums in registers (64 per thread); warpgroup 3 is the
+// producer, and hands its registers to the consumers (setmaxnreg: 160 per
+// consumer thread, where 13 warps would cap every thread at 128).  Every
+// weight reaches shared memory as chunks of [K <= 128][128 channels] bf16 in
+// a ring of kStages stages: the producer's thread 0 waits until the stage is
+// free (its `empty` mbarrier: every consumer warp arrives after its last
+// wgmma on it), then asks TMA for two boxes of [K][64 channels] through the
+// weight's tensor map, completing on the stage's `full` mbarrier.  TMA reads
+// the folded weights as they are ([K][N], N contiguous) and writes them with
+// the 128-byte swizzle, the MN-major layout that wgmma reads B in (`imm-trans-b`),
+// out-of-range rows and columns as zeros.  So the weights of tap t + 1 are in
+// flight while tap t is multiplied, and nothing transposes them.
+//
+// The chunks, in the order both sides walk them:
+//   A. per round of up to kBand halo pixels, per 64 input channels: w1;
+//   B. per 3x3 tap: w2[tap] (K = width);
+//   C. per pass of 128 output channels: w3, then per 64 input channels wd.
+// Products: wgmma.mma_async m64n128k16 (bf16 in, f32 sums), A from registers
+// (ldmatrix from a [pixel][channel] bf16 tile, so the 3x3's A rows are the
+// halo at pixel + shift), B from the stage by descriptor.  Activations are
+// staged by the consumers: x with 16-byte loads where its rows allow (whole
+// rows, aligned), converted to bf16 in shared memory [pixel][64 channels].
+// The numerics are those of the other kernels: operands rounded to bf16
+// where the plain version rounds them, f32 sums, biases and carry, the zero
+// pad after the relu, per-tile SE sums in a fixed order.
+
+namespace wide {
+
+constexpr int kConsumers = 384;              // warpgroups 0-2
+constexpr int kThreadsW = kConsumers + 128;  // and the producer warpgroup
+// registers per thread after setmaxnreg (launched at 65536 / 512 = 128): the
+// producer gives up what the consumers' 64 sums and 32 A registers need
+constexpr int kProducerRegs = 32, kConsumerRegs = 160;
+static_assert(kProducerRegs * 128 + kConsumerRegs * kConsumers <= 65536, "one SM's registers");
+constexpr int kWarpsC = kConsumers / 32;
+constexpr int kBand = 192;                   // tile pixels: 3 x m64
+constexpr int kStore = 320;                  // (th + 2) * (tw + 2): m1 on the tile and its ring
+constexpr int kN = 128;                      // channels of one product (width, or a pass of cout)
+constexpr int kP = kN + 8;                   // m1 / m2 row pitch: 272 B, banks apart per row
+constexpr int kKX = 64;                      // x channels per chunk (phase A, the projection)
+constexpr int kXP = kKX + 8;                 // x tile row pitch: 144 B
+constexpr int kStages = 3;
+constexpr int kStageBytes = 32768;           // two boxes of [128 k][64 n] bf16
+// shared memory after aligning to 1024 B (the swizzle's period):
+// [ring][x tile][SE sums][biases][mbarriers][m1 / m2]; the biases: b1, b2,
+// then b3 and bd of the even passes of conv3, then of the odd ones
+constexpr int kXOff = kStages * kStageBytes;
+constexpr int kRedOff = kXOff + kBand * kXP * 2;
+constexpr int kBiasOff = kRedOff + kWarpsC * kN * 4;
+constexpr int kBarOff = kBiasOff + 6 * kN * 4;
+constexpr int kM1Off = kBarOff + 64;
+
+bool tile_fits(int th, int tw) { return th * tw <= kBand && (th + 2) * (tw + 2) <= kStore; }
+
+size_t smem_bytes(int th, int tw) {
+  return 1024 + kM1Off + sizeof(__nv_bfloat16) * (size_t)(th + 2) * (tw + 2) * kP;
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+// Wait for the phase of parity `parity` to complete; trap after ~2^32
+// cycles (a schedule that went wrong ends the launch with an error).
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  long long t0 = 0;
+  while (true) {
+    uint32_t done;
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.b32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (t0 == 0) t0 = clock64();
+    else if (clock64() - t0 > (1ll << 32)) __trap();
+  }
+}
+
+// Two boxes of a weight chunk (channels c_n .. c_n + 63 and c_n + 64 ..
+// c_n + 127) into dst and dst + box, completing on bar.
+__device__ __forceinline__ void tma_chunk(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                          int c_n, int c_k, int tap, uint32_t box) {
+  const uint64_t m = reinterpret_cast<uint64_t>(map);
+  mbar_expect_tx(bar, 2 * box);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (tap < 0)
+      asm volatile(
+          "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+          " [%0], [%1, {%3, %4}], [%2];" ::"r"(dst + h * box),
+          "l"(m), "r"(bar), "r"(c_n + 64 * h), "r"(c_k)
+          : "memory");
+    else
+      asm volatile(
+          "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+          " [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst + h * box),
+          "l"(m), "r"(bar), "r"(c_n + 64 * h), "r"(c_k), "r"(tap)
+          : "memory");
+  }
+}
+
+// wgmma descriptor of an MN-major B tile with the 128-byte swizzle: 8-row
+// K groups 1024 B apart, the two 64-channel boxes `box` bytes apart.
+__device__ __forceinline__ uint64_t b_desc(uint32_t addr, uint32_t box) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(box >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// Keeps the compiler from moving reads or writes of the sums across the
+// asynchronous wgmma (its register operands are only ready after the wait).
+__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void wgmma_128(float (&d)[64], const uint32_t (&a)[4], uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// Cycle counters of scripts/profile_torch_k2.py --timers, which builds a
+// copy of this file with K2_PHASE_TIMERS defined.  Per consumer warp: the
+// cycles waiting for a chunk, in its products (ldmatrix, wgmma and their
+// wait), staging x (with the barriers around it), storing m1 (with the
+// zero fill), at the barriers after phases A and B, storing m2, in conv3's
+// bias and the SE sums (with their barriers), adding the identity (x, or
+// the projection's bias), storing the output, and in all; per producer:
+// waiting for a free stage, and in all.  Without the macro they compile to
+// nothing.
+enum { kTWait, kTMma, kTStage, kTEpiA, kTSync, kTEpiB, kTSe, kTIdn, kTOut, kTAll,
+       kTProdWait, kTProdAll, kTimers };
+#ifdef K2_PHASE_TIMERS
+__device__ unsigned long long g_k2_cycles[kTimers];
+#define K2_MARK(t) const long long t = clock64()
+#define K2_ADD(k, t) (k2c[k] += clock64() - (t))
+#define K2_FLUSH(k0, k1)                                                 \
+  if ((threadIdx.x & 31) == 0)                                           \
+    for (int k = k0; k < k1; ++k) atomicAdd(&g_k2_cycles[k], k2c[k])
+#else
+#define K2_MARK(t)
+#define K2_ADD(k, t)
+#define K2_FLUSH(k0, k1)
+#endif
+using Timers = unsigned long long[kTimers];
+
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;" ::"n"(kConsumers) : "memory");
+}
+
+// The ring as each side walks it: chunk i sits in stage i % kStages and
+// fills for the (i / kStages)-th time.
+struct Ring {
+  uint32_t base, full, empty;  // stage 0, its full and empty mbarriers (8 B apart per stage)
+  int i = 0;
+  __device__ __forceinline__ int stage() const { return i % kStages; }
+  __device__ __forceinline__ uint32_t parity() const { return (i / kStages) & 1; }
+  __device__ __forceinline__ uint32_t full_bar() const { return full + 8 * stage(); }
+  __device__ __forceinline__ uint32_t empty_bar() const { return empty + 8 * stage(); }
+  __device__ __forceinline__ uint32_t data() const { return base + kStageBytes * stage(); }
+};
+
+// One chunk on the consumer side: wait for it, then (if this warpgroup has
+// rows) acc += A . chunk over ksteps k16 steps, A's rows from this lane's
+// ldmatrix address a_addr (k offset 0), then release the stage.
+__device__ __forceinline__ void consume(Ring& r, float (&acc)[64], bool active, uint32_t a_addr,
+                                        int ksteps, uint32_t box, Timers& k2c) {
+  K2_MARK(t0);
+  mbar_wait(r.full_bar(), r.parity());
+  K2_ADD(kTWait, t0);
+  K2_MARK(t1);
+  if (active) {
+    uint32_t a[8][4];
+#pragma unroll
+    for (int ks = 0; ks < 8; ++ks)
+      if (ks < ksteps) ldsm_x4(a[ks], a_addr + 32 * ks);
+    fence_acc(acc);
+    asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+#pragma unroll
+    for (int ks = 0; ks < 8; ++ks)
+      if (ks < ksteps) wgmma_128(acc, a[ks], b_desc(r.data() + 2048 * ks, box));
+    asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+    fence_acc(acc);
+  }
+  K2_ADD(kTMma, t1);
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) mbar_arrive(r.empty_bar());
+  ++r.i;
+}
+
+__device__ __forceinline__ void zero64(float (&acc)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+}
+
+// 16-byte loads of 8 pixels of one channel, as f32
+__device__ __forceinline__ void load8(float (&v)[8], const float* p) {
+  const float4 lo = *reinterpret_cast<const float4*>(p);
+  const float4 hi = *reinterpret_cast<const float4*>(p + 4);
+  v[0] = lo.x, v[1] = lo.y, v[2] = lo.z, v[3] = lo.w, v[4] = hi.x, v[5] = hi.y, v[6] = hi.z,
+  v[7] = hi.w;
+}
+__device__ __forceinline__ void load8(float (&v)[8], const __nv_bfloat16* p) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+    v[2 * i] = f.x, v[2 * i + 1] = f.y;
+  }
+}
+
+// Pixels q0 .. q0 + kBand of map m (zero past `rows`), channels k0 .. k0 +
+// 63 of x (zero past cin), for xs [kBand][kXP] as bf16, in two steps: load
+// (into registers) and store.  An item is 8 pixels of a channel pair, two
+// items a thread; neighbouring lanes take neighbouring pairs, so the shared
+// stores fall in distinct banks.  Where the 8 pixels are one aligned span
+// (whole rows), each lane reads 32 contiguous bytes of a channel (one
+// sector) with 16-byte loads (one load for bf16 x).
+template <bool kRows, typename TI>
+struct XTile {
+  static constexpr int kVec = 16 / sizeof(TI);  // pixels of one 16-byte load
+  static_assert((kBand / 8) * (kKX / 2) == 2 * kConsumers, "two items per consumer thread");
+  float v[2][2][8];
+
+  __device__ __forceinline__ void load(const TI* x, int HW, const PixMap& m, int q0, int rows,
+                                       int k0, int cin) {
+    const bool vec = kRows && HW % kVec == 0 && (m.lin0 + q0) % kVec == 0 &&
+                     reinterpret_cast<uintptr_t>(x) % 16 == 0;
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int i = threadIdx.x + u * kConsumers;
+      const int p = 8 * (i / (kKX / 2)), c = k0 + 2 * (i % (kKX / 2));
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const bool cok = c + e < cin;
+        const TI* xc = x + (size_t)(cok ? c + e : 0) * HW;
+        if (vec && cok && p + 8 <= rows) {
+          load8(v[u][e], xc + m.lin0 + q0 + p);
+        } else {
+#pragma unroll
+          for (int t = 0; t < 8; ++t)
+            v[u][e][t] = cok && p + t < rows ? to_f<TI>(xc[m.lin<kRows>(q0 + p + t)]) : 0.f;
+        }
+      }
+    }
+  }
+
+  __device__ __forceinline__ void store(__nv_bfloat16* xs) const {
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int i = threadIdx.x + u * kConsumers;
+      const int p = 8 * (i / (kKX / 2)), c = 2 * (i % (kKX / 2));
+#pragma unroll
+      for (int t = 0; t < 8; ++t)
+        *reinterpret_cast<__nv_bfloat162*>(xs + (p + t) * kXP + c) =
+            __floats2bfloat162_rn(v[u][0][t], v[u][1][t]);
+    }
+  }
+};
+
+// Store relu(acc + bias) as bf16 rows of 128 channels with stmatrix (four
+// 8x8 blocks an instruction, 16 bytes a row; a 4-byte store per fragment
+// element was markedly slower).  Lane l gives the address of row l % 8
+// of block l / 8, the blocks being (n8 block j, rows 0-7), (j, rows 8-15),
+// (j + 1, 0-7) and (j + 1, 8-15) of this warp's 16 rows; row_addr is this
+// lane's row at channel 0, or where `valid` is false a dummy slot.
+__device__ __forceinline__ void store_rows_bf16(const float (&acc)[64], const float (&bv)[32],
+                                                uint32_t row_addr, bool valid) {
+  const uint32_t col = valid ? 16 * ((threadIdx.x & 31) >> 4) : 0;
+#pragma unroll
+  for (int j = 0; j < 16; j += 2) {
+    uint32_t r[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int jj = j + (i >> 1), h = i & 1;
+      const __nv_bfloat162 v = __floats2bfloat162_rn(
+          fmaxf(acc[4 * jj + 2 * h] + bv[2 * jj], 0.f),
+          fmaxf(acc[4 * jj + 2 * h + 1] + bv[2 * jj + 1], 0.f));
+      r[i] = *reinterpret_cast<const uint32_t*>(&v);
+    }
+    asm volatile("stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                     row_addr + (valid ? 16 * j : 0) + col),
+                 "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
+                 : "memory");
+  }
+}
+
+// This thread's biases of the fragment's channels 8 j + 2 tig + e (bv[2 j +
+// e]) from a 128-channel slot of the biases in shared memory.
+__device__ __forceinline__ void load_bias(float (&bv)[32], const float* slot, int tig) {
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) bv[2 * j + e] = slot[8 * j + 2 * tig + e];
+}
+
+// Tensor maps: w1 [cin][width], w2 [9][width][width], w3 [width][cout],
+// wd [cin][cout] (w3's map where there is no projection).
+template <bool kRows, typename TI, typename TO>
+__global__ void __launch_bounds__(kThreadsW, 1)
+    bottleneck_block_wgmma_kernel(BlockArgs a, const __grid_constant__ CUtensorMap tm_w1,
+                                  const __grid_constant__ CUtensorMap tm_w2,
+                                  const __grid_constant__ CUtensorMap tm_w3,
+                                  const __grid_constant__ CUtensorMap tm_wd) {
+  using bf16 = __nv_bfloat16;
+  extern __shared__ __align__(1024) unsigned char wide_smem[];
+  unsigned char* base = wide_smem + ((1024 - (smem_u32(wide_smem) & 1023)) & 1023);
+  bf16* xs = reinterpret_cast<bf16*>(base + kXOff);
+  float* red = reinterpret_cast<float*>(base + kRedOff);
+  float* bias_s = reinterpret_cast<float*>(base + kBiasOff);
+  bf16* m1s = reinterpret_cast<bf16*>(base + kM1Off);
+  const uint32_t bars = smem_u32(base + kBarOff);
+  Ring ring{smem_u32(base), bars, bars + 8 * kStages};
+
+  const int tid = threadIdx.x;
+  const Tile g = tile_of(a, blockIdx.x);
+  const int width = a.width, cin = a.cin, cout = a.cout;
+  const int rounds = (g.nhalo + kBand - 1) / kBand;
+  const int kchunks = (cin + kKX - 1) / kKX, passes = (cout + kN - 1) / kN;
+  const bool proj = a.wd != nullptr;
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(ring.full + 8 * s, 1);
+      mbar_init(ring.empty + 8 * s, kWarpsC);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  Timers k2c = {};
+  K2_MARK(t_all);
+
+  if (tid >= kConsumers) {
+    // ---- the producer: thread 0 of warpgroup 3 walks the chunks
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
+    if (tid != kConsumers) return;
+    auto issue = [&](const CUtensorMap* map, int c_n, int c_k, int tap, uint32_t box) {
+      K2_MARK(t0);
+      mbar_wait(ring.empty_bar(), ring.parity() ^ 1);
+      K2_ADD(kTProdWait, t0);
+      tma_chunk(ring.data(), map, ring.full_bar(), c_n, c_k, tap, box);
+      ++ring.i;
+    };
+    for (int r = 0; r < rounds; ++r)
+      for (int kc = 0; kc < kchunks; ++kc) issue(&tm_w1, 0, kKX * kc, -1, 64 * kKX * 2);
+    for (int tap = 0; tap < 9; ++tap) issue(&tm_w2, 0, 0, tap, 64 * kN * 2);
+    for (int np = 0; np < passes; ++np) {
+      issue(&tm_w3, kN * np, 0, -1, 64 * kN * 2);
+      if (proj)
+        for (int kc = 0; kc < kchunks; ++kc) issue(&tm_wd, kN * np, kKX * kc, -1, 64 * kKX * 2);
+    }
+    K2_ADD(kTProdAll, t_all);
+    K2_FLUSH(kTProdWait, kTimers);
+    return;
+  }
+
+  // ---- the consumers: warpgroup wg, its warp wq (rows 16 wq .. 16 wq + 15
+  // of the warpgroup's 64), fragment rows gid and gid + 8, channel pair tig
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));
+  const int b = blockIdx.y, HW = a.h * a.w, npix = g.npix;
+  const int lane = tid & 31, wg = tid >> 7, wq = (tid >> 5) & 3, gid = lane >> 2, tig = lane & 3;
+  const int row0 = 64 * wg + 16 * wq;  // this warp's first row of the tile
+  const int a_row = row0 + (lane & 15), a_k = 8 * (lane >> 4);
+  const TI* x = static_cast<const TI*>(a.x) + (size_t)b * cin * HW;
+  float acc[64];
+
+  {
+    K2_MARK(t0);
+    for (int i = tid; i < (a.th + 2) * g.pitch * kP / 8; i += kConsumers)
+      reinterpret_cast<uint4*>(m1s)[i] = make_uint4(0, 0, 0, 0);
+    for (int i = tid; i < 2 * kN; i += kConsumers)  // b1 and b2, zero past the width
+      bias_s[i] = i % kN < width ? (i < kN ? a.b1 : a.b2)[i % kN] : 0.f;
+    K2_ADD(kTEpiA, t0);
+  }
+
+  // ---- A: m1 = relu(x . w1 + b1) on the halo, in rounds of up to kBand
+  // pixels; each x chunk's loads fly while the chunk before it is multiplied
+  XTile<kRows, TI> xt;
+  const int steps = rounds * kchunks;
+  xt.load(x, HW, g.halo, 0, min(kBand, g.nhalo), 0, cin);
+  for (int it = 0; it < steps; ++it) {
+    const int r = it / kchunks, kc = it % kchunks;
+    const int q0 = kBand * r, rows = min(kBand, g.nhalo - q0);
+    if (kc == 0) zero64(acc);
+    K2_MARK(t0);
+    consumers_sync();  // every read of the previous x tile is done
+    xt.store(xs);
+    consumers_sync();
+    if (it + 1 < steps) {
+      const int q1 = kBand * ((it + 1) / kchunks);
+      xt.load(x, HW, g.halo, q1, min(kBand, g.nhalo - q1), kKX * ((it + 1) % kchunks), cin);
+    }
+    K2_ADD(kTStage, t0);
+    consume(ring, acc, 64 * wg < rows, smem_u32(xs + a_row * kXP + a_k), kKX / 16, 64 * kKX * 2,
+            k2c);
+    if (kc + 1 < kchunks) continue;
+    K2_MARK(t_epi);
+    float bv[32];
+    load_bias(bv, bias_s, tig);
+    {
+      const int q = row0 + 8 * ((lane >> 3) & 1) + (lane & 7);
+      const uint32_t row = q < rows ? smem_u32(m1s + halo_m1(g, q0 + q) * kP) : smem_u32(red);
+      store_rows_bf16(acc, bv, row, q < rows);
+    }
+    K2_ADD(kTEpiA, t_epi);
+  }
+  {
+    K2_MARK(t0);
+    consumers_sync();  // m1 is complete
+    K2_ADD(kTSync, t0);
+  }
+
+  // ---- B: m2 = relu(3x3(m1) + b2): per tap, A rows are the halo at pixel + shift
+  zero64(acc);
+  const bool x_once = proj && cin <= kKX;  // the projection's x tile is staged once
+  {
+    const uint32_t m1_row = smem_u32(m1s + band_m1(g, min(a_row, npix - 1)) * kP + a_k);
+    for (int tap = 0; tap < 9; ++tap) {
+      const int shift = (tap / 3) * g.pitch + tap % 3;
+      consume(ring, acc, 64 * wg < npix, m1_row + 2 * kP * shift, kN / 16, 64 * kN * 2, k2c);
+    }
+  }
+  K2_MARK(t_sync);
+  consumers_sync();  // every read of m1 is done: m2 overwrites it
+  K2_ADD(kTSync, t_sync);
+  K2_MARK(t_m2);
+  bf16* m2s = m1s;   // [tile pixel][kP]
+  {
+    float bv[32];
+    load_bias(bv, bias_s + kN, tig);
+    const int p = row0 + 8 * ((lane >> 3) & 1) + (lane & 7);
+    store_rows_bf16(acc, bv, p < npix ? smem_u32(m2s + p * kP) : smem_u32(red), p < npix);
+  }
+  __syncwarp();  // conv3 reads only this warp's own rows of m2
+  K2_ADD(kTEpiB, t_m2);
+
+  // ---- C: o = m2 . w3 + b3, identity, epilogue; kN output channels a pass
+  float* pre = a.pre + (size_t)b * cout * HW;
+  float* idn = a.idn + (size_t)b * cout * HW;
+  TO* out = static_cast<TO*>(a.out) + (size_t)b * cout * HW;
+  const bool active = 64 * wg < npix;
+  const uint32_t xs_row = smem_u32(xs + a_row * kXP + a_k);
+  if (x_once) {
+    K2_MARK(t0);
+    xt.load(x, HW, g.band, 0, npix, 0, cin);
+    xt.store(xs);
+    consumers_sync();
+    K2_ADD(kTStage, t0);
+  }
+  for (int np = 0; np < passes; ++np) {
+    const int n0 = kN * np;
+    // this pass's b3 and bd into their slots (the ones of pass np - 2, whose
+    // readers all passed the barrier of pass np - 1), read after conv3
+    float* pass_bias = bias_s + kN * (2 + 2 * (np & 1));
+    if (tid < 2 * kN) {
+      const int n = n0 + tid % kN;
+      pass_bias[tid] = n < cout && (tid < kN || proj) ? (tid < kN ? a.b3 : a.bd)[n] : 0.f;
+    }
+    // where there is no projection, the identity at this thread's first
+    // fragment row, loaded before conv3 so that its latency hides there
+    float xv0[32];
+    if (!proj) {
+      const int p = row0 + gid, lin = g.band.lin<kRows>(min(p, npix - 1));
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int n = n0 + 8 * j + 2 * tig + e;
+          xv0[2 * j + e] = p < npix && n < cout ? to_f<TI>(x[(size_t)n * HW + lin]) : 0.f;
+        }
+    }
+    zero64(acc);
+    consume(ring, acc, active, smem_u32(m2s + min(a_row, npix - 1) * kP + a_k), kN / 16,
+            64 * kN * 2, k2c);
+    consumers_sync();  // the pass's biases are in place
+    K2_MARK(t_se);
+    {
+      float bv[32];
+      load_bias(bv, pass_bias, tig);
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          acc[4 * j + e] += bv[2 * j + e];
+          acc[4 * j + 2 + e] += bv[2 * j + e];
+        }
+    }
+    if (a.se) {
+      // pre-gate output and this tile's channel sums: per warp over its 16
+      // rows (the xor tree over the lanes of one channel pair), then the 12
+      // warps of a channel in a fixed order (deterministic, no atomics)
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int nl = 8 * j + 2 * tig + e, n = n0 + nl;
+          float s = 0.f;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int p = row0 + gid + 8 * h;
+            if (p < npix) {
+              s += acc[4 * j + 2 * h + e];
+              if (n < cout) pre[(size_t)n * HW + g.band.lin<kRows>(p)] = acc[4 * j + 2 * h + e];
+            }
+            acc[4 * j + 2 * h + e] = 0.f;
+          }
+#pragma unroll
+          for (int o = 4; o < 32; o <<= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+          if (gid == 0) red[(tid >> 5) * kN + nl] = s;
+        }
+      consumers_sync();
+      if (tid < kN && n0 + tid < cout) {
+        float s = red[tid];
+#pragma unroll
+        for (int w = 1; w < kWarpsC; ++w) s += red[w * kN + tid];
+        a.partial[((size_t)b * a.tiles + blockIdx.x) * cout + n0 + tid] = s;
+      }
+      consumers_sync();  // red is free for the next pass
+    }
+    K2_ADD(kTSe, t_se);
+    if (proj) {
+      // identity = x . wd + bd, x's tile staged as bf16 per kKX channels
+      for (int kc = 0; kc < kchunks; ++kc) {
+        if (!x_once) {
+          K2_MARK(t0);
+          xt.load(x, HW, g.band, 0, npix, kKX * kc, cin);
+          consumers_sync();
+          xt.store(xs);
+          consumers_sync();
+          K2_ADD(kTStage, t0);
+        }
+        consume(ring, acc, active, xs_row, kKX / 16, 64 * kKX * 2, k2c);
+      }
+      K2_MARK(t0);
+      float bv[32];
+      load_bias(bv, pass_bias + kN, tig);
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          acc[4 * j + e] += bv[2 * j + e];
+          acc[4 * j + 2 + e] += bv[2 * j + e];
+        }
+      K2_ADD(kTIdn, t0);
+    } else {
+      // identity: the block's input itself, unrounded (cin == cout); the
+      // second fragment row loaded here
+      K2_MARK(t0);
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        acc[4 * j] += xv0[2 * j];
+        acc[4 * j + 1] += xv0[2 * j + 1];
+        const int p = row0 + gid + 8, n = n0 + 8 * j + 2 * tig;
+        if (p >= npix) continue;
+        const int lin = g.band.lin<kRows>(p);
+        if (n < cout) acc[4 * j + 2] += to_f<TI>(x[(size_t)n * HW + lin]);
+        if (n + 1 < cout) acc[4 * j + 3] += to_f<TI>(x[(size_t)(n + 1) * HW + lin]);
+      }
+      K2_ADD(kTIdn, t0);
+    }
+    K2_MARK(t_out);
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int p = row0 + gid + 8 * h, n = n0 + 8 * j + 2 * tig + e;
+          if (p >= npix || n >= cout) continue;
+          const size_t o = (size_t)n * HW + g.band.lin<kRows>(p);
+          if (a.se) idn[o] = acc[4 * j + 2 * h + e];
+          else out[o] = from_f<TO>(fmaxf(acc[4 * j + 2 * h + e], 0.f));
+        }
+    K2_ADD(kTOut, t_out);
+  }
+  K2_ADD(kTAll, t_all);
+  K2_FLUSH(kTWait, kTProdWait);
+}
+
+}  // namespace wide
+
 // One block per sample: v = mean_hw(o) from the tile sums, then
 // g = sigmoid(relu(v . sf1 + sb1) . sf2 + sb2); v and the hidden layer are
 // rounded to the compute type as matrix operands.
@@ -889,17 +1528,72 @@ cudaError_t launch(K kernel, const BlockArgs& a, int batch, size_t smem, cudaStr
   return cudaGetLastError();
 }
 
-// The compute type picks the kernel: bf16 runs on the tensor cores, f32 on
-// the CUDA cores (tensor cores would round f32 operands).
+// cuTensorMapEncodeTiled from the driver the process has loaded (no link
+// against libcuda).
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = []() -> EncodeTiledFn {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_GLOBAL);
+    return lib ? reinterpret_cast<EncodeTiledFn>(dlsym(lib, "cuTensorMapEncodeTiled")) : nullptr;
+  }();
+  return fn;
+}
+
+// A bf16 weight of `rank` dims (innermost first, the channels the products
+// run along) as a tensor map with boxes of 64 channels by box_k rows and
+// the 128-byte swizzle; rows and channels past the weight read as zeros.
+bool weight_map(CUtensorMap* map, const void* w, int rank, const cuuint64_t* dims,
+                cuuint32_t box_k) {
+  const EncodeTiledFn enc = encode_tiled();
+  if (enc == nullptr || reinterpret_cast<uintptr_t>(w) % 16 != 0 || dims[0] % 8 != 0) return false;
+  const cuuint64_t strides[2] = {2 * dims[0], 2 * dims[0] * dims[1]};
+  const cuuint32_t box[3] = {64, box_k, 1}, steps[3] = {1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(w), dims, strides,
+             box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <bool kRows, typename TI>
+cudaError_t launch_wide(const BlockArgs& a, int batch, bool out_bf16, cudaStream_t s) {
+  using bf16 = __nv_bfloat16;
+  const cuuint64_t width = a.width, cin = a.cin, cout = a.cout;
+  const cuuint64_t d1[2] = {width, cin}, d2[3] = {width, width, 9}, d3[2] = {cout, width},
+                   dd[2] = {cout, cin};
+  CUtensorMap m1, m2, m3, md;
+  if (!weight_map(&m1, a.w1, 2, d1, wide::kKX) || !weight_map(&m2, a.w2, 3, d2, wide::kN) ||
+      !weight_map(&m3, a.w3, 2, d3, wide::kN) ||
+      !weight_map(&md, a.wd ? a.wd : a.w3, 2, a.wd ? dd : d3, wide::kKX))
+    return cudaErrorInvalidValue;
+  const auto kernel = out_bf16 ? wide::bottleneck_block_wgmma_kernel<kRows, TI, bf16>
+                               : wide::bottleneck_block_wgmma_kernel<kRows, TI, float>;
+  const size_t smem = wide::smem_bytes(a.th, a.tw);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(a.tiles, batch), wide::kThreadsW, smem, s>>>(a, m1, m2, m3, md);
+  return cudaGetLastError();
+}
+
+// The compute type and the width pick the kernel: bf16 runs on the tensor
+// cores (mma.sync up to width 64, wgmma above), f32 on the CUDA cores
+// (tensor cores would round f32 operands).
 template <int kWMax, bool kRows, typename TI>
 cudaError_t launch_block(const BlockArgs& a, int batch, bool c_bf16, bool out_bf16,
                          cudaStream_t s) {
   using bf16 = __nv_bfloat16;
   if (c_bf16) {
-    const size_t smem = tc_smem_bytes<kWMax>(a.th, a.tw);
-    return out_bf16
-               ? launch(bottleneck_block_tc_kernel<kWMax, kRows, TI, bf16>, a, batch, smem, s)
-               : launch(bottleneck_block_tc_kernel<kWMax, kRows, TI, float>, a, batch, smem, s);
+    if constexpr (kWMax == 128) {
+      return launch_wide<kRows, TI>(a, batch, out_bf16, s);
+    } else {
+      const size_t smem = tc_smem_bytes<kWMax>(a.th, a.tw);
+      return out_bf16
+                 ? launch(bottleneck_block_tc_kernel<kWMax, kRows, TI, bf16>, a, batch, smem, s)
+                 : launch(bottleneck_block_tc_kernel<kWMax, kRows, TI, float>, a, batch, smem, s);
+    }
   }
   const size_t smem = block_smem_bytes<kWMax>(a.th, a.tw);
   return out_bf16
@@ -919,6 +1613,27 @@ cudaError_t launch_width(const BlockArgs& a, int batch, bool c_bf16, bool out_bf
               : launch_block<128, false, TI>(a, batch, c_bf16, out_bf16, s);
 }
 
+template <typename K>
+int occupancy(K kernel, int threads, int smem) {
+  int n = 0;
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads, smem) != cudaSuccess)
+    return 0;
+  return n;
+}
+
+template <int kWMax, bool kRows>
+int blocks_per_sm(bool c_bf16, int smem) {
+  if (!c_bf16)
+    return occupancy(bottleneck_block_kernel<kWMax, kRows, float, float, float>, kThreads, smem);
+  if constexpr (kWMax == 128)
+    return occupancy(wide::bottleneck_block_wgmma_kernel<kRows, float, float>, wide::kThreadsW,
+                     smem);
+  else
+    return occupancy(bottleneck_block_tc_kernel<kWMax, kRows, float, float>, kThreads, smem);
+}
+
 }  // namespace
 
 extern "C" {
@@ -926,27 +1641,44 @@ extern "C" {
 // Shared memory bytes of one block of threads for tiles of th rows by tw
 // columns at Bottleneck width `width` (bf16 compute if c_bf16, else f32);
 // 0 if that tile or width is beyond the kernels' limits (width <= 128;
-// th * tw and (th + 2) * tw within Cfg's kBand and kHalo).
+// th * tw and (th + 2) * tw within Cfg's kBand and kHalo, or for bf16 at
+// widths 65-128 th * tw <= wide::kBand and (th + 2) * (tw + 2) <=
+// wide::kStore).
 int bottleneck_smem_bytes(int th, int tw, int width, int c_bf16) {
   if (th < 1 || tw < 1 || width < 1 || width > 128) return 0;
   size_t bytes;
   if (width <= 64) {
     if (!tile_fits<64>(th, tw)) return 0;
     bytes = c_bf16 ? tc_smem_bytes<64>(th, tw) : block_smem_bytes<64>(th, tw);
+  } else if (c_bf16) {
+    if (!wide::tile_fits(th, tw)) return 0;
+    bytes = wide::smem_bytes(th, tw);
   } else {
     if (!tile_fits<128>(th, tw)) return 0;
-    bytes = c_bf16 ? tc_smem_bytes<128>(th, tw) : block_smem_bytes<128>(th, tw);
+    bytes = block_smem_bytes<128>(th, tw);
   }
   return bytes <= (size_t)kMaxSmem ? (int)bytes : 0;
+}
+
+// Blocks of threads that fit on one SM (the occupancy calculator) for the
+// block kernel a launch with these tiles runs (f32 x and output; rows: the
+// tiles span whole rows); 0 if the tile is beyond the kernels' limits.
+int bottleneck_blocks_per_sm(int th, int tw, int width, int c_bf16, int rows) {
+  const int smem = bottleneck_smem_bytes(th, tw, width, c_bf16);
+  if (smem == 0) return 0;
+  if (width <= 64)
+    return rows ? blocks_per_sm<64, true>(c_bf16, smem) : blocks_per_sm<64, false>(c_bf16, smem);
+  return rows ? blocks_per_sm<128, true>(c_bf16, smem) : blocks_per_sm<128, false>(c_bf16, smem);
 }
 
 // One folded Bottleneck block.  x: [B, Cin, H, W] (bf16 if x_bf16, else f32);
 // out: [B, Cout, H, W] (bf16 if out_bf16, else f32).  Weights are in the
 // compute type (bf16 if c_bf16, else f32), biases f32.  wd/bd and the SE
-// arguments may be null.  Tiles of th x tw pixels (bottleneck_smem_bytes
-// must take them); for an SE block, pre and idn are f32 [B, Cout, H, W]
-// scratch, partial is [B, tiles, Cout] with tiles = ceil(h / th) *
-// ceil(w / tw), and gate [B, Cout].
+// arguments may be null.  At widths 65-128 in bf16, width and Cout must be
+// multiples of 8 and the weights 16-byte aligned (the tensor maps' rows).
+// Tiles of th x tw pixels (bottleneck_smem_bytes must take them); for an
+// SE block, pre and idn are f32 [B, Cout, H, W] scratch, partial is [B,
+// tiles, Cout] with tiles = ceil(h / th) * ceil(w / tw), and gate [B, Cout].
 // Returns cudaGetLastError() of the launches (0 on success).
 int bottleneck_block_forward(const void* x, void* out, float* pre, float* idn, float* partial,
                              float* gate, const void* w1, const float* b1, const void* w2,
@@ -987,5 +1719,15 @@ int bottleneck_block_forward(const void* x, void* out, float* pre, float* idn, f
                                                      total, h * w);
   return (int)cudaGetLastError();
 }
+
+#ifdef K2_PHASE_TIMERS
+// The cycle counters summed since the last call (then zeroed).
+int k2_phase_cycles(unsigned long long* out) {
+  static const unsigned long long zeros[wide::kTimers] = {0};
+  cudaError_t e = cudaMemcpyFromSymbol(out, wide::g_k2_cycles, sizeof(zeros));
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(wide::g_k2_cycles, zeros, sizeof(zeros));
+  return (int)e;
+}
+#endif
 
 }  // extern "C"

@@ -5,7 +5,8 @@ a per-channel affine, so a chain of Bottleneck blocks folds into pure
 (matmul, bias, relu) ops.  On a CUDA tensor :func:`bottleneck_chain` runs the
 hand-written Hopper kernel ``csrc/bottleneck_chain.cu`` (one launch per
 block, two more for an SE gate; a bf16 ``compute_dtype`` runs the products
-on tensor cores, f32 on CUDA cores); on a CPU tensor it runs
+on tensor cores, with ``wgmma`` and weights streamed by TMA at Bottleneck
+widths 65-128, f32 on CUDA cores); on a CPU tensor it runs
 :func:`bottleneck_chain_reference`, the plain PyTorch version of the same
 math.  There is no fallback: a CUDA tensor reaches the kernel or raises.
 The call goes through a registered op (``simple_pose::bottleneck_chain``)
@@ -150,9 +151,18 @@ def bottleneck_chain_reference(x, blocks: Sequence[dict], compute_dtype=torch.fl
 
 _KERNEL = "bottleneck_chain"
 _SUPPORTED = (torch.float32, torch.bfloat16)
-# csrc/bottleneck_chain.cu's Cfg: for Bottleneck widths up to 64 and up to
-# 128, the most pixels a tile holds (TH * TW) and the bound on (TH + 2) * TW
+# csrc/bottleneck_chain.cu's Cfg (the f32 kernel; the mma.sync kernel at
+# widths up to 64): for Bottleneck widths up to 64 and up to 128, the most
+# pixels a tile holds (TH * TW) and the bound on (TH + 2) * TW
 _TILE_LIMITS = {64: (192, 288), 128: (96, 192)}
+# its namespace wide (the wgmma kernel, bf16 at widths 65-128): the most
+# pixels a tile holds (three 64-row wgmma tiles), the bound on
+# (TH + 2) * (TW + 2) (m1 on the tile and its ring), and the shared memory
+# beside m1 (1 KB of alignment, 3 ring stages of 32 KB, the x tile, the SE
+# sums, 6 slots of 128 biases, the mbarriers) and m1's bytes per pixel
+WIDE_BAND, WIDE_STORE = 192, 320
+_WIDE_FIXED_BYTES = 1024 + 3 * 32768 + 192 * 72 * 2 + 12 * 128 * 4 + 6 * 128 * 4 + 64
+_WIDE_PIXEL_BYTES = 272
 MAX_WIDTH = 128
 SMEM_LIMIT = 232448  # one block of threads' shared memory on Hopper (227 KB)
 # the columns of a 2-D tile: one warp's pixels, so that a warp's 32 loads
@@ -180,6 +190,8 @@ def _smem_bytes(th: int, tw: int, wmax: int, bf16: bool) -> int:
     """Shared memory of one block of threads (bottleneck_smem_bytes)."""
     band = _TILE_LIMITS[wmax][0]
     store = (th + 2) * (tw + 2)  # m1 on the tile and its 1-pixel ring
+    if bf16 and wmax == 128:
+        return _WIDE_FIXED_BYTES + _WIDE_PIXEL_BYTES * store
     if bf16:
         pitch, m_warps = wmax + 8, 8 // (wmax // 32)
         work = max(2 * (band + wmax) * pitch, 2 * (2 * wmax + band) * pitch + 4 * m_warps * wmax)
@@ -203,10 +215,32 @@ def launch_plan(h: int, w: int, width: int, bf16: bool) -> LaunchPlan:
     if h < 1 or w < 1:
         raise ValueError(f"empty map {h}x{w}")
     wmax = 64 if width <= 64 else 128
-    band, halo = _TILE_LIMITS[wmax]
-    tw = w if min(halo // w - 2, band // w) >= 1 else _TILE_W
-    th = min(halo // tw - 2, band // tw, h)
+    if bf16 and wmax == 128:
+        th, tw = _wide_tile(h, w)
+    else:
+        band, halo = _TILE_LIMITS[wmax]
+        tw = w if min(halo // w - 2, band // w) >= 1 else _TILE_W
+        th = min(halo // tw - 2, band // tw, h)
     return LaunchPlan(th, tw, -(-h // th), -(-w // tw), wmax, _smem_bytes(th, tw, wmax, bf16))
+
+
+def _wide_tile(h: int, w: int) -> tuple:
+    """(th, tw) of the wgmma kernel: whole rows (tw = w) or 2-D tiles of 32
+    or 64 columns, as many rows as its limits take; the tile with the most
+    pixels among those that hold a multiple of 64 (whole wgmma row tiles),
+    else the most pixels; whole rows where two tie."""
+    best = None
+    for tw in (w, 32, 64):
+        if tw > w:
+            continue
+        th = min(h, WIDE_BAND // tw, WIDE_STORE // (tw + 2) - 2)
+        if th < 1:
+            continue
+        th = next((t for t in range(th, 0, -1) if t * tw % 64 == 0), th)
+        key = (th * tw % 64 == 0, th * tw, tw == w)
+        if best is None or key > best[0]:
+            best = (key, th, tw)
+    return best[1], best[2]
 
 
 @functools.lru_cache(maxsize=None)
@@ -218,6 +252,8 @@ def _lib():
     lib.bottleneck_block_forward.restype = i
     lib.bottleneck_smem_bytes.argtypes = [i] * 4
     lib.bottleneck_smem_bytes.restype = i
+    lib.bottleneck_blocks_per_sm.argtypes = [i] * 5
+    lib.bottleneck_blocks_per_sm.restype = i
     return lib
 
 
@@ -245,6 +281,26 @@ def _check_block(blk, cin, cd, dev):
     return width, cout
 
 
+def _wide_weights(blk: dict) -> dict:
+    """What the wgmma kernel (bf16, widths 65-128) reads: its tensor maps
+    need rows of a multiple of 16 bytes and 16-byte aligned bases.  So the
+    width is zero-padded to a multiple of 8 (w1's and w2's output channels,
+    w2's and w3's input channels, b1, b2: the padded channels of m1 and m2
+    are relu(0) = 0 and meet zero weights, so the block computes the same
+    function), a misaligned matrix is copied, and Cout must be a multiple of
+    8 already."""
+    cout = blk["w3"].shape[1]
+    if cout % 8:
+        raise ValueError(f"Cout {cout}: the bf16 kernel at widths 65-128 takes Cout in multiples "
+                         "of 8 (every Bottleneck has 4 x width)")
+    pad = -blk["w1"].shape[1] % 8
+    if pad:
+        blk = {**blk, "w1": F.pad(blk["w1"], (0, pad)), "b1": F.pad(blk["b1"], (0, pad)),
+               "w2": F.pad(blk["w2"], (0, pad, 0, pad)), "b2": F.pad(blk["b2"], (0, pad)),
+               "w3": F.pad(blk["w3"], (0, 0, 0, pad))}
+    return {k: v if v.data_ptr() % 16 == 0 else v.clone() for k, v in blk.items()}
+
+
 def _bottleneck_chain_cuda(x, blocks, compute_dtype):
     if x.dtype not in _SUPPORTED or compute_dtype not in _SUPPORTED:
         raise ValueError(f"x {x.dtype} / compute {compute_dtype}: kernel takes f32 or bf16")
@@ -258,6 +314,9 @@ def _bottleneck_chain_cuda(x, blocks, compute_dtype):
     y = x
     for i, blk in enumerate(blocks):
         width, cout = _check_block(blk, cin, compute_dtype, x.device)
+        if bf16 and width > 64:
+            blk = _wide_weights(blk)
+            width = blk["w1"].shape[1]
         plan = launch_plan(h, w, width, bf16)
         smem = lib.bottleneck_smem_bytes(plan.th, plan.tw, width, int(bf16))
         if smem != plan.smem_bytes:

@@ -11,6 +11,9 @@ import torch
 from simple_pose_torch.ops.bottleneck_chain import (
     MAX_WIDTH,
     SMEM_LIMIT,
+    WIDE_BAND,
+    WIDE_STORE,
+    _wide_weights,
     bottleneck_chain,
     bottleneck_chain_reference,
     fold_bottleneck_blocks,
@@ -203,7 +206,10 @@ def test_launch_plan_covers_every_trunk(trunk):
     """For every trunk the fused layer1 takes, at the configs' input sizes
     and at input widths up to 1024 (layer1 at a quarter of the input): the
     kernel's tiles cover the map once, stay within its tile limits, and
-    their shared memory fits one block of threads (227 KB)."""
+    their shared memory fits one block of threads (227 KB).  The wgmma
+    kernel (bf16, widths 65-128) takes up to three 64-row wgmma tiles with
+    m1 and its ring in WIDE_STORE pixels, and a multiple of 64 pixels on
+    every map of at least 6 rows and 32 columns."""
     import glob
 
     from simple_pose_torch.train.config import load_config
@@ -220,10 +226,16 @@ def test_launch_plan_covers_every_trunk(trunk):
         for h, w in sorted(maps):
             for bf16 in (False, True):
                 plan = launch_plan(h, w, width, bf16)
-                band, halo = limits[plan.wmax]
                 assert plan.wmax == (64 if width <= 64 else 128)
                 assert 1 <= plan.th <= h and 1 <= plan.tw <= w, (h, w, plan)
-                assert plan.th * plan.tw <= band and (plan.th + 2) * plan.tw <= halo, plan
+                if bf16 and width > 64:
+                    assert plan.th * plan.tw <= WIDE_BAND, plan
+                    assert (plan.th + 2) * (plan.tw + 2) <= WIDE_STORE, plan
+                    if h >= 6 and w >= 32:
+                        assert plan.th * plan.tw % 64 == 0, (h, w, plan)
+                else:
+                    band, halo = limits[plan.wmax]
+                    assert plan.th * plan.tw <= band and (plan.th + 2) * plan.tw <= halo, plan
                 rows = np.zeros(h, int)
                 cols = np.zeros(w, int)
                 for t in range(plan.tiles_h):
@@ -234,8 +246,10 @@ def test_launch_plan_covers_every_trunk(trunk):
                 assert 0 < plan.smem_bytes <= SMEM_LIMIT, (h, w, width, bf16, plan)
                 if w <= 96 and width <= 64:  # a band of whole rows, as before 2-D tiles
                     assert plan.tw == w
-    # the flagship's layer1 keeps its bands of 4 whole rows
+    # the flagship's layer1 keeps its bands of 4 whole rows; the wide
+    # ResNets' takes bands of 4 whole rows too (192 pixels)
     assert launch_plan(64, 48, 64, True)[:4] == (4, 48, 16, 1)
+    assert launch_plan(64, 48, 128, True)[:4] == (4, 48, 16, 1)
 
 
 def test_launch_plan_refuses_beyond_the_kernel():
@@ -243,6 +257,50 @@ def test_launch_plan_refuses_beyond_the_kernel():
         launch_plan(64, 48, 256, True)
     with pytest.raises(ValueError, match="empty map"):
         launch_plan(0, 48, 64, True)
+    # the wgmma kernel's tensor maps take Cout in multiples of 8
+    rng = np.random.default_rng(2)
+    with pytest.raises(ValueError, match="Cout 260"):
+        _wide_weights(_torch_blocks([_rand_block(rng, 64, 72, 260, True, False)])[0])
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("width", [70, 100])
+def test_wide_weights_pad_and_align(dtype, width):
+    """What the wgmma kernel reads: the width zero-padded to a multiple of 8
+    (slicing the padded weights gives the folded ones back exactly, and the
+    plain version of the padded chain equals the unpadded one), and every
+    matrix 16-byte aligned, a misaligned view copied."""
+    rng = np.random.default_rng(40 + width)
+    blocks = _torch_blocks(_fan_in_scaled([_rand_block(rng, 32, width, 64, True, True, hidden=8),
+                                           _rand_block(rng, 64, width, 64, False, False)]))
+    padded = [_wide_weights(blk) for blk in blocks]
+    wp = -(-width // 8) * 8
+    cut = {"w1": (slice(None), slice(width)), "b1": slice(width), "b2": slice(width),
+           "w2": (Ellipsis, slice(width), slice(width)), "w3": slice(width)}
+    for blk, pad in zip(blocks, padded):
+        assert pad["w1"].shape[1] == pad["w2"].shape[3] == pad["w3"].shape[0] == wp
+        for k, v in blk.items():
+            assert torch.equal(pad[k][cut[k]] if k in cut else pad[k], v), k
+        assert not pad["w2"][:, :, width:].any() and not pad["w2"][..., width:].any()
+        assert not pad["w1"][:, width:].any() and not pad["w3"][width:].any()
+    x = _nchw(rng.normal(0, 1, (2, 6, 5, 32)).astype(np.float32))
+    cd = {"f32": torch.float32, "bf16": torch.bfloat16}[dtype]
+    want = bottleneck_chain_reference(x, blocks, cd)
+    got = bottleneck_chain_reference(x, padded, cd)
+    err = (got - want).abs()
+    scale = want.abs().max().item()
+    if dtype == "f32":
+        assert err.max().item() < 1e-5 * scale
+    else:
+        assert err.max().item() < BF16_MAX_REL * scale and err.mean().item() < BF16_MEAN_REL * scale
+
+    storage = torch.zeros(1 + 64 * 256)
+    view = storage[1:].view(64, 256)  # 4 bytes past an aligned start
+    assert view.data_ptr() % 16 != 0
+    blk = {**blocks[0], "w3": torch.zeros(width, 256), "wd": view}
+    out = _wide_weights(blk)
+    assert all(t.data_ptr() % 16 == 0 for t in out.values())
+    assert torch.equal(out["wd"], view)
 
 
 def test_zero_pad_after_relu():
@@ -435,4 +493,67 @@ def test_kernel_checks_the_launch_plan_cuda(cuda_device):
                     plan.smem_bytes
     assert lib.bottleneck_smem_bytes(4, 48, 129, 1) == 0
     assert lib.bottleneck_smem_bytes(5, 48, 64, 1) == 0  # 240 pixels > 192
-    assert lib.bottleneck_smem_bytes(3, 48, 128, 1) == 0  # 144 pixels > 96
+    assert lib.bottleneck_smem_bytes(3, 48, 128, 0) == 0  # f32: 144 pixels > 96
+    assert lib.bottleneck_smem_bytes(5, 48, 128, 1) == 0  # wgmma: 240 pixels > 192
+    assert lib.bottleneck_smem_bytes(2, 104, 128, 1) == 0  # wgmma: 4 x 106 > 320 of m1
+    # one block of threads per SM at width 128 in bf16, two at width 64
+    assert lib.bottleneck_blocks_per_sm(4, 48, 128, 1, 1) == 1
+    assert lib.bottleneck_blocks_per_sm(4, 48, 64, 1, 1) == 2
+
+
+def _wide_chain(rng, cin, width, cout, n_blocks, se, projection=True):
+    """A width-65-128 chain: a projection block (or an identity one), then
+    identity blocks; SE (hidden 16) on every block or on none; weights
+    fan-in scaled."""
+    blocks = [_rand_block(rng, cin, width, cout, projection, se, hidden=16)]
+    blocks += [_rand_block(rng, cout, width, cout, False, se, hidden=16)
+               for _ in range(n_blocks - 1)]
+    return _fan_in_scaled(blocks)
+
+
+# (batch, h, w), cin, width, cout, blocks, SE, projection in block 0
+_WGMMA_CASES = {
+    "layer1_b1": ((1, 64, 48), 64, 128, 256, 3, True, True),
+    "layer1_b3": ((3, 64, 48), 64, 128, 256, 3, True, True),
+    "layer1_b128": ((128, 64, 48), 64, 128, 256, 3, True, True),
+    "tiles_64x97": ((1, 64, 97), 64, 128, 256, 3, True, True),
+    "tiles_64x128": ((1, 64, 128), 64, 128, 256, 3, True, True),
+    "tiles_64x200": ((1, 64, 200), 64, 128, 256, 3, True, True),
+    "ragged_channels": ((2, 9, 20), 40, 100, 48, 2, True, True),
+    "no_se_chain": ((2, 64, 48), 64, 128, 256, 3, False, True),
+    "identity_block": ((2, 64, 48), 256, 128, 256, 1, False, False),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("case", sorted(_WGMMA_CASES))
+def test_wgmma_kernel_matches_reference_cuda(cuda_device, x_dtype, case):
+    """The wgmma kernel (bf16, widths 65-128) against the plain version:
+    wide_resnet50_2's layer1 shape (64 -> 128 -> 256, SE, a projection) at
+    batch 1, 3 and 128 (a ragged last wave of tiles), on 2-D tiles of
+    64x97 / 64x128 / 64x200 maps, with ragged channel counts (cin 40, width
+    100 padded to 104, cout 48), without SE, and a lone identity block."""
+    (batch, h, w), cin, width, cout, n_blocks, se, projection = _WGMMA_CASES[case]
+    rng = np.random.default_rng(50)
+    blocks = _wide_chain(rng, cin, width, cout, n_blocks, se, projection)
+    x = rng.normal(0, 1, (batch, h, w, cin)).astype(np.float32)
+    _check_cuda_chain(cuda_device, x, blocks, x_dtype, "bf16")
+
+
+def test_ablation_anchors_match_the_kernel_source():
+    """scripts/ablate_k2.py edits copies of the kernel source at fixed text
+    anchors (its ablations and its per-phase timers of the mma.sync
+    kernel); each anchor must still be found exactly once."""
+    import importlib.util
+    import pathlib
+
+    repo = pathlib.Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location("ablate_k2", repo / "scripts" / "ablate_k2.py")
+    ablate_k2 = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ablate_k2)
+    src = (repo / ablate_k2.SRC).read_text()
+    for edits in ablate_k2.VARIANTS.values():
+        assert ablate_k2.ablate(edits)(src) != src
+    assert ablate_k2.add_timers(src).count("K2_TICK(") == len(ablate_k2.TIMER_EDITS) + len(
+        ablate_k2.TIMER_BEFORE)
