@@ -19,7 +19,9 @@ raises, and the script exits non-zero without a result line):
      bands of 4 whole rows),
      in bf16 and f32, then timed beside the plain version and the library
      call (the unfused cuDNN layer1 of the port's own model) at batch 32 and
-     128;
+     128; bf16 runs the wgmma kernel's instance whose products are 64
+     channels wide (the kernels' line names it, the tile and the blocks per
+     SM), f32 the CUDA-core kernel;
   4. the main path: PoseEvaluator(ResNet-50-DConv+SE, 256x192, bf16,
      fused_layer1, flip-test) on 4 synthetic batches of 32 with the launch
      counters zeroed just before and read just after; fused vs unfused
@@ -218,9 +220,10 @@ raises, and the script exits non-zero without a result line):
         256 channels, 3 blocks, SE and a projection in block 0) against its
         plain version as in phase 3, bf16 and f32 at batch 32, timed at
         batch 32 and 128 beside the plain version and its cuDNN layer1;
-        bf16 runs the wgmma kernel (bands of 4 whole rows, one block of
-        threads per SM), f32 the CUDA-core kernel; the kernels' line names
-        both, the tile and the blocks per SM;
+        bf16 runs the wgmma kernel's instance whose products are 128
+        channels wide (bands of 4 whole rows, one block of threads per SM),
+        f32 the CUDA-core kernel; the kernels' line names both, the tile and
+        the blocks per SM;
      b. K2 at ResNet-50+SE's layer1 on 64x97 and 64x128 maps (2-D tiles)
         against its plain version, bf16 and f32, at batch 8, timed there;
      c. phase 4's checks and rates for wide_resnet50_2 (256x192, bf16,
@@ -3204,8 +3207,8 @@ def run_wide_layer1(card):
                   "launches_loaded_artifact":
                       summary["serve_artifact"]["launches"]["bottleneck_chain"],
                   "width_128_kernels": {
-                      "bf16": "wide::bottleneck_block_wgmma_kernel (TMA ring of 3 x 32 KB "
-                              "weight chunks, wgmma m64n128k16)",
+                      "bf16": "hopper::bottleneck_block_wgmma_kernel<128> (TMA ring of 3 x 32 "
+                              "KB weight chunks, wgmma m64n128k16)",
                       "f32": "bottleneck_block_kernel<128> (CUDA cores)"},
                   "bf16_tile": {"th": plan.th, "tw": plan.tw, "smem_bytes": plan.smem_bytes,
                                 "blocks_per_sm": _lib().bottleneck_blocks_per_sm(
@@ -3296,8 +3299,16 @@ def main() -> int:
     wide_rows, wide = run_wide_layer1(card)
     log("phase 14: " + json.dumps(wide))
 
+    plan = launch_plan(64, 48, 64, True)
     kernels = [{**k2_row("bottleneck_chain", launches["bottleneck_chain"], report,
                          timing[f"b{BATCH}_bf16"]),
+                "width_64_kernels": {
+                    "bf16": "hopper::bottleneck_block_wgmma_kernel<64> (TMA ring of 4 x 8 KB "
+                            "weight chunks, wgmma m64n64k16)",
+                    "f32": "bottleneck_block_kernel<64> (CUDA cores)"},
+                "bf16_tile": {"th": plan.th, "tw": plan.tw, "smem_bytes": plan.smem_bytes,
+                              "blocks_per_sm": _lib().bottleneck_blocks_per_sm(
+                                  plan.th, plan.tw, 64, 1, 1)},
                 "launches_detections": jpeg["launches"]["bottleneck_chain"],
                 "launches_e2e": e2e_launches,
                 "launches_w8a8_serving": quant_launches,

@@ -1,5 +1,6 @@
-"""What holds the fused layer1 kernel K2 (bf16, tensor cores) back, on one
-CUDA card: ablations and per-phase timers of its block kernel.
+"""What holds the fused layer1 kernel K2 (bf16, wgmma) back, on one CUDA
+card: ablations and per-phase timers of its block kernel at the flagship's
+layer1 (width 64).
 
     python scripts/ablate_k2.py [--batch 128] [--calls 10]
 
@@ -8,15 +9,17 @@ own sources are not touched), builds them side by side, and runs
 scripts/profile_torch_k2.py in each, in the order base, variants, base:
 
   nostore  the block kernel's global stores (pre, idn, out) switched off
-  no3x3    the 3x3's tensor-core products switched off
+  no3x3    the 3x3's wgmma products switched off (its weight chunks still
+           arrive and are released)
   noxload  the global loads of x in the staging of phases A and C off
 
 Each switch is a runtime condition that never holds, so the compiler keeps
 the rest of the kernel.  The outputs of a variant are wrong; only its time
 means something.  Then ``timers``: a copy whose block kernel takes
-%globaltimer at each phase boundary (after a __syncthreads, on thread 0),
-summed over all blocks of threads, and prints the mean microseconds per
-block of threads of each phase, for block 0 (SE, projection) and blocks 1-2.
+%globaltimer at each phase boundary of its consumers (after a barrier of
+the three consumer warpgroups, on thread 0), summed over all blocks of
+threads, and prints the mean microseconds per block of threads of each
+phase, for block 0 (SE, projection) and blocks 1-2.
 The extra barriers make this copy slower; its shares are what it is for.
 Needs a card; imports torch, numpy and simple_pose_torch only.
 """
@@ -37,79 +40,68 @@ NEVER = "a.h > 0x40000000"
 
 VARIANTS = {
     "nostore": [
-        ("if (a.se) idn[o] = acc[i][j][2 * h + e];\n            else out[",
-         f"if ({NEVER}) {{ if (a.se) idn[o] = acc[i][j][2 * h + e];\n            else out["),
-        ("from_f<TO>(fmaxf(acc[i][j][2 * h + e], 0.f));\n          }\n  }\n}",
-         "from_f<TO>(fmaxf(acc[i][j][2 * h + e], 0.f)); }\n          }\n  }\n}"),
-        ("if (n < cout) pre[(size_t)n * HW + g.band.lin<kRows>(p)] = acc[i][j][2 * h + e];",
+        ("          if (p >= npix || n >= cout) continue;\n"
+         "          const size_t o = (size_t)n * HW + g.band.lin<kRows>(p);",
+         f"          if (p >= npix || n >= cout || !({NEVER})) continue;\n"
+         "          const size_t o = (size_t)n * HW + g.band.lin<kRows>(p);"),
+        ("if (n < cout) pre[(size_t)n * HW + g.band.lin<kRows>(p)] = acc[4 * j + 2 * h + e];",
          f"if (n < cout && {NEVER}) pre[(size_t)n * HW + g.band.lin<kRows>(p)] = "
-         "acc[i][j][2 * h + e];"),
+         "acc[4 * j + 2 * h + e];"),
     ],
     "no3x3": [
-        ("warp_mma<kP>(acc, a_addr, mt, smem_u32(w2s) + b_off, kw / 16);",
-         f"if ({NEVER}) warp_mma<kP>(acc, a_addr, mt, smem_u32(w2s) + b_off, kw / 16);"),
+        ("consume(ring, acc, 64 * wg < npix, m1_row + 2 * kP * shift, kN / 16, 64 * kN * 2, k2c);",
+         f"consume(ring, acc, 64 * wg < npix && {NEVER}, m1_row + 2 * kP * shift, kN / 16, "
+         "64 * kN * 2, k2c);"),
     ],
     "noxload": [
-        ("const bool ok = i < total && r < rows;",
-         "const bool ok = i < total && r < rows && HW < 0;"),
+        ("        const bool cok = c + e < cin;",
+         "        const bool cok = c + e < cin && HW < 0;"),
     ],
 }
 
-PHASES = ("init", "A stage x+w1", "A mma", "A m1 store", "B stage w2", "B mma", "B m2 store",
-          "C stage w3", "C mma", "C SE pre+sums", "C stage x+wd", "C proj mma",
-          "C identity+stores")
-TIMER_DEFS = r'''
+PHASES = ("init", "A stage x, conv1, m1", "B 3x3", "B m2 store", "C x for the projection",
+          "C conv3", "C bias, SE pre+sums", "C identity or projection", "C stores")
+TIMER_DEFS = r"""
 __device__ unsigned long long g_k2_ns[2][16];
 __device__ __forceinline__ unsigned long long k2_now() {
   unsigned long long t;
   asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
   return t;
 }
-#define K2_TICK(k) do { __syncthreads(); if (threadIdx.x == 0) { \
+#define K2_TICK(k) do { consumers_sync(); if (threadIdx.x == 0) { \
   const unsigned long long n_ = k2_now(); \
   atomicAdd(&g_k2_ns[a.se][k], n_ - t_); t_ = n_; } } while (0)
 
-'''
-TIMER_EXPORT = r'''
+"""
+TIMER_EXPORT = r"""
 extern "C" int k2_phase_ns(unsigned long long* out) {
   static const unsigned long long zeros[32] = {0};
-  cudaError_t e = cudaMemcpyFromSymbol(out, g_k2_ns, sizeof(zeros));
-  if (e == cudaSuccess) e = cudaMemcpyToSymbol(g_k2_ns, zeros, sizeof(zeros));
+  cudaError_t e = cudaMemcpyFromSymbol(out, hopper::g_k2_ns, sizeof(zeros));
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(hopper::g_k2_ns, zeros, sizeof(zeros));
   return (int)e;
 }
-'''
-KERNEL_HEAD = ("template <int kWMax, bool kRows, typename TI, typename TO>\n"
-               "__global__ void __launch_bounds__(kThreads, Cfg<kWMax>::kMinBlocks)\n"
-               "    bottleneck_block_tc_kernel")
-TIMER_EDITS = [  # (anchor, text put after it)
-    ("  bf16* m1s = reinterpret_cast<bf16*>(tc_smem);  // [m1_stride pixels][kP]\n",
-     "  unsigned long long t_ = k2_now();\n"),
-    ("  for (int i = tid; i < m1_stride * kP / 8; i += kThreads)\n"
-     "    reinterpret_cast<uint4*>(m1s)[i] = make_uint4(0, 0, 0, 0);\n", "  K2_TICK(0);\n"),
-    ("        stage_w<kWMax, kP>(ws, w1, width, k0, kpad, cin, 0, width);\n"
-     "        __syncthreads();\n", "        K2_TICK(1);\n"),
-    ("        warp_mma<kP>(acc, a_addr, rmt, smem_u32(ws) + b_off, kpad / 16);\n",
-     "        K2_TICK(2);\n"),
-    ("      stage_w<kWMax, kP>(w2s, w2 + (size_t)tap * width * width, width, 0, kw, width, 0, "
-     "width);\n      __syncthreads();\n", "      K2_TICK(4);\n"),
-    ("      warp_mma<kP>(acc, a_addr, mt, smem_u32(w2s) + b_off, kw / 16);\n",
-     "      K2_TICK(5);\n"),
-    ("    stage_w<kWMax, kP>(w3s, w3, cout, 0, kw, width, n0, cout);\n    __syncthreads();\n",
-     "    K2_TICK(7);\n"),
-    ("    warp_mma<kP>(acc, a_addr, mt, smem_u32(w3s) + b_off, kw / 16);\n",
-     "    K2_TICK(8);\n"),
-    ("        for (int m = 1; m < kMG; ++m) s += red[m * kNTile + tid];\n"
-     "        a.partial[((size_t)b * a.tiles + blockIdx.x) * cout + n0 + tid] = s;\n      }\n",
-     "      K2_TICK(9);\n"),
-    ("        stage_w<kWMax, kP>(wds, wd, cout, k0, kpad, cin, n0, cout);\n"
-     "        __syncthreads();\n", "        K2_TICK(10);\n"),
-    ("        warp_mma<kP>(acc, a_addr, mt, smem_u32(wds) + b_off, kpad / 16);\n",
-     "        K2_TICK(11);\n"),
-    ("            else out[o] = from_f<TO>(fmaxf(acc[i][j][2 * h + e], 0.f));\n"
-     "          }\n", "    K2_TICK(12);\n"),
+"""
+KERNEL_HEAD = ("template <int kN, bool kRows, typename TI, typename TO>\n"
+               "__global__ void __launch_bounds__(kThreadsW, 1)\n"
+               "    bottleneck_block_wgmma_kernel")
+TIMER_EDITS = [  # (anchor, text put after it), on the consumers' side
+    ("  float acc[4 * kJ];\n", "  unsigned long long t_ = k2_now();\n"),
+    ("      bias_s[i] = i % kN < width ? (i < kN ? a.b1 : a.b2)[i % kN] : 0.f;\n"
+     "    K2_ADD(kTEpiA, t0);\n  }\n", "  K2_TICK(0);\n"),
+    ("    consumers_sync();  // m1 is complete\n    K2_ADD(kTSync, t0);\n  }\n",
+     "  K2_TICK(1);\n"),
+    ("  __syncwarp();  // conv3 reads only this warp's own rows of m2\n"
+     "  K2_ADD(kTEpiB, t_m2);\n", "  K2_TICK(3);\n"),
+    ("    consume(ring, acc, active, smem_u32(m2s + min(a_row, npix - 1) * kP + a_k), kN / 16,\n"
+     "            64 * kN * 2, k2c);\n", "    K2_TICK(5);\n"),
+    ("    K2_ADD(kTSe, t_se);\n", "    K2_TICK(6);\n"),
+    ("    K2_ADD(kTOut, t_out);\n", "    K2_TICK(8);\n"),
 ]
-TIMER_BEFORE = [("  // ---- B: m2 = relu(3x3(m1) + b2): 9", "  K2_TICK(3);\n"),
-                ("  bf16* w3s = work;", "  K2_TICK(6);\n")]
+TIMER_BEFORE = [("  K2_MARK(t_sync);\n  consumers_sync();  // every read of m1 is done",
+                 "  K2_TICK(2);\n"),
+                ("  for (int np = 0; np < passes; ++np) {\n    const int n0 = kN * np;",
+                 "  K2_TICK(4);\n"),
+                ("    K2_MARK(t_out);\n", "    K2_TICK(7);\n")]
 
 TIMER_RUN = r'''
 import ctypes, json, sys
@@ -132,8 +124,8 @@ assert lib.k2_phase_ns(ctypes.addressof(buf)) == 0
 bottleneck_chain(x, blocks, torch.bfloat16); torch.cuda.synchronize()
 assert lib.k2_phase_ns(ctypes.addressof(buf)) == 0
 ctas = batch * 16  # bands of 4 rows at 64x48
-print(json.dumps({"us_per_cta_block0": [buf[16 + k] / ctas / 1e3 for k in range(13)],
-                  "us_per_cta_blocks12": [buf[k] / (2 * ctas) / 1e3 for k in range(13)]}))
+print(json.dumps({"us_per_cta_block0": [buf[16 + k] / ctas / 1e3 for k in range(9)],
+                  "us_per_cta_blocks12": [buf[k] / (2 * ctas) / 1e3 for k in range(9)]}))
 '''
 
 

@@ -1,7 +1,7 @@
 """Where the fused layer1 kernel K2's time goes, on one CUDA card.
 
     python scripts/profile_torch_k2.py [--batch 128] [--calls 3] [--model wide_resnet50_2]
-    python scripts/profile_torch_k2.py --timers [--batch 128]
+    python scripts/profile_torch_k2.py --timers [--batch 128] [--model wide_resnet50_2]
 
 Builds csrc/bottleneck_chain.cu, counts the tensor-core instructions
 (``HMMA``: mma.sync, ``HGMMA``: wgmma) of each kernel in its SASS
@@ -18,8 +18,10 @@ and the block kernel's device ms for each Bottleneck block.
 
 ``--timers`` instead copies the package to build/k2_timers/ with the kernel
 source built under ``K2_PHASE_TIMERS`` (cycle counters in the wgmma kernel,
-see ``wide::kTimers``) and runs wide_resnet50_2+SE's layer1 one Bottleneck
-block at a time (x bf16 into block 0, f32 into blocks 1-2): per block the
+see ``hopper::kTimers``) and runs ``--model``'s layer1 with SE one
+Bottleneck block at a time (x bf16 into block 0, f32 into blocks 1-2;
+resnet50: the instance whose products are 64 channels wide,
+wide_resnet50_2: 128): per block the
 cycles per block of threads that a consumer warp spends in each region the
 kernel's ``kTimers`` names (waiting for a weight chunk, its products,
 staging x, the epilogues, the barriers, all), and that the producer spends
@@ -122,16 +124,16 @@ from chip_smoke import cuda_ms, seeded_layer1
 from simple_pose_torch.models.resnet import build_resnet
 from simple_pose_torch.ops.bottleneck_chain import (
     _lib, bottleneck_chain, fold_bottleneck_blocks, launch_plan, prepare_blocks)
-batch = int(sys.argv[1])
+batch, model = int(sys.argv[1]), sys.argv[2]
 blocks = prepare_blocks(fold_bottleneck_blocks(list(seeded_layer1(
-    build_resnet("wide_resnet50_2", se=True)))), torch.bfloat16)
+    build_resnet(model, se=True)))), torch.bfloat16)
 lib = _lib()
 lib.k2_phase_cycles.argtypes = [ctypes.c_void_p]
 names = ("wait_chunk", "products", "stage_x", "store_m1", "barriers_after_a_b", "store_m2",
          "bias3_and_se", "identity", "store_out", "all")
 buf = (ctypes.c_ulonglong * (len(names) + 2))()
 rng = np.random.default_rng(1)
-tiles = launch_plan(64, 48, 128, True).tiles
+tiles = launch_plan(64, 48, blocks[0]["w1"].shape[1], True).tiles
 for i, blk in enumerate(blocks):
     cin = blk["w1"].shape[0]
     x = torch.from_numpy(np.abs(rng.normal(0, 1, (batch, cin, 64, 48))).astype(np.float32)).cuda()
@@ -153,7 +155,7 @@ for i, blk in enumerate(blocks):
 """
 
 
-def run_timers(batch: int) -> None:
+def run_timers(batch: int, model: str) -> None:
     """--timers: the cycle counters of the wgmma kernel, in a copy of the
     package whose kernel source defines K2_PHASE_TIMERS."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -167,7 +169,7 @@ def run_timers(batch: int) -> None:
         text = f.read()
     with open(src, "w") as f:
         f.write("#define K2_PHASE_TIMERS\n" + text)
-    proc = subprocess.run([sys.executable, "-c", TIMERS_CHILD, str(batch)], cwd=dst,
+    proc = subprocess.run([sys.executable, "-c", TIMERS_CHILD, str(batch), model], cwd=dst,
                           capture_output=True, text=True, timeout=900)
     if proc.returncode != 0:
         raise SystemExit(f"timers run failed:\n{proc.stdout[-3000:]}\n{proc.stderr[-6000:]}")
@@ -186,8 +188,8 @@ def main() -> int:
         return 2
     card = card_line()
     if args.timers:
-        print(json.dumps({"card": card, "timers": "wide_resnet50_2 layer1", "batch": args.batch}))
-        run_timers(args.batch)
+        print(json.dumps({"card": card, "timers": f"{args.model} layer1", "batch": args.batch}))
+        run_timers(args.batch, args.model)
         return 0
     lib_path, _ = build_library("bottleneck_chain")
     print(json.dumps({"card": card, "hmma_per_kernel": hmma_counts(lib_path)}))

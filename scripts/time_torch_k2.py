@@ -1,10 +1,12 @@
-"""Time the fused layer1 kernel K2 in one or more checkouts: `chip_smoke.py`'s
-phase 3 (the flagship ResNet-50+SE layer1, width 64) and phase 14a
-(wide_resnet50_2+SE's layer1, width 128), each on x [32, 64, 64, 48]
-against its plain version in bf16 and f32, then timed at batch 32 and 128
-beside the plain version and cuDNN's layer1 of the same model, in the same
-process; one process per checkout, in the order given, after each
-checkout's registers, stack, static shared memory and spills per kernel.
+"""Time the fused layer1 kernel K2 in one or more checkouts, at the four
+layer1s it serves: the flagship ResNet-50+SE (`chip_smoke.py`'s phase 3,
+width 64), HRNet-W32 (4 blocks, no SE) and ResNet-50-DUC (3 blocks, no SE)
+(phase 9a, width 64), and wide_resnet50_2+SE (phase 14a, width 128); each on
+x [32, 64, 64, 48] against its plain version in bf16 and f32, then timed at
+batch 32 and 128 beside the plain version and cuDNN's layer1 of the same
+model, in the same process; one process per checkout, in the order given,
+after each checkout's registers, stack, static shared memory and spills per
+kernel.
 
     python scripts/time_torch_k2.py [TREE ...]        (default: .)
 
@@ -17,9 +19,9 @@ that .gitignore lists and run both in the order old, new, new, old:
 
 Each checkout builds its own library into its own build/.  Prints the
 card's name and power limit, then per run one JSON line of the kernels'
-resources (``cuobjdump -res-usage``; with the dynamic shared memory and the
-blocks per SM of the wide layer1's launch where the library reports them)
-and one of errors and times per layer1.
+resources (``cuobjdump -res-usage``; with the tiles, dynamic shared memory
+and blocks per SM of the width-64 and width-128 bf16 launches at 64x48
+where the library reports them) and one of errors and times per layer1.
 """
 
 from __future__ import annotations
@@ -35,21 +37,28 @@ CHILD = r"""
 import json
 import torch
 import chip_smoke as C
+from simple_pose_torch.models.hrnet import build_hrnet
 from simple_pose_torch.models.resnet import build_resnet
 from simple_pose_torch.utils.cuda_build import build_library
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 from simple_pose_torch.ops.bottleneck_chain import _lib, launch_plan
 path, seconds = build_library("bottleneck_chain")
-plan = launch_plan(64, 48, 128, True)
 lib = _lib() if hasattr(_lib(), "bottleneck_blocks_per_sm") else None
-occupancy = lib and lib.bottleneck_blocks_per_sm(plan.th, plan.tw, 128, 1, 1)
-print(json.dumps({"library": path, "nvcc_s": seconds, "wide_plan": plan._asdict(),
-                  "wide_blocks_per_sm": occupancy}), flush=True)
-for model in ("resnet50", "wide_resnet50_2"):
-    report, timing = C.check_chain_kernel(C.seeded_layer1(build_resnet(model, se=True)),
-                                          f"{model} layer1 chain")
+plans = {}
+for width in (64, 128):
+    plan = launch_plan(64, 48, width, True)
+    plans[width] = {**plan._asdict(), "blocks_per_sm":
+                    lib and lib.bottleneck_blocks_per_sm(plan.th, plan.tw, width, 1, 1)}
+print(json.dumps({"library": path, "nvcc_s": seconds, "bf16_plans_64x48": plans}), flush=True)
+layer1s = {"resnet50": lambda: build_resnet("resnet50", se=True),
+           "hrnet_w32": lambda: build_hrnet("w32"),
+           "resnet50_duc": lambda: build_resnet("resnet50", head="duc"),
+           "wide_resnet50_2": lambda: build_resnet("wide_resnet50_2", se=True)}
+for model, build in layer1s.items():
+    report, timing = C.check_chain_kernel(C.seeded_layer1(build()), f"{model} layer1 chain")
     print(json.dumps({"layer1": model, "errors": report, "timing": timing}), flush=True)
+    torch.cuda.empty_cache()
 """
 
 
@@ -72,21 +81,20 @@ def main(argv=None):
     trees = (argv if argv is not None else sys.argv[1:]) or ["."]
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
-    for tree in trees:
-        tree = os.path.abspath(tree)
+    for spec in trees:
+        tree = os.path.abspath(spec)
         proc = subprocess.run([sys.executable, "-c", CHILD], cwd=tree, capture_output=True,
                               text=True, env={**os.environ, "PYTHONPATH": tree})
         if proc.returncode != 0:
             print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
-            raise SystemExit(f"{tree}: rc {proc.returncode}")
+            raise SystemExit(f"{spec}: rc {proc.returncode}")
         lines = [json.loads(x) for x in proc.stdout.splitlines() if x.startswith("{")]
         head = lines[0]
-        print(json.dumps({"tree": os.path.relpath(tree), "nvcc_s": head["nvcc_s"],
-                          "wide_plan": head["wide_plan"],
-                          "wide_blocks_per_sm": head["wide_blocks_per_sm"],
+        print(json.dumps({"tree": spec, "nvcc_s": head["nvcc_s"],
+                          "bf16_plans_64x48": head["bf16_plans_64x48"],
                           "resources": resources(head["library"])}), flush=True)
         for res in lines[1:]:
-            print(json.dumps({"tree": os.path.relpath(tree),
+            print(json.dumps({"tree": spec,
                               "kernel_ms": {k: v["kernel_ms"] for k, v in res["timing"].items()},
                               "library_ms": {k: v["library_ms"] for k, v in res["timing"].items()},
                               **res}), flush=True)

@@ -18,38 +18,18 @@
 // 64x48x256 out, width 64) the chain is ~1.3 GFLOP per sample against
 // ~2 MB of bf16 in and out, far above the H100's ~295 FLOP/byte ridge:
 // it is bound by operations (the wide ResNets' width 128: ~3.9 GFLOP per
-// sample on the same bytes).  Three kernels, chosen by the compute type
-// and the width:
-//   bf16, width <= 64: bottleneck_block_tc_kernel, all four products
-//         (conv1, the 3x3, conv3, the projection) through one warp-level
-//         bf16 tensor-core routine (mma.sync m16n8k16, f32 accumulate,
-//         ldmatrix operands);
-//   bf16, widths 65-128: wide::bottleneck_block_wgmma_kernel (below);
+// sample on the same bytes).  Two block kernels, chosen by the compute type:
+//   bf16: hopper::bottleneck_block_wgmma_kernel, every product (conv1, the
+//         3x3, conv3, the projection) on wgmma with the weights streamed by
+//         TMA; one template on the width of its products, kN = 64 for
+//         Bottleneck widths up to 64 (the flagship ResNet-50, HRNet,
+//         ResNet-50-DUC) and kN = 128 for widths 65-128 (the wide ResNets),
+//         one block of threads per SM; its section below says why;
 //   f32:  bottleneck_block_kernel, f32 FMAs on the CUDA cores, since tensor
 //         cores would round f32 operands (TF32 or bf16).
-// With the products on tensor cores, what the design still moves (the f32
-// pre/idn scratch of the SE pass, the f32 carry read twice, each tile's
-// halo) and its unoverlapped staging set the pace, not the products.
-//
-// Width 128 (wide_resnet50_2 / 101_2): ~3.9 GFLOP per sample, ~70% of it
-// the 3x3 (9 x 128 x 128 per pixel), so every block of threads needs all
-// ~420 KB of the block's bf16 weights, more than its shared memory, for
-// every tile it takes: the weights stream from L2 through shared memory
-// once per tile, and each output pixel's share of that stream is what the
-// tile size sets.  Staged by the threads themselves, with a barrier before
-// and after each tap, the stream and the products took turns (the
-// mma.sync kernel of widths up to 128: 5.6% of the operations bound, 1.62x
-// cuDNN's layer1).  The wgmma kernel takes 192-pixel tiles (twice the
-// old kernel's, so half the weight bytes per pixel) and hands the stream
-// to TMA: a producer warpgroup keeps a ring of three 32 KB weight chunks in
-// flight on mbarriers while three consumer warpgroups multiply the chunk
-// that has arrived with wgmma, the only instruction that reaches the
-// tensor cores' full rate on Hopper.  Its products now run near that rate
-// and the producer mostly waits for a free stage; what sets its pace is
-// the activations' global memory latency in each block of threads (one per
-// SM, with all SMs of a wave in the same phase): staging x for conv1, the
-// identity's loads and the epilogue's global stores (scripts/
-// profile_torch_k2.py --timers).
+// With the products on wgmma, what the design still moves (the f32 pre/idn
+// scratch of the SE pass, the f32 carry read twice, each tile's halo) and
+// the activations' global memory latency set the pace, not the products.
 //
 // Design.  The TPU kernel keeps a whole 64x48x256 sample in VMEM (~1.5 MB);
 // a Hopper block has 227 KB of shared memory.  So each thread block owns one
@@ -69,7 +49,7 @@
 // then one contiguous span per channel, so every global load and store is
 // coalesced (the flagship's 64x48 map: bands of 4 rows, 16 per sample).
 // Wider maps are cut into 2-D tiles of 32 columns (one warp's pixels per
-// row), whose rows are spans of TW (+2) pixels.
+// row; the bf16 kernel also 64), whose rows are spans of TW (+2) pixels.
 // The wrapper (ops/bottleneck_chain.launch_plan) picks TH and TW;
 // bottleneck_smem_bytes checks them against these limits and gives the
 // shared memory they need.  A launch's grid is (tiles, batch).
@@ -80,10 +60,8 @@
 // therefore shrinks as the width grows, with the same 8 warps and the same
 // accumulator registers per thread (Cfg below): up to width 64, tiles of up
 // to 192 pixels and passes of 64 channels; up to width 128, tiles of up to
-// 96 pixels and passes of 128 channels.  The bf16 kernels: up to width 64,
-// mma.sync with Cfg<64>'s tiles (warps 4 along pixels x 2 along channels);
-// widths 65-128, the wgmma kernel with 16 warps and 192-pixel tiles (its
-// section below says why).
+// 96 pixels and passes of 128 channels.  The bf16 kernel keeps tiles of up
+// to 192 pixels at both of its widths.
 //
 // SE needs the spatial mean over the whole sample before the residual add,
 // so an SE block runs in two passes: pass 1 writes the pre-gate output, the
@@ -95,7 +73,7 @@
 // g computes pixels {l, l+32, ...} of the tile and output channels
 // kNJ*g .. kNJ*g + kNJ-1, so the A operand is read conflict-free from shared
 // memory and the B operand is a warp-wide broadcast.  The bf16 kernel's
-// tiling is at bottleneck_block_tc_kernel.
+// tiling is at its section below.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -112,18 +90,17 @@ constexpr int kMaxSmem = 232448;      // one block's shared memory (227 KB)
 constexpr int cmax(int a, int b) { return a > b ? a : b; }
 
 // The tile limits and the shapes of the f32 kernel for Bottleneck widths up
-// to kWMax (64 or 128), and of the mma.sync kernel (kWMax 64 only: wider
-// bf16 blocks run the wgmma kernel, namespace wide).
+// to kWMax (64 or 128).
 template <int kWMax>
 struct Cfg {
-  static_assert(kWMax == 64 || kWMax == 128, "the kernels take widths up to 64 or up to 128");
+  static_assert(kWMax == 64 || kWMax == 128, "the kernel takes widths up to 64 or up to 128");
   static constexpr int kNTile = kWMax;                   // output channels per pass
   static constexpr int kBand = kWMax == 64 ? 192 : 96;   // TH * TW <= kBand
   static constexpr int kHalo = kWMax == 64 ? 288 : 192;  // (TH + 2) * TW <= kHalo
   static constexpr int kMinBlocks = kWMax == 64 ? 2 : 1;  // blocks per SM
-  // f32 kernel: kNJ output channels per thread, kPC tile pixels per lane,
-  // kPA halo pixels per lane in each round of phase A, w2 and w3 in shared
-  // memory kKB input channels at a time
+  // kNJ output channels per thread, kPC tile pixels per lane, kPA halo
+  // pixels per lane in each round of phase A, w2 and w3 in shared memory kKB
+  // input channels at a time
   static constexpr int kNJ = kNTile / 8;
   static constexpr int kPC = kBand / 32;
   static constexpr int kPA = kWMax == 64 ? 9 : 3;
@@ -132,18 +109,6 @@ struct Cfg {
   // (a K chunk of one 3x3 tap), phase C (w3 chunk + x chunk + wd chunk)
   static constexpr int kWork = cmax(cmax(kKC * kPA * 32 + kKC * kNTile, kKB * kNTile),
                                     kKB * kNTile + kKC * kBand + kKC * kNTile);
-  // mma.sync kernel: row pitch of the smem tiles (144 B, so the 8 rows of
-  // an ldmatrix fall in distinct banks), warps along N (32 channels each)
-  // and along M (pixels), m16 tiles per warp
-  static constexpr int kP = kWMax + 8;
-  static constexpr int kNG = kWMax / 32;
-  static constexpr int kMG = 8 / kNG;
-  static constexpr int kMT = 3;
-  static_assert(kBand == 16 * kMT * kMG, "a tile is the warps' m16 tiles");
-  // bf16 scratch beyond m1: phase A (x round + w1), phase C (w3 + x band +
-  // wd + the SE sums); phase B's one tap of w2 is smaller
-  static constexpr int kTcWork = cmax(2 * (kBand + kWMax) * kP,
-                                      2 * (2 * kWMax + kBand) * kP + 4 * kMG * kNTile);
 };
 
 template <int kWMax>
@@ -154,12 +119,6 @@ bool tile_fits(int th, int tw) {
 template <int kWMax>
 size_t block_smem_bytes(int th, int tw) {
   return sizeof(float) * ((size_t)kWMax * (th + 2) * (tw + 2) + Cfg<kWMax>::kWork);
-}
-
-template <int kWMax>
-size_t tc_smem_bytes(int th, int tw) {
-  return sizeof(__nv_bfloat16) * (size_t)(th + 2) * (tw + 2) * Cfg<kWMax>::kP +
-         Cfg<kWMax>::kTcWork;
 }
 
 template <typename T> __device__ __forceinline__ float to_f(T v);
@@ -500,7 +459,54 @@ __global__ void __launch_bounds__(kThreads, Cfg<kWMax>::kMinBlocks)
   }
 }
 
-// ---- the tensor-core kernel (bf16 compute) ---------------------------------
+// ---- the bf16 kernel (wgmma, every width) -----------------------------------
+//
+// One block of threads takes one tile of up to kBand = 192 pixels (4 whole
+// rows of the 64x48 map: three 64-row wgmma tiles) with 4 warpgroups:
+// warpgroups 0-2 compute, warpgroup w on tile pixels 64w .. 64w + 63 with its
+// 64 x kN f32 sums in registers (kN / 2 per thread); warpgroup 3 is the
+// producer, and hands its registers to the consumers (setmaxnreg).  kN is the
+// width of every product: 64 at Bottleneck widths up to 64, 128 at widths
+// 65-128; a narrower width reads as zeros past its end.  Every weight
+// reaches shared memory as chunks of [K][kN channels] bf16 (K = 64 for w1
+// and wd, kN for w2's taps and w3) in a ring of kStages stages: the
+// producer's thread 0 waits until the stage is free (its `empty` mbarrier:
+// every consumer warp arrives after its last wgmma on it), then asks TMA for
+// the chunk's boxes of [K][64 channels] through the weight's tensor map,
+// completing on the stage's `full` mbarrier.  TMA reads the folded weights
+// as they are ([K][N], N contiguous) and writes them with the 128-byte
+// swizzle, the MN-major layout that wgmma reads B in (`imm-trans-b`),
+// out-of-range rows and columns as zeros.  So the weights of tap t + 1 are
+// in flight while tap t is multiplied, and nothing transposes them.
+//
+// The chunks, in the order both sides walk them:
+//   A. per round of up to kBand halo pixels, per 64 input channels: w1;
+//   B. per 3x3 tap: w2[tap] (K = kN);
+//   C. per pass of kN output channels: w3, then per 64 input channels wd.
+// Products: wgmma.mma_async m64nNk16 with N = kN (bf16 in, f32 sums), A from
+// registers (ldmatrix from a [pixel][channel] bf16 tile, so the 3x3's A rows
+// are the halo at pixel + shift), B from the stage by descriptor.
+// Activations are staged by the consumers: x with 16-byte loads where its
+// rows allow (whole rows, aligned), converted to bf16 in shared memory
+// [pixel][64 channels].  Biases sit in shared memory, m1 and m2 are stored
+// with stmatrix, and half of the identity is loaded before conv3, so that
+// its latency hides behind the product.  The numerics are those of the f32
+// kernel and the plain version: operands rounded to bf16 where the plain
+// version rounds them, f32 sums, biases and carry, the zero pad after the
+// relu, per-tile SE sums in a fixed order.
+//
+// Residency.  At kN = 128 every block of threads streams ~420 KB of weights
+// per tile, and the ring (3 stages of 32 KB) and m1 (272 B a pixel) take
+// ~213 KB: one block per SM.  At kN = 64 the products are a third of that,
+// and the activations' global latency (staging x, the identity's loads, the
+// epilogue's stores) sets the pace.  The 64 instance's shared memory (4
+// stages of 8 KB, m1 at 144 B a pixel: ~107 KB for the 64x48 map's bands)
+// would let two blocks of threads share an SM, but each would then have
+// 32,768 registers, 64 a thread at launch: ptxas spills and serializes the
+// wgmma, and there is no room to load the identity ahead; built so, it
+// measured slower on the H100 (PERF.md).  So both instances run one block per
+// SM, with the consumers at 160 registers holding the next x chunk and the
+// identity while the products run.
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -512,417 +518,50 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
                : "r"(addr));
 }
 
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-constexpr int kNT = 4;  // n8 tiles per warp: 32 channels
-
-// The one product routine: acc[i][j] += A(m-tile i) . B(n-tile j) over
-// ksteps steps of k16.  a_addr[i] is this lane's ldmatrix row in m-tile i
-// (row lane % 16 at k offset 8 * (lane / 16)), so the rows may be gathered
-// from anywhere in shared memory; b_addr is this lane's row of the [n][k]
-// weight tile (row pitch kP) for the warp's 32 channels.  m-tiles i >= mt
-// are skipped.
-template <int kP, int kMT>
-__device__ __forceinline__ void warp_mma(float (&acc)[kMT][kNT][4], const uint32_t (&a_addr)[kMT],
-                                         int mt, uint32_t b_addr, int ksteps) {
-  for (int ks = 0; ks < ksteps; ++ks) {
-    uint32_t b01[4], b23[4];
-    ldsm_x4(b01, b_addr + ks * 32);
-    ldsm_x4(b23, b_addr + 16 * kP * 2 + ks * 32);
-#pragma unroll
-    for (int i = 0; i < kMT; ++i) {
-      if (i < mt) {
-        uint32_t a[4];
-        ldsm_x4(a, a_addr[i] + ks * 32);
-        mma_bf16(acc[i][0], a, b01[0], b01[1]);
-        mma_bf16(acc[i][1], a, b01[2], b01[3]);
-        mma_bf16(acc[i][2], a, b23[0], b23[1]);
-        mma_bf16(acc[i][3], a, b23[2], b23[3]);
-      }
-    }
-  }
-}
-
-template <int kMT>
-__device__ __forceinline__ void zero_acc(float (&acc)[kMT][kNT][4]) {
-#pragma unroll
-  for (int i = 0; i < kMT; ++i)
-#pragma unroll
-    for (int j = 0; j < kNT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-}
-
-// Staging loops issue kStageBatch items' global loads before their shared
-// stores, so each thread keeps that many loads in flight.
-constexpr int kStageBatch = 8;
-
-// Stage pixels q0 .. q0 + kMaxRows of the map m (zero past `rows` and past
-// cin), x's channels k0 .. k0 + kpad, into xs [kMaxRows][kP] as bf16: two
-// channels per item, so the global loads run along pixels and each shared
-// store is one bf16 pair.
-template <int kMaxRows, int kP, bool kRows, typename TI>
-__device__ __forceinline__ void stage_x(__nv_bfloat16* xs, const TI* x, int HW, const PixMap& m,
-                                        int q0, int rows, int k0, int kpad, int cin) {
-  const int total = kMaxRows * kpad / 2;
-  for (int i0 = threadIdx.x; i0 < total; i0 += kStageBatch * kThreads) {
-    float v[kStageBatch][2];
-#pragma unroll
-    for (int u = 0; u < kStageBatch; ++u) {
-      const int i = i0 + u * kThreads;
-      const int c = k0 + 2 * (i / kMaxRows), r = i % kMaxRows;
-      const bool ok = i < total && r < rows;
-      const int lin = ok ? m.lin<kRows>(q0 + r) : 0;
-      v[u][0] = ok && c < cin ? to_f<TI>(x[(size_t)c * HW + lin]) : 0.f;
-      v[u][1] = ok && c + 1 < cin ? to_f<TI>(x[(size_t)(c + 1) * HW + lin]) : 0.f;
-    }
-#pragma unroll
-    for (int u = 0; u < kStageBatch; ++u) {
-      const int i = i0 + u * kThreads;
-      if (i < total)
-        *reinterpret_cast<__nv_bfloat162*>(xs + (i % kMaxRows) * kP + 2 * (i / kMaxRows)) =
-            __floats2bfloat162_rn(v[u][0], v[u][1]);
-    }
-  }
-}
-
-// Stage w[k0 + k][n0 + n] (global [K][N], row length ld) transposed into
-// ws [kN n][kP] for k < kpad, zero past K and N; two k per item.
-template <int kN, int kP>
-__device__ __forceinline__ void stage_w(__nv_bfloat16* ws, const __nv_bfloat16* w, int ld, int k0,
-                                        int kpad, int K, int n0, int N) {
-  const __nv_bfloat16 zero = __float2bfloat16(0.f);
-  const int total = kN * kpad / 2;
-  for (int i0 = threadIdx.x; i0 < total; i0 += kStageBatch * kThreads) {
-    __nv_bfloat16 v[kStageBatch][2];
-#pragma unroll
-    for (int u = 0; u < kStageBatch; ++u) {
-      const int i = i0 + u * kThreads;
-      const int k = k0 + 2 * (i / kN), n = n0 + i % kN;
-      const bool ok = i < total && n < N;
-      v[u][0] = ok && k < K ? w[(size_t)k * ld + n] : zero;
-      v[u][1] = ok && k + 1 < K ? w[(size_t)(k + 1) * ld + n] : zero;
-    }
-#pragma unroll
-    for (int u = 0; u < kStageBatch; ++u) {
-      const int i = i0 + u * kThreads;
-      if (i < total)
-        *reinterpret_cast<__nv_bfloat162*>(ws + (i % kN) * kP + 2 * (i / kN)) =
-            __halves2bfloat162(v[u][0], v[u][1]);
-    }
-  }
-}
-
-// The bf16 block up to width 64: the same three phases, tiles and epilogue
-// as bottleneck_block_kernel, with every product in warp_mma.  Shared memory
-// holds activations as [pixel][channel] bf16 and weights as [n][k] bf16.
-// Warp g owns m-tiles g/kNG, g/kNG + kMG, g/kNG + 2kMG of up to kBand
-// pixels and 32 of a pass's kNTile channels; an f32 C fragment holds pixels
-// lane/4 and lane/4 + 8 for the channel pair 2 * (lane % 4) + {0, 1} of each
-// n8 tile.
-template <int kWMax, bool kRows, typename TI, typename TO>
-__global__ void __launch_bounds__(kThreads, Cfg<kWMax>::kMinBlocks)
-    bottleneck_block_tc_kernel(BlockArgs a) {
-  using C = Cfg<kWMax>;
-  constexpr int kP = C::kP, kMG = C::kMG, kMT = C::kMT, kBand = C::kBand, kNTile = C::kNTile;
-  extern __shared__ __align__(16) unsigned char tc_smem[];
-  using bf16 = __nv_bfloat16;
-  const int tid = threadIdx.x, lane = tid & 31, grp = tid >> 5;
-  const int b = blockIdx.y;
-  const Tile g = tile_of(a, blockIdx.x);
-  const int HW = a.h * a.w, npix = g.npix;
-  const int m1_stride = (a.th + 2) * g.pitch;
-  const int width = a.width, cin = a.cin, cout = a.cout;
-  const int mg = grp / C::kNG, nw = 32 * (grp % C::kNG);
-  const int gid = lane >> 2, tig = lane & 3;
-  const int mt = min(kMT, max(0, ((npix + 15) / 16 - mg + kMG - 1) / kMG));
-  const int kw = (width + 15) / 16 * 16;  // K of the 3x3 and conv3, padded
-  // this lane's ldmatrix rows: A at (m-tile row, k offset), B in [n][k]
-  const int a_row = lane & 15, a_k = 8 * (lane >> 4);
-  const uint32_t b_off = 2 * ((nw + 8 * (lane >> 4) + (lane & 7)) * kP + 8 * ((lane >> 3) & 1));
-
-  bf16* m1s = reinterpret_cast<bf16*>(tc_smem);  // [m1_stride pixels][kP]
-  bf16* work = m1s + (size_t)m1_stride * kP;
-
-  const TI* x = static_cast<const TI*>(a.x) + (size_t)b * cin * HW;
-  const bf16* w1 = static_cast<const bf16*>(a.w1);
-  const bf16* w2 = static_cast<const bf16*>(a.w2);
-  const bf16* w3 = static_cast<const bf16*>(a.w3);
-  const bf16* wd = static_cast<const bf16*>(a.wd);
-
-  for (int i = tid; i < m1_stride * kP / 8; i += kThreads)
-    reinterpret_cast<uint4*>(m1s)[i] = make_uint4(0, 0, 0, 0);
-
-  float acc[kMT][kNT][4];
-  uint32_t a_addr[kMT];
-
-  // ---- A: m1 = relu(x . w1 + b1) on the halo, in rounds of up to kBand
-  // halo pixels
-  {
-    bf16* xs = work;                 // [kBand][kP]
-    bf16* ws = work + kBand * kP;    // [kWMax n][kP]
-    for (int r0 = 0; r0 < g.nhalo; r0 += kBand) {
-      const int rows = min(kBand, g.nhalo - r0);
-      const int rmt = min(kMT, max(0, ((rows + 15) / 16 - mg + kMG - 1) / kMG));
-      zero_acc(acc);
-      for (int k0 = 0; k0 < cin; k0 += kWMax) {
-        const int kpad = (min(kWMax, cin - k0) + 15) / 16 * 16;
-        __syncthreads();
-        stage_x<kBand, kP, kRows>(xs, x, HW, g.halo, r0, rows, k0, kpad, cin);
-        stage_w<kWMax, kP>(ws, w1, width, k0, kpad, cin, 0, width);
-        __syncthreads();
-#pragma unroll
-        for (int i = 0; i < kMT; ++i)
-          a_addr[i] = smem_u32(xs + ((mg + kMG * i) * 16 + a_row) * kP + a_k);
-        warp_mma<kP>(acc, a_addr, rmt, smem_u32(ws) + b_off, kpad / 16);
-      }
-#pragma unroll
-      for (int i = 0; i < kMT; ++i)
-#pragma unroll
-        for (int j = 0; j < kNT; ++j) {
-          const int n = nw + 8 * j + 2 * tig;
-          const float b0 = n < width ? a.b1[n] : 0.f, b1 = n + 1 < width ? a.b1[n + 1] : 0.f;
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int r = (mg + kMG * i) * 16 + gid + 8 * h;
-            if (r >= rows) continue;
-            *reinterpret_cast<__nv_bfloat162*>(m1s + halo_m1(g, r0 + r) * kP + n) =
-                __floats2bfloat162_rn(fmaxf(acc[i][j][2 * h] + b0, 0.f),
-                                      fmaxf(acc[i][j][2 * h + 1] + b1, 0.f));
-          }
-        }
-    }
-  }
-
-  // ---- B: m2 = relu(3x3(m1) + b2): 9 shifted products, the A rows of tap
-  // (dy, dx) gathered from the halo at pixel + dy * pitch + dx
-  zero_acc(acc);
-  {
-    bf16* w2s = work;  // [kWMax n][kP]
-    int row[kMT];      // this lane's A row (halo pixel) in m-tile i, tap (0, 0)
-#pragma unroll
-    for (int i = 0; i < kMT; ++i) row[i] = band_m1(g, min((mg + kMG * i) * 16 + a_row, npix - 1));
-    for (int tap = 0; tap < 9; ++tap) {
-      const int shift = (tap / 3) * g.pitch + tap % 3;
-      __syncthreads();
-      stage_w<kWMax, kP>(w2s, w2 + (size_t)tap * width * width, width, 0, kw, width, 0, width);
-      __syncthreads();
-#pragma unroll
-      for (int i = 0; i < kMT; ++i) a_addr[i] = smem_u32(m1s + (row[i] + shift) * kP + a_k);
-      warp_mma<kP>(acc, a_addr, mt, smem_u32(w2s) + b_off, kw / 16);
-    }
-  }
-  __syncthreads();  // every read of m1 is done: m2 overwrites it
-  bf16* m2s = m1s;  // [tile pixel][kP]
-#pragma unroll
-  for (int i = 0; i < kMT; ++i)
-#pragma unroll
-    for (int j = 0; j < kNT; ++j) {
-      const int n = nw + 8 * j + 2 * tig;
-      const float b0 = n < width ? a.b2[n] : 0.f, b1 = n + 1 < width ? a.b2[n + 1] : 0.f;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int p = (mg + kMG * i) * 16 + gid + 8 * h;
-        if (p < npix)
-          *reinterpret_cast<__nv_bfloat162*>(m2s + p * kP + n) = __floats2bfloat162_rn(
-              fmaxf(acc[i][j][2 * h] + b0, 0.f), fmaxf(acc[i][j][2 * h + 1] + b1, 0.f));
-      }
-    }
-
-  // ---- C: o = m2 . w3 + b3, identity, epilogue; kNTile output channels a pass
-  bf16* w3s = work;                          // [kWMax n][kP]
-  bf16* xs = work + kWMax * kP;              // [kBand][kP]
-  bf16* wds = xs + kBand * kP;               // [kWMax n][kP]
-  float* red = reinterpret_cast<float*>(wds + kWMax * kP);  // [kMG][kNTile]
-  float* pre = a.pre + (size_t)b * cout * HW;
-  float* idn = a.idn + (size_t)b * cout * HW;
-  TO* out = static_cast<TO*>(a.out) + (size_t)b * cout * HW;
-  // x's tile for the projection is staged once when one chunk of kWMax
-  // channels holds it (layer1's first block), else per pass and chunk
-  const bool x_once = wd != nullptr && cin <= kWMax;
-  if (x_once)
-    stage_x<kBand, kP, kRows>(xs, x, HW, g.band, 0, npix, 0, (cin + 15) / 16 * 16, cin);
-  for (int n0 = 0; n0 < cout; n0 += kNTile) {
-    __syncthreads();
-    stage_w<kWMax, kP>(w3s, w3, cout, 0, kw, width, n0, cout);
-    __syncthreads();
-    zero_acc(acc);
-#pragma unroll
-    for (int i = 0; i < kMT; ++i)
-      a_addr[i] = smem_u32(m2s + min((mg + kMG * i) * 16 + a_row, npix - 1) * kP + a_k);
-    warp_mma<kP>(acc, a_addr, mt, smem_u32(w3s) + b_off, kw / 16);
-#pragma unroll
-    for (int j = 0; j < kNT; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int n = n0 + nw + 8 * j + 2 * tig + e;
-        const float bias = n < cout ? a.b3[n] : 0.f;
-#pragma unroll
-        for (int i = 0; i < kMT; ++i) {
-          acc[i][j][e] += bias;
-          acc[i][j][2 + e] += bias;
-        }
-      }
-    if (a.se) {
-      // pre-gate output and this tile's channel sums: per warp over its
-      // pixels and the xor tree over lanes of one channel pair, then the
-      // kMG warps of a channel in a fixed order (deterministic, no atomics)
-#pragma unroll
-      for (int j = 0; j < kNT; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int nl = nw + 8 * j + 2 * tig + e, n = n0 + nl;
-          float s = 0.f;
-#pragma unroll
-          for (int i = 0; i < kMT; ++i)
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              const int p = (mg + kMG * i) * 16 + gid + 8 * h;
-              if (p < npix) {
-                s += acc[i][j][2 * h + e];
-                if (n < cout) pre[(size_t)n * HW + g.band.lin<kRows>(p)] = acc[i][j][2 * h + e];
-              }
-              acc[i][j][2 * h + e] = 0.f;
-            }
-#pragma unroll
-          for (int o = 4; o < 32; o <<= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-          if (gid == 0) red[mg * kNTile + nl] = s;
-        }
-      __syncthreads();
-      if (tid < kNTile && n0 + tid < cout) {
-        float s = red[tid];
-#pragma unroll
-        for (int m = 1; m < kMG; ++m) s += red[m * kNTile + tid];
-        a.partial[((size_t)b * a.tiles + blockIdx.x) * cout + n0 + tid] = s;
-      }
-    }
-    if (wd != nullptr) {
-      // identity = x . wd + bd, with x's tile staged as bf16 per kWMax channels
-      for (int k0 = 0; k0 < cin; k0 += kWMax) {
-        const int kpad = (min(kWMax, cin - k0) + 15) / 16 * 16;
-        __syncthreads();
-        if (!x_once) stage_x<kBand, kP, kRows>(xs, x, HW, g.band, 0, npix, k0, kpad, cin);
-        stage_w<kWMax, kP>(wds, wd, cout, k0, kpad, cin, n0, cout);
-        __syncthreads();
-#pragma unroll
-        for (int i = 0; i < kMT; ++i)
-          a_addr[i] = smem_u32(xs + ((mg + kMG * i) * 16 + a_row) * kP + a_k);
-        warp_mma<kP>(acc, a_addr, mt, smem_u32(wds) + b_off, kpad / 16);
-      }
-#pragma unroll
-      for (int j = 0; j < kNT; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int n = n0 + nw + 8 * j + 2 * tig + e;
-          const float bias = n < cout ? a.bd[n] : 0.f;
-#pragma unroll
-          for (int i = 0; i < kMT; ++i) {
-            acc[i][j][e] += bias;
-            acc[i][j][2 + e] += bias;
-          }
-        }
-    } else {
-      // identity: the block's input itself, unrounded (cin == cout)
-#pragma unroll
-      for (int i = 0; i < kMT; ++i)
-#pragma unroll
-        for (int j = 0; j < kNT; ++j)
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int p = (mg + kMG * i) * 16 + gid + 8 * h;
-            const int n = n0 + nw + 8 * j + 2 * tig;
-            if (p >= npix) continue;
-            const int lin = g.band.lin<kRows>(p);
-            if (n < cout) acc[i][j][2 * h] += to_f<TI>(x[(size_t)n * HW + lin]);
-            if (n + 1 < cout) acc[i][j][2 * h + 1] += to_f<TI>(x[(size_t)(n + 1) * HW + lin]);
-          }
-    }
-#pragma unroll
-    for (int i = 0; i < kMT; ++i)
-#pragma unroll
-      for (int j = 0; j < kNT; ++j)
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int p = (mg + kMG * i) * 16 + gid + 8 * h;
-            const int n = n0 + nw + 8 * j + 2 * tig + e;
-            if (p >= npix || n >= cout) continue;
-            const size_t o = (size_t)n * HW + g.band.lin<kRows>(p);
-            if (a.se) idn[o] = acc[i][j][2 * h + e];
-            else out[o] = from_f<TO>(fmaxf(acc[i][j][2 * h + e], 0.f));
-          }
-  }
-}
-
-// ---- the width-128 bf16 kernel (Bottleneck widths 65-128, wgmma) ------------
-//
-// One block of threads takes one tile of up to kBand = 192 pixels (4 whole
-// rows of the 64x48 map: three 64-row wgmma tiles) with 4 warpgroups:
-// warpgroups 0-2 compute, warpgroup w on tile pixels 64w .. 64w + 63 with its
-// 64 x 128 f32 sums in registers (64 per thread); warpgroup 3 is the
-// producer, and hands its registers to the consumers (setmaxnreg: 160 per
-// consumer thread, where 13 warps would cap every thread at 128).  Every
-// weight reaches shared memory as chunks of [K <= 128][128 channels] bf16 in
-// a ring of kStages stages: the producer's thread 0 waits until the stage is
-// free (its `empty` mbarrier: every consumer warp arrives after its last
-// wgmma on it), then asks TMA for two boxes of [K][64 channels] through the
-// weight's tensor map, completing on the stage's `full` mbarrier.  TMA reads
-// the folded weights as they are ([K][N], N contiguous) and writes them with
-// the 128-byte swizzle, the MN-major layout that wgmma reads B in (`imm-trans-b`),
-// out-of-range rows and columns as zeros.  So the weights of tap t + 1 are in
-// flight while tap t is multiplied, and nothing transposes them.
-//
-// The chunks, in the order both sides walk them:
-//   A. per round of up to kBand halo pixels, per 64 input channels: w1;
-//   B. per 3x3 tap: w2[tap] (K = width);
-//   C. per pass of 128 output channels: w3, then per 64 input channels wd.
-// Products: wgmma.mma_async m64n128k16 (bf16 in, f32 sums), A from registers
-// (ldmatrix from a [pixel][channel] bf16 tile, so the 3x3's A rows are the
-// halo at pixel + shift), B from the stage by descriptor.  Activations are
-// staged by the consumers: x with 16-byte loads where its rows allow (whole
-// rows, aligned), converted to bf16 in shared memory [pixel][64 channels].
-// The numerics are those of the other kernels: operands rounded to bf16
-// where the plain version rounds them, f32 sums, biases and carry, the zero
-// pad after the relu, per-tile SE sums in a fixed order.
-
-namespace wide {
+namespace hopper {
 
 constexpr int kConsumers = 384;              // warpgroups 0-2
 constexpr int kThreadsW = kConsumers + 128;  // and the producer warpgroup
-// registers per thread after setmaxnreg (launched at 65536 / 512 = 128): the
-// producer gives up what the consumers' 64 sums and 32 A registers need
-constexpr int kProducerRegs = 32, kConsumerRegs = 160;
-static_assert(kProducerRegs * 128 + kConsumerRegs * kConsumers <= 65536, "one SM's registers");
 constexpr int kWarpsC = kConsumers / 32;
 constexpr int kBand = 192;                   // tile pixels: 3 x m64
 constexpr int kStore = 320;                  // (th + 2) * (tw + 2): m1 on the tile and its ring
-constexpr int kN = 128;                      // channels of one product (width, or a pass of cout)
-constexpr int kP = kN + 8;                   // m1 / m2 row pitch: 272 B, banks apart per row
 constexpr int kKX = 64;                      // x channels per chunk (phase A, the projection)
 constexpr int kXP = kKX + 8;                 // x tile row pitch: 144 B
-constexpr int kStages = 3;
-constexpr int kStageBytes = 32768;           // two boxes of [128 k][64 n] bf16
-// shared memory after aligning to 1024 B (the swizzle's period):
-// [ring][x tile][SE sums][biases][mbarriers][m1 / m2]; the biases: b1, b2,
-// then b3 and bd of the even passes of conv3, then of the odd ones
-constexpr int kXOff = kStages * kStageBytes;
-constexpr int kRedOff = kXOff + kBand * kXP * 2;
-constexpr int kBiasOff = kRedOff + kWarpsC * kN * 4;
-constexpr int kBarOff = kBiasOff + 6 * kN * 4;
-constexpr int kM1Off = kBarOff + 64;
+// registers per thread after setmaxnreg (launched at 65536 / 512 = 128): the
+// producer gives up what the consumers' sums, A fragments and the loads held
+// ahead need
+constexpr int kProducerRegs = 32, kConsumerRegs = 160;
+static_assert(kProducerRegs * 128 + kConsumerRegs * kConsumers <= 65536, "one SM's registers");
+
+// The instance whose products are kN channels wide.
+template <int kN>
+struct Shape {
+  static_assert(kN == 64 || kN == 128, "products of 64 or 128 channels");
+  static constexpr int kJ = kN / 8;                  // n8 blocks: 4 kJ sums a thread
+  static constexpr int kP = kN + 8;                  // m1 / m2 row pitch: 144 or 272 B
+  static constexpr int kBoxes = kN / 64;             // TMA boxes of 64 channels a chunk
+  static constexpr int kStages = kN == 64 ? 4 : 3;
+  static constexpr int kStageBytes = kBoxes * kN * 64 * 2;  // kBoxes boxes of [kN k][64 n]
+  // the identity's fragment rows held in registers: at kN = 128 the first
+  // row, loaded before conv3; at kN = 64 both, loaded during the pass before
+  static constexpr int kIdnRows = kN == 64 ? 2 : 1;
+  // shared memory after aligning to 1024 B (the swizzle's period):
+  // [ring][x tile][SE sums][biases][mbarriers][m1 / m2]; the biases: b1, b2,
+  // then b3 and bd of the even passes of conv3, then of the odd ones
+  static constexpr int kXOff = kStages * kStageBytes;
+  static constexpr int kRedOff = kXOff + kBand * kXP * 2;
+  static constexpr int kBiasOff = kRedOff + kWarpsC * kN * 4;
+  static constexpr int kBarOff = kBiasOff + 6 * kN * 4;
+  static constexpr int kM1Off = kBarOff + 64;
+  static_assert(2 * kStages * 8 <= 64, "the mbarriers");
+};
 
 bool tile_fits(int th, int tw) { return th * tw <= kBand && (th + 2) * (tw + 2) <= kStore; }
 
+template <int kN>
 size_t smem_bytes(int th, int tw) {
-  return 1024 + kM1Off + sizeof(__nv_bfloat16) * (size_t)(th + 2) * (tw + 2) * kP;
+  return 1024 + Shape<kN>::kM1Off +
+         sizeof(__nv_bfloat16) * (size_t)(th + 2) * (tw + 2) * Shape<kN>::kP;
 }
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
@@ -956,14 +595,15 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   }
 }
 
-// Two boxes of a weight chunk (channels c_n .. c_n + 63 and c_n + 64 ..
-// c_n + 127) into dst and dst + box, completing on bar.
+// The kBoxes boxes of a weight chunk (channels c_n + 64 h .. c_n + 64 h + 63
+// into dst + h * box), completing on bar.
+template <int kBoxes>
 __device__ __forceinline__ void tma_chunk(uint32_t dst, const CUtensorMap* map, uint32_t bar,
                                           int c_n, int c_k, int tap, uint32_t box) {
   const uint64_t m = reinterpret_cast<uint64_t>(map);
-  mbar_expect_tx(bar, 2 * box);
+  mbar_expect_tx(bar, kBoxes * box);
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
+  for (int h = 0; h < kBoxes; ++h) {
     if (tap < 0)
       asm volatile(
           "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
@@ -980,7 +620,7 @@ __device__ __forceinline__ void tma_chunk(uint32_t dst, const CUtensorMap* map, 
 }
 
 // wgmma descriptor of an MN-major B tile with the 128-byte swizzle: 8-row
-// K groups 1024 B apart, the two 64-channel boxes `box` bytes apart.
+// K groups 1024 B apart, 64-channel boxes `box` bytes apart.
 __device__ __forceinline__ uint64_t b_desc(uint32_t addr, uint32_t box) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(box >> 4) << 16) |
          ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
@@ -988,12 +628,30 @@ __device__ __forceinline__ uint64_t b_desc(uint32_t addr, uint32_t box) {
 
 // Keeps the compiler from moving reads or writes of the sums across the
 // asynchronous wgmma (its register operands are only ready after the wait).
-__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+template <int kA>
+__device__ __forceinline__ void fence_acc(float (&d)[kA]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < kA; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-__device__ __forceinline__ void wgmma_128(float (&d)[64], const uint32_t (&a)[4], uint64_t desc) {
+// d += A . B over one k16 step: m64n64k16 (32 sums a thread) ...
+__device__ __forceinline__ void wgmma(float (&d)[32], const uint32_t (&a)[4], uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// ... and m64n128k16 (64 sums a thread)
+__device__ __forceinline__ void wgmma(float (&d)[64], const uint32_t (&a)[4], uint64_t desc) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
@@ -1047,35 +705,38 @@ __device__ __forceinline__ void consumers_sync() {
 
 // The ring as each side walks it: chunk i sits in stage i % kStages and
 // fills for the (i / kStages)-th time.
+template <int kN>
 struct Ring {
+  using S = Shape<kN>;
   uint32_t base, full, empty;  // stage 0, its full and empty mbarriers (8 B apart per stage)
   int i = 0;
-  __device__ __forceinline__ int stage() const { return i % kStages; }
-  __device__ __forceinline__ uint32_t parity() const { return (i / kStages) & 1; }
+  __device__ __forceinline__ int stage() const { return i % S::kStages; }
+  __device__ __forceinline__ uint32_t parity() const { return (i / S::kStages) & 1; }
   __device__ __forceinline__ uint32_t full_bar() const { return full + 8 * stage(); }
   __device__ __forceinline__ uint32_t empty_bar() const { return empty + 8 * stage(); }
-  __device__ __forceinline__ uint32_t data() const { return base + kStageBytes * stage(); }
+  __device__ __forceinline__ uint32_t data() const { return base + S::kStageBytes * stage(); }
 };
 
 // One chunk on the consumer side: wait for it, then (if this warpgroup has
 // rows) acc += A . chunk over ksteps k16 steps, A's rows from this lane's
 // ldmatrix address a_addr (k offset 0), then release the stage.
-__device__ __forceinline__ void consume(Ring& r, float (&acc)[64], bool active, uint32_t a_addr,
-                                        int ksteps, uint32_t box, Timers& k2c) {
+template <int kN>
+__device__ __forceinline__ void consume(Ring<kN>& r, float (&acc)[kN / 2], bool active,
+                                        uint32_t a_addr, int ksteps, uint32_t box, Timers& k2c) {
   K2_MARK(t0);
   mbar_wait(r.full_bar(), r.parity());
   K2_ADD(kTWait, t0);
   K2_MARK(t1);
   if (active) {
-    uint32_t a[8][4];
+    uint32_t a[kN / 16][4];
 #pragma unroll
-    for (int ks = 0; ks < 8; ++ks)
+    for (int ks = 0; ks < kN / 16; ++ks)
       if (ks < ksteps) ldsm_x4(a[ks], a_addr + 32 * ks);
     fence_acc(acc);
     asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
 #pragma unroll
-    for (int ks = 0; ks < 8; ++ks)
-      if (ks < ksteps) wgmma_128(acc, a[ks], b_desc(r.data() + 2048 * ks, box));
+    for (int ks = 0; ks < kN / 16; ++ks)
+      if (ks < ksteps) wgmma(acc, a[ks], b_desc(r.data() + 2048 * ks, box));
     asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
     asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
     fence_acc(acc);
@@ -1086,9 +747,10 @@ __device__ __forceinline__ void consume(Ring& r, float (&acc)[64], bool active, 
   ++r.i;
 }
 
-__device__ __forceinline__ void zero64(float (&acc)[64]) {
+template <int kA>
+__device__ __forceinline__ void zero(float (&acc)[kA]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (int i = 0; i < kA; ++i) acc[i] = 0.f;
 }
 
 // 16-byte loads of 8 pixels of one channel, as f32
@@ -1111,10 +773,11 @@ __device__ __forceinline__ void load8(float (&v)[8], const __nv_bfloat16* p) {
 // Pixels q0 .. q0 + kBand of map m (zero past `rows`), channels k0 .. k0 +
 // 63 of x (zero past cin), for xs [kBand][kXP] as bf16, in two steps: load
 // (into registers) and store.  An item is 8 pixels of a channel pair, two
-// items a thread; neighbouring lanes take neighbouring pairs, so the shared
-// stores fall in distinct banks.  Where the 8 pixels are one aligned span
-// (whole rows), each lane reads 32 contiguous bytes of a channel (one
-// sector) with 16-byte loads (one load for bf16 x).
+// items a thread, both in registers at a time; neighbouring lanes
+// take neighbouring pairs, so the shared stores fall in distinct banks.
+// Where the 8 pixels are one aligned span (whole rows), each lane reads 32
+// contiguous bytes of a channel (one sector) with 16-byte loads (one load
+// for bf16 x).
 template <bool kRows, typename TI>
 struct XTile {
   static constexpr int kVec = 16 / sizeof(TI);  // pixels of one 16-byte load
@@ -1155,19 +818,27 @@ struct XTile {
             __floats2bfloat162_rn(v[u][0][t], v[u][1][t]);
     }
   }
+
+  __device__ __forceinline__ void stage(__nv_bfloat16* xs, const TI* x, int HW, const PixMap& m,
+                                        int q0, int rows, int k0, int cin) {
+    load(x, HW, m, q0, rows, k0, cin);
+    store(xs);
+  }
 };
 
-// Store relu(acc + bias) as bf16 rows of 128 channels with stmatrix (four
+// Store relu(acc + bias) as bf16 rows of 8 kJ channels with stmatrix (four
 // 8x8 blocks an instruction, 16 bytes a row; a 4-byte store per fragment
 // element was markedly slower).  Lane l gives the address of row l % 8
 // of block l / 8, the blocks being (n8 block j, rows 0-7), (j, rows 8-15),
 // (j + 1, 0-7) and (j + 1, 8-15) of this warp's 16 rows; row_addr is this
 // lane's row at channel 0, or where `valid` is false a dummy slot.
-__device__ __forceinline__ void store_rows_bf16(const float (&acc)[64], const float (&bv)[32],
-                                                uint32_t row_addr, bool valid) {
+template <int kJ>
+__device__ __forceinline__ void store_rows_bf16(const float (&acc)[4 * kJ],
+                                                const float (&bv)[2 * kJ], uint32_t row_addr,
+                                                bool valid) {
   const uint32_t col = valid ? 16 * ((threadIdx.x & 31) >> 4) : 0;
 #pragma unroll
-  for (int j = 0; j < 16; j += 2) {
+  for (int j = 0; j < kJ; j += 2) {
     uint32_t r[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -1185,31 +856,35 @@ __device__ __forceinline__ void store_rows_bf16(const float (&acc)[64], const fl
 }
 
 // This thread's biases of the fragment's channels 8 j + 2 tig + e (bv[2 j +
-// e]) from a 128-channel slot of the biases in shared memory.
-__device__ __forceinline__ void load_bias(float (&bv)[32], const float* slot, int tig) {
+// e]) from a slot of 8 kJ biases in shared memory.
+template <int kJ>
+__device__ __forceinline__ void load_bias(float (&bv)[2 * kJ], const float* slot, int tig) {
 #pragma unroll
-  for (int j = 0; j < 16; ++j)
+  for (int j = 0; j < kJ; ++j)
 #pragma unroll
     for (int e = 0; e < 2; ++e) bv[2 * j + e] = slot[8 * j + 2 * tig + e];
 }
 
 // Tensor maps: w1 [cin][width], w2 [9][width][width], w3 [width][cout],
 // wd [cin][cout] (w3's map where there is no projection).
-template <bool kRows, typename TI, typename TO>
+template <int kN, bool kRows, typename TI, typename TO>
 __global__ void __launch_bounds__(kThreadsW, 1)
     bottleneck_block_wgmma_kernel(BlockArgs a, const __grid_constant__ CUtensorMap tm_w1,
                                   const __grid_constant__ CUtensorMap tm_w2,
                                   const __grid_constant__ CUtensorMap tm_w3,
                                   const __grid_constant__ CUtensorMap tm_wd) {
   using bf16 = __nv_bfloat16;
-  extern __shared__ __align__(1024) unsigned char wide_smem[];
-  unsigned char* base = wide_smem + ((1024 - (smem_u32(wide_smem) & 1023)) & 1023);
-  bf16* xs = reinterpret_cast<bf16*>(base + kXOff);
-  float* red = reinterpret_cast<float*>(base + kRedOff);
-  float* bias_s = reinterpret_cast<float*>(base + kBiasOff);
-  bf16* m1s = reinterpret_cast<bf16*>(base + kM1Off);
-  const uint32_t bars = smem_u32(base + kBarOff);
-  Ring ring{smem_u32(base), bars, bars + 8 * kStages};
+  using S = Shape<kN>;
+  constexpr int kJ = S::kJ, kP = S::kP;
+  constexpr int kIdnRows = S::kIdnRows;
+  extern __shared__ __align__(1024) unsigned char wgmma_smem[];
+  unsigned char* base = wgmma_smem + ((1024 - (smem_u32(wgmma_smem) & 1023)) & 1023);
+  bf16* xs = reinterpret_cast<bf16*>(base + S::kXOff);
+  float* red = reinterpret_cast<float*>(base + S::kRedOff);
+  float* bias_s = reinterpret_cast<float*>(base + S::kBiasOff);
+  bf16* m1s = reinterpret_cast<bf16*>(base + S::kM1Off);
+  const uint32_t bars = smem_u32(base + S::kBarOff);
+  Ring<kN> ring{smem_u32(base), bars, bars + 8 * S::kStages};
 
   const int tid = threadIdx.x;
   const Tile g = tile_of(a, blockIdx.x);
@@ -1219,7 +894,7 @@ __global__ void __launch_bounds__(kThreadsW, 1)
   const bool proj = a.wd != nullptr;
 
   if (tid == 0) {
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < S::kStages; ++s) {
       mbar_init(ring.full + 8 * s, 1);
       mbar_init(ring.empty + 8 * s, kWarpsC);
     }
@@ -1237,7 +912,7 @@ __global__ void __launch_bounds__(kThreadsW, 1)
       K2_MARK(t0);
       mbar_wait(ring.empty_bar(), ring.parity() ^ 1);
       K2_ADD(kTProdWait, t0);
-      tma_chunk(ring.data(), map, ring.full_bar(), c_n, c_k, tap, box);
+      tma_chunk<S::kBoxes>(ring.data(), map, ring.full_bar(), c_n, c_k, tap, box);
       ++ring.i;
     };
     for (int r = 0; r < rounds; ++r)
@@ -1261,7 +936,7 @@ __global__ void __launch_bounds__(kThreadsW, 1)
   const int row0 = 64 * wg + 16 * wq;  // this warp's first row of the tile
   const int a_row = row0 + (lane & 15), a_k = 8 * (lane >> 4);
   const TI* x = static_cast<const TI*>(a.x) + (size_t)b * cin * HW;
-  float acc[64];
+  float acc[4 * kJ];
 
   {
     K2_MARK(t0);
@@ -1280,7 +955,7 @@ __global__ void __launch_bounds__(kThreadsW, 1)
   for (int it = 0; it < steps; ++it) {
     const int r = it / kchunks, kc = it % kchunks;
     const int q0 = kBand * r, rows = min(kBand, g.nhalo - q0);
-    if (kc == 0) zero64(acc);
+    if (kc == 0) zero(acc);
     K2_MARK(t0);
     consumers_sync();  // every read of the previous x tile is done
     xt.store(xs);
@@ -1294,12 +969,12 @@ __global__ void __launch_bounds__(kThreadsW, 1)
             k2c);
     if (kc + 1 < kchunks) continue;
     K2_MARK(t_epi);
-    float bv[32];
-    load_bias(bv, bias_s, tig);
+    float bv[2 * kJ];
+    load_bias<kJ>(bv, bias_s, tig);
     {
       const int q = row0 + 8 * ((lane >> 3) & 1) + (lane & 7);
       const uint32_t row = q < rows ? smem_u32(m1s + halo_m1(g, q0 + q) * kP) : smem_u32(red);
-      store_rows_bf16(acc, bv, row, q < rows);
+      store_rows_bf16<kJ>(acc, bv, row, q < rows);
     }
     K2_ADD(kTEpiA, t_epi);
   }
@@ -1310,7 +985,7 @@ __global__ void __launch_bounds__(kThreadsW, 1)
   }
 
   // ---- B: m2 = relu(3x3(m1) + b2): per tap, A rows are the halo at pixel + shift
-  zero64(acc);
+  zero(acc);
   const bool x_once = proj && cin <= kKX;  // the projection's x tile is staged once
   {
     const uint32_t m1_row = smem_u32(m1s + band_m1(g, min(a_row, npix - 1)) * kP + a_k);
@@ -1325,10 +1000,10 @@ __global__ void __launch_bounds__(kThreadsW, 1)
   K2_MARK(t_m2);
   bf16* m2s = m1s;   // [tile pixel][kP]
   {
-    float bv[32];
-    load_bias(bv, bias_s + kN, tig);
+    float bv[2 * kJ];
+    load_bias<kJ>(bv, bias_s + kN, tig);
     const int p = row0 + 8 * ((lane >> 3) & 1) + (lane & 7);
-    store_rows_bf16(acc, bv, p < npix ? smem_u32(m2s + p * kP) : smem_u32(red), p < npix);
+    store_rows_bf16<kJ>(acc, bv, p < npix ? smem_u32(m2s + p * kP) : smem_u32(red), p < npix);
   }
   __syncwarp();  // conv3 reads only this warp's own rows of m2
   K2_ADD(kTEpiB, t_m2);
@@ -1341,11 +1016,28 @@ __global__ void __launch_bounds__(kThreadsW, 1)
   const uint32_t xs_row = smem_u32(xs + a_row * kXP + a_k);
   if (x_once) {
     K2_MARK(t0);
-    xt.load(x, HW, g.band, 0, npix, 0, cin);
-    xt.store(xs);
+    xt.stage(xs, x, HW, g.band, 0, npix, 0, cin);
     consumers_sync();
     K2_ADD(kTStage, t0);
   }
+  // where there is no projection, the identity (the block's input itself,
+  // unrounded: cin == cout) at this thread's first kIdnRows fragment rows of
+  // the pass from output channel n0, into xv[4 j + 2 h + e] as acc holds it
+  float xv[4 * kJ];
+  auto load_identity = [&](int n0) {
+#pragma unroll
+    for (int j = 0; j < kJ; ++j)
+#pragma unroll
+      for (int h = 0; h < kIdnRows; ++h) {
+        const int p = row0 + gid + 8 * h, lin = g.band.lin<kRows>(min(p, npix - 1));
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int n = n0 + 8 * j + 2 * tig + e;
+          xv[4 * j + 2 * h + e] = p < npix && n < cout ? to_f<TI>(x[(size_t)n * HW + lin]) : 0.f;
+        }
+      }
+  };
+  if (kIdnRows == 2 && !proj) load_identity(0);
   for (int np = 0; np < passes; ++np) {
     const int n0 = kN * np;
     // this pass's b3 and bd into their slots (the ones of pass np - 2, whose
@@ -1355,29 +1047,19 @@ __global__ void __launch_bounds__(kThreadsW, 1)
       const int n = n0 + tid % kN;
       pass_bias[tid] = n < cout && (tid < kN || proj) ? (tid < kN ? a.b3 : a.bd)[n] : 0.f;
     }
-    // where there is no projection, the identity at this thread's first
-    // fragment row, loaded before conv3 so that its latency hides there
-    float xv0[32];
-    if (!proj) {
-      const int p = row0 + gid, lin = g.band.lin<kRows>(min(p, npix - 1));
-#pragma unroll
-      for (int j = 0; j < 16; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int n = n0 + 8 * j + 2 * tig + e;
-          xv0[2 * j + e] = p < npix && n < cout ? to_f<TI>(x[(size_t)n * HW + lin]) : 0.f;
-        }
-    }
-    zero64(acc);
+    // the identity's first row loaded before conv3, so that its latency
+    // hides there
+    if (kIdnRows == 1 && !proj) load_identity(n0);
+    zero(acc);
     consume(ring, acc, active, smem_u32(m2s + min(a_row, npix - 1) * kP + a_k), kN / 16,
             64 * kN * 2, k2c);
     consumers_sync();  // the pass's biases are in place
     K2_MARK(t_se);
     {
-      float bv[32];
-      load_bias(bv, pass_bias, tig);
+      float bv[2 * kJ];
+      load_bias<kJ>(bv, pass_bias, tig);
 #pragma unroll
-      for (int j = 0; j < 16; ++j)
+      for (int j = 0; j < kJ; ++j)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           acc[4 * j + e] += bv[2 * j + e];
@@ -1389,7 +1071,7 @@ __global__ void __launch_bounds__(kThreadsW, 1)
       // rows (the xor tree over the lanes of one channel pair), then the 12
       // warps of a channel in a fixed order (deterministic, no atomics)
 #pragma unroll
-      for (int j = 0; j < 16; ++j)
+      for (int j = 0; j < kJ; ++j)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int nl = 8 * j + 2 * tig + e, n = n0 + nl;
@@ -1431,10 +1113,10 @@ __global__ void __launch_bounds__(kThreadsW, 1)
         consume(ring, acc, active, xs_row, kKX / 16, 64 * kKX * 2, k2c);
       }
       K2_MARK(t0);
-      float bv[32];
-      load_bias(bv, pass_bias + kN, tig);
+      float bv[2 * kJ];
+      load_bias<kJ>(bv, pass_bias + kN, tig);
 #pragma unroll
-      for (int j = 0; j < 16; ++j)
+      for (int j = 0; j < kJ; ++j)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           acc[4 * j + e] += bv[2 * j + e];
@@ -1442,24 +1124,31 @@ __global__ void __launch_bounds__(kThreadsW, 1)
         }
       K2_ADD(kTIdn, t0);
     } else {
-      // identity: the block's input itself, unrounded (cin == cout); the
-      // second fragment row loaded here
+      // the identity: the rows held in xv, the others loaded here; at kIdnRows
+      // = 2 then the next pass's, in flight during this pass's stores and the
+      // next conv3
       K2_MARK(t0);
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        acc[4 * j] += xv0[2 * j];
-        acc[4 * j + 1] += xv0[2 * j + 1];
-        const int p = row0 + gid + 8, n = n0 + 8 * j + 2 * tig;
-        if (p >= npix) continue;
-        const int lin = g.band.lin<kRows>(p);
-        if (n < cout) acc[4 * j + 2] += to_f<TI>(x[(size_t)n * HW + lin]);
-        if (n + 1 < cout) acc[4 * j + 3] += to_f<TI>(x[(size_t)(n + 1) * HW + lin]);
-      }
+      for (int j = 0; j < kJ; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int p = row0 + gid + 8 * h, n = n0 + 8 * j + 2 * tig;
+          if (h < kIdnRows) {
+            acc[4 * j + 2 * h] += xv[4 * j + 2 * h];
+            acc[4 * j + 2 * h + 1] += xv[4 * j + 2 * h + 1];
+            continue;
+          }
+          if (p >= npix) continue;
+          const int lin = g.band.lin<kRows>(p);
+          if (n < cout) acc[4 * j + 2 * h] += to_f<TI>(x[(size_t)n * HW + lin]);
+          if (n + 1 < cout) acc[4 * j + 2 * h + 1] += to_f<TI>(x[(size_t)(n + 1) * HW + lin]);
+        }
+      if (kIdnRows == 2 && np + 1 < passes) load_identity(n0 + kN);
       K2_ADD(kTIdn, t0);
     }
     K2_MARK(t_out);
 #pragma unroll
-    for (int j = 0; j < 16; ++j)
+    for (int j = 0; j < kJ; ++j)
 #pragma unroll
       for (int h = 0; h < 2; ++h)
 #pragma unroll
@@ -1476,7 +1165,7 @@ __global__ void __launch_bounds__(kThreadsW, 1)
   K2_FLUSH(kTWait, kTProdWait);
 }
 
-}  // namespace wide
+}  // namespace hopper
 
 // One block per sample: v = mean_hw(o) from the tile sums, then
 // g = sigmoid(relu(v . sf1 + sb1) . sf2 + sb2); v and the hidden layer are
@@ -1557,81 +1246,84 @@ bool weight_map(CUtensorMap* map, const void* w, int rank, const cuuint64_t* dim
              CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <bool kRows, typename TI>
-cudaError_t launch_wide(const BlockArgs& a, int batch, bool out_bf16, cudaStream_t s) {
+// The most dynamic shared memory for `kernel`.
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t smem) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+template <int kN, bool kRows, typename TI>
+cudaError_t launch_wgmma(const BlockArgs& a, int batch, bool out_bf16, cudaStream_t s) {
   using bf16 = __nv_bfloat16;
   const cuuint64_t width = a.width, cin = a.cin, cout = a.cout;
   const cuuint64_t d1[2] = {width, cin}, d2[3] = {width, width, 9}, d3[2] = {cout, width},
                    dd[2] = {cout, cin};
   CUtensorMap m1, m2, m3, md;
-  if (!weight_map(&m1, a.w1, 2, d1, wide::kKX) || !weight_map(&m2, a.w2, 3, d2, wide::kN) ||
-      !weight_map(&m3, a.w3, 2, d3, wide::kN) ||
-      !weight_map(&md, a.wd ? a.wd : a.w3, 2, a.wd ? dd : d3, wide::kKX))
+  if (!weight_map(&m1, a.w1, 2, d1, hopper::kKX) || !weight_map(&m2, a.w2, 3, d2, kN) ||
+      !weight_map(&m3, a.w3, 2, d3, kN) ||
+      !weight_map(&md, a.wd ? a.wd : a.w3, 2, a.wd ? dd : d3, hopper::kKX))
     return cudaErrorInvalidValue;
-  const auto kernel = out_bf16 ? wide::bottleneck_block_wgmma_kernel<kRows, TI, bf16>
-                               : wide::bottleneck_block_wgmma_kernel<kRows, TI, float>;
-  const size_t smem = wide::smem_bytes(a.th, a.tw);
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const auto kernel = out_bf16 ? hopper::bottleneck_block_wgmma_kernel<kN, kRows, TI, bf16>
+                               : hopper::bottleneck_block_wgmma_kernel<kN, kRows, TI, float>;
+  const size_t smem = hopper::smem_bytes<kN>(a.th, a.tw);
+  cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(a.tiles, batch), wide::kThreadsW, smem, s>>>(a, m1, m2, m3, md);
+  kernel<<<dim3(a.tiles, batch), hopper::kThreadsW, smem, s>>>(a, m1, m2, m3, md);
   return cudaGetLastError();
 }
 
-// The compute type and the width pick the kernel: bf16 runs on the tensor
-// cores (mma.sync up to width 64, wgmma above), f32 on the CUDA cores
-// (tensor cores would round f32 operands).
+// f32 compute: the CUDA-core kernel for widths up to 64 or up to 128.
 template <int kWMax, bool kRows, typename TI>
-cudaError_t launch_block(const BlockArgs& a, int batch, bool c_bf16, bool out_bf16,
-                         cudaStream_t s) {
+cudaError_t launch_block(const BlockArgs& a, int batch, bool out_bf16, cudaStream_t s) {
   using bf16 = __nv_bfloat16;
-  if (c_bf16) {
-    if constexpr (kWMax == 128) {
-      return launch_wide<kRows, TI>(a, batch, out_bf16, s);
-    } else {
-      const size_t smem = tc_smem_bytes<kWMax>(a.th, a.tw);
-      return out_bf16
-                 ? launch(bottleneck_block_tc_kernel<kWMax, kRows, TI, bf16>, a, batch, smem, s)
-                 : launch(bottleneck_block_tc_kernel<kWMax, kRows, TI, float>, a, batch, smem, s);
-    }
-  }
   const size_t smem = block_smem_bytes<kWMax>(a.th, a.tw);
   return out_bf16
              ? launch(bottleneck_block_kernel<kWMax, kRows, TI, float, bf16>, a, batch, smem, s)
              : launch(bottleneck_block_kernel<kWMax, kRows, TI, float, float>, a, batch, smem, s);
 }
 
-// Widths up to 64 or up to 128; tiles of whole rows or 2-D tiles.
+// The compute type and the width pick the kernel: bf16 runs on wgmma
+// (products 64 channels wide up to width 64, 128 above), f32 on the CUDA
+// cores (tensor cores would round f32 operands); tiles of whole rows or
+// 2-D tiles.
 template <typename TI>
 cudaError_t launch_width(const BlockArgs& a, int batch, bool c_bf16, bool out_bf16,
                          cudaStream_t s) {
   const bool rows = a.tw == a.w;
+  if (c_bf16) {
+    if (a.width <= 64)
+      return rows ? launch_wgmma<64, true, TI>(a, batch, out_bf16, s)
+                  : launch_wgmma<64, false, TI>(a, batch, out_bf16, s);
+    return rows ? launch_wgmma<128, true, TI>(a, batch, out_bf16, s)
+                : launch_wgmma<128, false, TI>(a, batch, out_bf16, s);
+  }
   if (a.width <= 64)
-    return rows ? launch_block<64, true, TI>(a, batch, c_bf16, out_bf16, s)
-                : launch_block<64, false, TI>(a, batch, c_bf16, out_bf16, s);
-  return rows ? launch_block<128, true, TI>(a, batch, c_bf16, out_bf16, s)
-              : launch_block<128, false, TI>(a, batch, c_bf16, out_bf16, s);
+    return rows ? launch_block<64, true, TI>(a, batch, out_bf16, s)
+                : launch_block<64, false, TI>(a, batch, out_bf16, s);
+  return rows ? launch_block<128, true, TI>(a, batch, out_bf16, s)
+              : launch_block<128, false, TI>(a, batch, out_bf16, s);
 }
 
 template <typename K>
 int occupancy(K kernel, int threads, int smem) {
   int n = 0;
-  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem) !=
-          cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads, smem) != cudaSuccess)
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads, smem) != cudaSuccess)
     return 0;
   return n;
 }
 
 template <int kWMax, bool kRows>
 int blocks_per_sm(bool c_bf16, int smem) {
-  if (!c_bf16)
-    return occupancy(bottleneck_block_kernel<kWMax, kRows, float, float, float>, kThreads, smem);
-  if constexpr (kWMax == 128)
-    return occupancy(wide::bottleneck_block_wgmma_kernel<kRows, float, float>, wide::kThreadsW,
-                     smem);
-  else
-    return occupancy(bottleneck_block_tc_kernel<kWMax, kRows, float, float>, kThreads, smem);
+  if (c_bf16) {
+    const auto kernel = hopper::bottleneck_block_wgmma_kernel<kWMax, kRows, float, float>;
+    return allow_smem(kernel, smem) == cudaSuccess ? occupancy(kernel, hopper::kThreadsW, smem)
+                                                   : 0;
+  }
+  const auto kernel = bottleneck_block_kernel<kWMax, kRows, float, float, float>;
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem) !=
+      cudaSuccess)
+    return 0;
+  return occupancy(kernel, kThreads, smem);
 }
 
 }  // namespace
@@ -1640,19 +1332,18 @@ extern "C" {
 
 // Shared memory bytes of one block of threads for tiles of th rows by tw
 // columns at Bottleneck width `width` (bf16 compute if c_bf16, else f32);
-// 0 if that tile or width is beyond the kernels' limits (width <= 128;
-// th * tw and (th + 2) * tw within Cfg's kBand and kHalo, or for bf16 at
-// widths 65-128 th * tw <= wide::kBand and (th + 2) * (tw + 2) <=
-// wide::kStore).
+// 0 if that tile or width is beyond the kernels' limits (width <= 128; in
+// bf16 th * tw <= hopper::kBand and (th + 2) * (tw + 2) <= hopper::kStore;
+// in f32 th * tw and (th + 2) * tw within Cfg's kBand and kHalo).
 int bottleneck_smem_bytes(int th, int tw, int width, int c_bf16) {
   if (th < 1 || tw < 1 || width < 1 || width > 128) return 0;
   size_t bytes;
-  if (width <= 64) {
+  if (c_bf16) {
+    if (!hopper::tile_fits(th, tw)) return 0;
+    bytes = width <= 64 ? hopper::smem_bytes<64>(th, tw) : hopper::smem_bytes<128>(th, tw);
+  } else if (width <= 64) {
     if (!tile_fits<64>(th, tw)) return 0;
-    bytes = c_bf16 ? tc_smem_bytes<64>(th, tw) : block_smem_bytes<64>(th, tw);
-  } else if (c_bf16) {
-    if (!wide::tile_fits(th, tw)) return 0;
-    bytes = wide::smem_bytes(th, tw);
+    bytes = block_smem_bytes<64>(th, tw);
   } else {
     if (!tile_fits<128>(th, tw)) return 0;
     bytes = block_smem_bytes<128>(th, tw);
@@ -1674,8 +1365,8 @@ int bottleneck_blocks_per_sm(int th, int tw, int width, int c_bf16, int rows) {
 // One folded Bottleneck block.  x: [B, Cin, H, W] (bf16 if x_bf16, else f32);
 // out: [B, Cout, H, W] (bf16 if out_bf16, else f32).  Weights are in the
 // compute type (bf16 if c_bf16, else f32), biases f32.  wd/bd and the SE
-// arguments may be null.  At widths 65-128 in bf16, width and Cout must be
-// multiples of 8 and the weights 16-byte aligned (the tensor maps' rows).
+// arguments may be null.  In bf16, width and Cout must be multiples of 8
+// and the weights 16-byte aligned (the tensor maps' rows).
 // Tiles of th x tw pixels (bottleneck_smem_bytes must take them); for an
 // SE block, pre and idn are f32 [B, Cout, H, W] scratch, partial is [B,
 // tiles, Cout] with tiles = ceil(h / th) * ceil(w / tw), and gate [B, Cout].
@@ -1723,9 +1414,9 @@ int bottleneck_block_forward(const void* x, void* out, float* pre, float* idn, f
 #ifdef K2_PHASE_TIMERS
 // The cycle counters summed since the last call (then zeroed).
 int k2_phase_cycles(unsigned long long* out) {
-  static const unsigned long long zeros[wide::kTimers] = {0};
-  cudaError_t e = cudaMemcpyFromSymbol(out, wide::g_k2_cycles, sizeof(zeros));
-  if (e == cudaSuccess) e = cudaMemcpyToSymbol(wide::g_k2_cycles, zeros, sizeof(zeros));
+  static const unsigned long long zeros[hopper::kTimers] = {0};
+  cudaError_t e = cudaMemcpyFromSymbol(out, hopper::g_k2_cycles, sizeof(zeros));
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(hopper::g_k2_cycles, zeros, sizeof(zeros));
   return (int)e;
 }
 #endif

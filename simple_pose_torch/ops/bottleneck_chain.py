@@ -5,8 +5,9 @@ a per-channel affine, so a chain of Bottleneck blocks folds into pure
 (matmul, bias, relu) ops.  On a CUDA tensor :func:`bottleneck_chain` runs the
 hand-written Hopper kernel ``csrc/bottleneck_chain.cu`` (one launch per
 block, two more for an SE gate; a bf16 ``compute_dtype`` runs the products
-on tensor cores, with ``wgmma`` and weights streamed by TMA at Bottleneck
-widths 65-128, f32 on CUDA cores); on a CPU tensor it runs
+on ``wgmma`` with the weights streamed by TMA, 64 channels wide at
+Bottleneck widths up to 64 and 128 at widths 65-128, f32 on CUDA cores); on
+a CPU tensor it runs
 :func:`bottleneck_chain_reference`, the plain PyTorch version of the same
 math.  There is no fallback: a CUDA tensor reaches the kernel or raises.
 The call goes through a registered op (``simple_pose::bottleneck_chain``)
@@ -151,18 +152,16 @@ def bottleneck_chain_reference(x, blocks: Sequence[dict], compute_dtype=torch.fl
 
 _KERNEL = "bottleneck_chain"
 _SUPPORTED = (torch.float32, torch.bfloat16)
-# csrc/bottleneck_chain.cu's Cfg (the f32 kernel; the mma.sync kernel at
-# widths up to 64): for Bottleneck widths up to 64 and up to 128, the most
-# pixels a tile holds (TH * TW) and the bound on (TH + 2) * TW
+# csrc/bottleneck_chain.cu's Cfg (the f32 kernel): for Bottleneck widths up
+# to 64 and up to 128, the most pixels a tile holds (TH * TW) and the bound
+# on (TH + 2) * TW
 _TILE_LIMITS = {64: (192, 288), 128: (96, 192)}
-# its namespace wide (the wgmma kernel, bf16 at widths 65-128): the most
-# pixels a tile holds (three 64-row wgmma tiles), the bound on
-# (TH + 2) * (TW + 2) (m1 on the tile and its ring), and the shared memory
-# beside m1 (1 KB of alignment, 3 ring stages of 32 KB, the x tile, the SE
-# sums, 6 slots of 128 biases, the mbarriers) and m1's bytes per pixel
-WIDE_BAND, WIDE_STORE = 192, 320
-_WIDE_FIXED_BYTES = 1024 + 3 * 32768 + 192 * 72 * 2 + 12 * 128 * 4 + 6 * 128 * 4 + 64
-_WIDE_PIXEL_BYTES = 272
+# its namespace hopper (the wgmma kernel, bf16 at every width): the most
+# pixels a tile holds (three 64-row wgmma tiles) and the bound on
+# (TH + 2) * (TW + 2) (m1 on the tile and its ring)
+WGMMA_BAND, WGMMA_STORE = 192, 320
+# the ring stages of its instance whose products are 64 or 128 channels wide
+_WGMMA_STAGES = {64: 4, 128: 3}
 MAX_WIDTH = 128
 SMEM_LIMIT = 232448  # one block of threads' shared memory on Hopper (227 KB)
 # the columns of a 2-D tile: one warp's pixels, so that a warp's 32 loads
@@ -190,12 +189,13 @@ def _smem_bytes(th: int, tw: int, wmax: int, bf16: bool) -> int:
     """Shared memory of one block of threads (bottleneck_smem_bytes)."""
     band = _TILE_LIMITS[wmax][0]
     store = (th + 2) * (tw + 2)  # m1 on the tile and its 1-pixel ring
-    if bf16 and wmax == 128:
-        return _WIDE_FIXED_BYTES + _WIDE_PIXEL_BYTES * store
     if bf16:
-        pitch, m_warps = wmax + 8, 8 // (wmax // 32)
-        work = max(2 * (band + wmax) * pitch, 2 * (2 * wmax + band) * pitch + 4 * m_warps * wmax)
-        return 2 * store * pitch + work
+        # the wgmma kernel with products wmax channels wide: 1 KB of
+        # alignment, the ring of [K][wmax] weight chunks, the x tile (192
+        # pixels of 72 channels), the SE sums of 12 warps, 6 slots of biases,
+        # the mbarriers, then m1 at wmax + 8 channels a pixel
+        ring = _WGMMA_STAGES[wmax] * wmax * wmax * 2
+        return 1024 + ring + WGMMA_BAND * 72 * 2 + 18 * wmax * 4 + 64 + 2 * (wmax + 8) * store
     kc, halo_round, k_chunk = 16, 32 * (9 if wmax == 64 else 3), 64 if wmax == 64 else 32
     work = max(kc * halo_round + kc * wmax, k_chunk * wmax, k_chunk * wmax + kc * band + kc * wmax)
     return 4 * (wmax * store + work)
@@ -206,17 +206,18 @@ def launch_plan(h: int, w: int, width: int, bf16: bool) -> LaunchPlan:
     """The tiles of one block launch on an [h, w] map at Bottleneck width
     ``width`` (``bf16``: bf16 compute, else f32).  A tile spans whole rows
     (TW = w) where a band of them fits, so its loads and stores stay
-    contiguous; wider maps take 2-D tiles of ``_TILE_W`` columns and as many
-    rows as fit.  Needs no library: the wrapper checks the result against
-    the kernel's ``bottleneck_smem_bytes``."""
+    contiguous; wider maps take 2-D tiles of ``_TILE_W`` columns (the wgmma
+    kernel: 32 or 64, :func:`_wgmma_tile`) and as many rows as fit.  Needs
+    no library: the wrapper checks the result against the kernel's
+    ``bottleneck_smem_bytes``."""
     if not 0 < width <= MAX_WIDTH:
         raise ValueError(f"the kernel takes Bottleneck widths 1..{MAX_WIDTH}, got {width} "
                          "(every trunk layer1_block_names accepts has 64 or 128)")
     if h < 1 or w < 1:
         raise ValueError(f"empty map {h}x{w}")
     wmax = 64 if width <= 64 else 128
-    if bf16 and wmax == 128:
-        th, tw = _wide_tile(h, w)
+    if bf16:
+        th, tw = _wgmma_tile(h, w, wmax)
     else:
         band, halo = _TILE_LIMITS[wmax]
         tw = w if min(halo // w - 2, band // w) >= 1 else _TILE_W
@@ -224,16 +225,20 @@ def launch_plan(h: int, w: int, width: int, bf16: bool) -> LaunchPlan:
     return LaunchPlan(th, tw, -(-h // th), -(-w // tw), wmax, _smem_bytes(th, tw, wmax, bf16))
 
 
-def _wide_tile(h: int, w: int) -> tuple:
-    """(th, tw) of the wgmma kernel: whole rows (tw = w) or 2-D tiles of 32
+def _wgmma_tile(h: int, w: int, wmax: int) -> tuple:
+    """(th, tw) of the wgmma kernel.  Products 64 channels wide (Bottleneck
+    widths up to 64): whole rows (tw = w) up to 96 columns, as many as its
+    limits take, as the f32 kernel.  Otherwise whole rows or 2-D tiles of 32
     or 64 columns, as many rows as its limits take; the tile with the most
     pixels among those that hold a multiple of 64 (whole wgmma row tiles),
     else the most pixels; whole rows where two tie."""
+    if wmax == 64 and w <= 96:
+        return min(h, WGMMA_BAND // w, WGMMA_STORE // (w + 2) - 2), w
     best = None
     for tw in (w, 32, 64):
         if tw > w:
             continue
-        th = min(h, WIDE_BAND // tw, WIDE_STORE // (tw + 2) - 2)
+        th = min(h, WGMMA_BAND // tw, WGMMA_STORE // (tw + 2) - 2)
         if th < 1:
             continue
         th = next((t for t in range(th, 0, -1) if t * tw % 64 == 0), th)
@@ -281,8 +286,8 @@ def _check_block(blk, cin, cd, dev):
     return width, cout
 
 
-def _wide_weights(blk: dict) -> dict:
-    """What the wgmma kernel (bf16, widths 65-128) reads: its tensor maps
+def _tma_weights(blk: dict) -> dict:
+    """What the wgmma kernel (bf16, every width) reads: its tensor maps
     need rows of a multiple of 16 bytes and 16-byte aligned bases.  So the
     width is zero-padded to a multiple of 8 (w1's and w2's output channels,
     w2's and w3's input channels, b1, b2: the padded channels of m1 and m2
@@ -291,8 +296,8 @@ def _wide_weights(blk: dict) -> dict:
     8 already."""
     cout = blk["w3"].shape[1]
     if cout % 8:
-        raise ValueError(f"Cout {cout}: the bf16 kernel at widths 65-128 takes Cout in multiples "
-                         "of 8 (every Bottleneck has 4 x width)")
+        raise ValueError(f"Cout {cout}: the bf16 kernel takes Cout in multiples of 8 (every "
+                         "Bottleneck has 4 x width)")
     pad = -blk["w1"].shape[1] % 8
     if pad:
         blk = {**blk, "w1": F.pad(blk["w1"], (0, pad)), "b1": F.pad(blk["b1"], (0, pad)),
@@ -314,8 +319,8 @@ def _bottleneck_chain_cuda(x, blocks, compute_dtype):
     y = x
     for i, blk in enumerate(blocks):
         width, cout = _check_block(blk, cin, compute_dtype, x.device)
-        if bf16 and width > 64:
-            blk = _wide_weights(blk)
+        if bf16:
+            blk = _tma_weights(blk)
             width = blk["w1"].shape[1]
         plan = launch_plan(h, w, width, bf16)
         smem = lib.bottleneck_smem_bytes(plan.th, plan.tw, width, int(bf16))

@@ -3,8 +3,9 @@
 Port of simple_pose_tpu/train/config.py, field for field, so one YAML file
 configures both packages.  Schema mirrors the reference configs
 (configs/dp_fast_pose.yaml:1-30): data / model / optim / val sections plus
-model_name.  ``mesh`` (the JAX package's device mesh) is carried for schema
-parity; the port trains on one device until DDP is ported (ROADMAP.md).
+model_name.  ``mesh`` (the JAX package's device mesh) keeps its schema; the
+port trains data-parallel under DDP, and ``mesh.data`` must be -1 or the
+number of ranks (train/solver.PoseSolver checks it).
 ``yaml`` is imported only for a path that does not end in ``.json``.
 """
 

@@ -11,9 +11,9 @@ import torch
 from simple_pose_torch.ops.bottleneck_chain import (
     MAX_WIDTH,
     SMEM_LIMIT,
-    WIDE_BAND,
-    WIDE_STORE,
-    _wide_weights,
+    WGMMA_BAND,
+    WGMMA_STORE,
+    _tma_weights,
     bottleneck_chain,
     bottleneck_chain_reference,
     fold_bottleneck_blocks,
@@ -207,8 +207,8 @@ def test_launch_plan_covers_every_trunk(trunk):
     and at input widths up to 1024 (layer1 at a quarter of the input): the
     kernel's tiles cover the map once, stay within its tile limits, and
     their shared memory fits one block of threads (227 KB).  The wgmma
-    kernel (bf16, widths 65-128) takes up to three 64-row wgmma tiles with
-    m1 and its ring in WIDE_STORE pixels, and a multiple of 64 pixels on
+    kernel (bf16) takes up to three 64-row wgmma tiles with m1 and its ring
+    in WGMMA_STORE pixels, and at widths 65-128 a multiple of 64 pixels on
     every map of at least 6 rows and 32 columns."""
     import glob
 
@@ -228,10 +228,10 @@ def test_launch_plan_covers_every_trunk(trunk):
                 plan = launch_plan(h, w, width, bf16)
                 assert plan.wmax == (64 if width <= 64 else 128)
                 assert 1 <= plan.th <= h and 1 <= plan.tw <= w, (h, w, plan)
-                if bf16 and width > 64:
-                    assert plan.th * plan.tw <= WIDE_BAND, plan
-                    assert (plan.th + 2) * (plan.tw + 2) <= WIDE_STORE, plan
-                    if h >= 6 and w >= 32:
+                if bf16:
+                    assert plan.th * plan.tw <= WGMMA_BAND, plan
+                    assert (plan.th + 2) * (plan.tw + 2) <= WGMMA_STORE, plan
+                    if width > 64 and h >= 6 and w >= 32:
                         assert plan.th * plan.tw % 64 == 0, (h, w, plan)
                 else:
                     band, halo = limits[plan.wmax]
@@ -260,11 +260,11 @@ def test_launch_plan_refuses_beyond_the_kernel():
     # the wgmma kernel's tensor maps take Cout in multiples of 8
     rng = np.random.default_rng(2)
     with pytest.raises(ValueError, match="Cout 260"):
-        _wide_weights(_torch_blocks([_rand_block(rng, 64, 72, 260, True, False)])[0])
+        _tma_weights(_torch_blocks([_rand_block(rng, 64, 72, 260, True, False)])[0])
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
-@pytest.mark.parametrize("width", [70, 100])
+@pytest.mark.parametrize("width", [20, 70, 100])
 def test_wide_weights_pad_and_align(dtype, width):
     """What the wgmma kernel reads: the width zero-padded to a multiple of 8
     (slicing the padded weights gives the folded ones back exactly, and the
@@ -273,7 +273,7 @@ def test_wide_weights_pad_and_align(dtype, width):
     rng = np.random.default_rng(40 + width)
     blocks = _torch_blocks(_fan_in_scaled([_rand_block(rng, 32, width, 64, True, True, hidden=8),
                                            _rand_block(rng, 64, width, 64, False, False)]))
-    padded = [_wide_weights(blk) for blk in blocks]
+    padded = [_tma_weights(blk) for blk in blocks]
     wp = -(-width // 8) * 8
     cut = {"w1": (slice(None), slice(width)), "b1": slice(width), "b2": slice(width),
            "w2": (Ellipsis, slice(width), slice(width)), "w3": slice(width)}
@@ -298,7 +298,7 @@ def test_wide_weights_pad_and_align(dtype, width):
     view = storage[1:].view(64, 256)  # 4 bytes past an aligned start
     assert view.data_ptr() % 16 != 0
     blk = {**blocks[0], "w3": torch.zeros(width, 256), "wd": view}
-    out = _wide_weights(blk)
+    out = _tma_weights(blk)
     assert all(t.data_ptr() % 16 == 0 for t in out.values())
     assert torch.equal(out["wd"], view)
 
@@ -443,7 +443,8 @@ def test_kernel_matches_reference_cuda(cuda_device, x_dtype, cd, shape):
 @pytest.mark.parametrize("x_dtype,cd", [("f32", "f32"), ("bf16", "bf16"), ("f32", "bf16")])
 def test_kernel_ragged_channels_cuda(cuda_device, x_dtype, cd):
     """cin 40 and width 24 (not multiples of the k16 tile), cout 48: the
-    tensor-core kernel pads K with zeros and steps N by 8."""
+    wgmma kernel reads zeros past them (its tensor maps' out-of-range fill,
+    the x tile's zero pad) and stores only channels below cout."""
     rng = np.random.default_rng(12)
     blocks = [_rand_block(rng, 40, 24, 48, True, True, hidden=12),
               _rand_block(rng, 48, 24, 48, False, True, hidden=12)]
@@ -496,13 +497,17 @@ def test_kernel_checks_the_launch_plan_cuda(cuda_device):
     assert lib.bottleneck_smem_bytes(3, 48, 128, 0) == 0  # f32: 144 pixels > 96
     assert lib.bottleneck_smem_bytes(5, 48, 128, 1) == 0  # wgmma: 240 pixels > 192
     assert lib.bottleneck_smem_bytes(2, 104, 128, 1) == 0  # wgmma: 4 x 106 > 320 of m1
-    # one block of threads per SM at width 128 in bf16, two at width 64
+    assert lib.bottleneck_smem_bytes(2, 104, 64, 1) == 0  # the same at width 64
+    # one block of threads per SM in bf16 at both widths (also on 2-D
+    # tiles), two at width 64 in f32
     assert lib.bottleneck_blocks_per_sm(4, 48, 128, 1, 1) == 1
-    assert lib.bottleneck_blocks_per_sm(4, 48, 64, 1, 1) == 2
+    assert lib.bottleneck_blocks_per_sm(4, 48, 64, 1, 1) == 1
+    assert lib.bottleneck_blocks_per_sm(6, 32, 64, 1, 0) == 1
+    assert lib.bottleneck_blocks_per_sm(4, 48, 64, 0, 1) == 2
 
 
 def _wide_chain(rng, cin, width, cout, n_blocks, se, projection=True):
-    """A width-65-128 chain: a projection block (or an identity one), then
+    """A chain for the wgmma kernel: a projection block (or an identity one), then
     identity blocks; SE (hidden 16) on every block or on none; weights
     fan-in scaled."""
     blocks = [_rand_block(rng, cin, width, cout, projection, se, hidden=16)]
@@ -522,6 +527,15 @@ _WGMMA_CASES = {
     "ragged_channels": ((2, 9, 20), 40, 100, 48, 2, True, True),
     "no_se_chain": ((2, 64, 48), 64, 128, 256, 3, False, True),
     "identity_block": ((2, 64, 48), 256, 128, 256, 1, False, False),
+    # products 64 channels wide: the flagship's layer1 shape (64 -> 64 ->
+    # 256) at batch 128 (a ragged last wave of tiles), a partial last band (7 rows in bands of 4), 2-D tiles, ragged
+    # channels (cin 40, width 24, cout 48), HRNet's 4-block chain without SE
+    "w64_layer1_b128": ((128, 64, 48), 64, 64, 256, 3, True, True),
+    "w64_partial_band": ((2, 7, 48), 64, 64, 256, 3, True, True),
+    "w64_tiles_64x97": ((1, 64, 97), 64, 64, 256, 3, True, True),
+    "w64_tiles_64x128": ((1, 64, 128), 64, 64, 256, 3, True, True),
+    "w64_ragged_channels": ((2, 9, 20), 40, 24, 48, 2, True, True),
+    "w64_no_se_chain": ((2, 64, 48), 64, 64, 256, 4, False, True),
 }
 
 
@@ -529,11 +543,12 @@ _WGMMA_CASES = {
 @pytest.mark.parametrize("x_dtype", ["f32", "bf16"])
 @pytest.mark.parametrize("case", sorted(_WGMMA_CASES))
 def test_wgmma_kernel_matches_reference_cuda(cuda_device, x_dtype, case):
-    """The wgmma kernel (bf16, widths 65-128) against the plain version:
-    wide_resnet50_2's layer1 shape (64 -> 128 -> 256, SE, a projection) at
-    batch 1, 3 and 128 (a ragged last wave of tiles), on 2-D tiles of
-    64x97 / 64x128 / 64x200 maps, with ragged channel counts (cin 40, width
-    100 padded to 104, cout 48), without SE, and a lone identity block."""
+    """The wgmma kernel (bf16) against the plain version: wide_resnet50_2's
+    layer1 shape (64 -> 128 -> 256, SE, a projection) at batch 1, 3 and 128
+    (a ragged last wave of tiles), on 2-D tiles of 64x97 / 64x128 / 64x200
+    maps, with ragged channel counts (cin 40, width 100 padded to 104, cout
+    48), without SE, and a lone identity block; the w64 cases at widths up
+    to 64 (products 64 channels wide)."""
     (batch, h, w), cin, width, cout, n_blocks, se, projection = _WGMMA_CASES[case]
     rng = np.random.default_rng(50)
     blocks = _wide_chain(rng, cin, width, cout, n_blocks, se, projection)
@@ -541,10 +556,26 @@ def test_wgmma_kernel_matches_reference_cuda(cuda_device, x_dtype, case):
     _check_cuda_chain(cuda_device, x, blocks, x_dtype, "bf16")
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [64, 128])
+def test_wgmma_kernel_is_deterministic_cuda(cuda_device, width):
+    """Two launches of the wgmma kernel on the same inputs are bitwise
+    equal: the SE sums of a tile are taken in a fixed order (no atomics);
+    batch 8, 128 blocks of threads at once."""
+    rng = np.random.default_rng(60 + width)
+    blocks = _torch_blocks(_wide_chain(rng, 64, width, 256, 3, True), cuda_device)
+    x = _nchw(rng.normal(0, 1, (8, 64, 48, 64)).astype(np.float32), cuda_device, torch.bfloat16)
+    first = bottleneck_chain(x, blocks, torch.bfloat16)
+    second = bottleneck_chain(x, blocks, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert torch.isfinite(first.float()).all()
+    assert torch.equal(first, second)
+
+
 def test_ablation_anchors_match_the_kernel_source():
     """scripts/ablate_k2.py edits copies of the kernel source at fixed text
-    anchors (its ablations and its per-phase timers of the mma.sync
-    kernel); each anchor must still be found exactly once."""
+    anchors (its ablations and its per-phase timers of the wgmma kernel);
+    each anchor must still be found exactly once."""
     import importlib.util
     import pathlib
 
