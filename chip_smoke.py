@@ -21,7 +21,14 @@ raises, and the script exits non-zero without a result line):
      call (the unfused cuDNN layer1 of the port's own model) at batch 32 and
      128; bf16 runs the wgmma kernel's instance whose products are 64
      channels wide (the kernels' line names it, the tile and the blocks per
-     SM), f32 the CUDA-core kernel;
+     SM), f32 the CUDA-core kernel.  The built library holds se_gate_kernel
+     and no se_apply kernel (the full pass applies the gate in its
+     epilogue).  3b: in a fresh process, every K2 chain this script times
+     (phases 3, 9a, 14a, 14b) split from torch.profiler traces (k2_split)
+     at its largest batch, bf16 and f32: launches and device ms per call of
+     the block kernels' full passes, the SE sums passes and se_gate_kernel,
+     from a trace that holds exactly the route's launches and no other
+     kernel (a trace that dropped one is taken again, at most 3);
   4. the main path: PoseEvaluator(ResNet-50-DConv+SE, 256x192, bf16,
      fused_layer1, flip-test) on 4 synthetic batches of 32 with the launch
      counters zeroed just before and read just after; fused vs unfused
@@ -223,7 +230,7 @@ raises, and the script exits non-zero without a result line):
         bf16 runs the wgmma kernel's instance whose products are 128
         channels wide (bands of 4 whole rows, one block of threads per SM),
         f32 the CUDA-core kernel; the kernels' line names both, the tile and
-        the blocks per SM;
+        the blocks per SM; its per-call split in phase 3b;
      b. K2 at ResNet-50+SE's layer1 on 64x97 and 64x128 maps (2-D tiles)
         against its plain version, bf16 and f32, at batch 8, timed there;
      c. phase 4's checks and rates for wide_resnet50_2 (256x192, bf16,
@@ -291,6 +298,7 @@ from simple_pose_torch.ops.bottleneck_chain import (
     bottleneck_chain,
     bottleneck_chain_reference,
     fold_bottleneck_blocks,
+    k2_launch_kind,
     launch_plan,
     prepare_blocks,
 )
@@ -530,6 +538,120 @@ def chain_work(blocks, batch, h, w, act_bytes):
         flops += 2 * batch * macs
         wbytes += sum(t.numel() * t.element_size() for t in blk.values())
     return flops, wbytes + batch * (cin0 + cout) * h * w * act_bytes
+
+
+def device_kernels(events):
+    """The device work of a torch.profiler trace: its CUDA events but the
+    step annotations that a profiler schedule adds (``ProfilerStep#``)."""
+    return [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and not e.name.startswith("ProfilerStep")]
+
+
+def k2_split(x, blocks, dt, calls=3, attempts=3):
+    """One call of the chain on ``x`` split by K2's launches, from a
+    torch.profiler trace of ``calls`` calls, each its own step between
+    pauses, after a warm-up step (a trace can lose its first launches):
+    per kind (``k2_launch_kind``: the block kernels' full passes, the SE
+    sums passes, se_gate_kernel) the launches and device ms a call, their
+    sum, the full passes' ms per block, and the traces taken.  The route
+    makes a full pass per block and a sums pass and a gate per SE block.
+    Fails on a trace that holds more launches of a kind or another kernel
+    (an se_apply pass among them).  The card's profiler drops launches now
+    and then but adds none, so a trace that holds fewer is taken again, up
+    to ``attempts`` traces, and the split comes from the first that holds
+    exactly the route's launches; it fails if none does.  Late in a long
+    process the profiler loses far more, so callers run this in a fresh
+    one (run_k2_splits, scripts/profile_torch_k2.py)."""
+    n_se = sum("sf1" in blk for blk in blocks)
+    want = {"block": len(blocks), "sums": n_se, "se_gate": n_se}
+    need = {k: calls * n for k, n in want.items()}
+    for _ in range(3):
+        bottleneck_chain(x, blocks, dt)
+    torch.cuda.synchronize()
+    for attempt in range(1, attempts + 1):
+        traced = []
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=torch.profiler.schedule(wait=0, warmup=1, active=calls),
+                     on_trace_ready=lambda p: traced.extend(p.events())) as prof:
+            for _ in range(1 + calls):
+                time.sleep(0.05)
+                bottleneck_chain(x, blocks, dt)
+                torch.cuda.synchronize()
+                time.sleep(0.05)
+                prof.step()
+        us = {kind: [] for kind in want}
+        for e in sorted(device_kernels(traced), key=lambda e: e.time_range.start):
+            kind = k2_launch_kind(e.name)
+            assert kind is not None, f"device work in a chain call that is not K2's route: {e.name}"
+            us[kind].append(e.time_range.end - e.time_range.start)
+        got = {k: len(v) for k, v in us.items()}
+        assert all(got[k] <= need[k] for k in want), \
+            f"{calls} chain calls traced {got} launches; the route makes {want} a call"
+        if got == need:
+            break
+        log(f"k2_split: trace {attempt} held {got} of the route's {need} launches")
+    assert got == need, f"no trace of {attempts} held the route's {need} launches (last: {got})"
+    split = {k: {"launches": len(v) // calls, "ms": sum(v) / calls / 1e3} for k, v in us.items()}
+    split["all_ms"] = sum(split[k]["ms"] for k in want)
+    split["block_ms_by_block"] = [sum(us["block"][i::len(blocks)]) / calls / 1e3
+                                  for i in range(len(blocks))]
+    split["traces"] = attempt
+    return split
+
+
+def k2_splits():
+    """k2_split of every K2 chain this script times (phase 3's flagship,
+    9a's HRNet-W32 and ResNet-50-DUC, 14a's wide_resnet50_2, 14b's 64x97
+    and 64x128 maps), in bf16 and f32 at the largest batch each is timed
+    at: {chain: {"b<batch>_<dtype>": split}}."""
+    flagship = lambda: build_resnet("resnet50", se=True)  # noqa: E731
+    chains = {
+        "resnet50": (flagship, 64, 48, THROUGHPUT_BATCH),
+        "hrnet_w32": (lambda: build_hrnet("w32"), 64, 48, THROUGHPUT_BATCH),
+        "resnet50_duc": (lambda: build_resnet("resnet50", head="duc"), 64, 48, BATCH),
+        "wide_resnet50_2": (lambda: build_resnet("wide_resnet50_2", se=True), 64, 48,
+                            THROUGHPUT_BATCH),
+        **{f"resnet50 at 64x{w}": (flagship, 64, w, WIDE_MAP_BATCH) for w in WIDE_MAP_WIDTHS},
+    }
+    rng = np.random.default_rng(1)
+    out = {}
+    for label, (build, h, w, batch) in chains.items():
+        folded = fold_bottleneck_blocks(list(seeded_layer1(build())))
+        x32 = torch.from_numpy(np.abs(rng.normal(0, 1, (batch, 64, h, w))).astype(np.float32))
+        out[label] = {f"b{batch}_{name}": k2_split(x32.cuda().to(dt), prepare_blocks(folded, dt),
+                                                   dt) for name, dt in DTYPES.items()}
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_k2_splits():
+    """k2_splits in a fresh process: there the card's profiler drops a
+    launch now and then, while in this one, after phases 4-13, it lost
+    launches and then whole traces (PERF.md, the SE route's findings).  The
+    child's k2_split notes are logged."""
+    proc = subprocess.run([sys.executable, "-c",
+                           "import json, chip_smoke as C; print(json.dumps(C.k2_splits()))"],
+                          cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+                          text=True, timeout=900)
+    if proc.returncode != 0:
+        raise RuntimeError(f"the K2 split process failed:\n{proc.stdout[-3000:]}\n"
+                           f"{proc.stderr[-6000:]}")
+    lines = proc.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        log(line)
+    return json.loads(lines[-1])
+
+
+def check_route_kernels(lib_path):
+    """The SE route of the built K2 library, read from its kernels' names:
+    the sums pass's flag and se_gate_kernel, and no se_apply pass (the full
+    pass applies the gate), so none can run."""
+    with open(lib_path, "rb") as f:
+        image = f.read()
+    assert b"se_gate_kernel" in image and b"bottleneck_block_wgmma_kernel" in image, lib_path
+    assert b"se_apply" not in image, f"{lib_path} holds an se_apply kernel"
+    return {"se_gate_kernel": True, "se_apply": False}
 
 
 def errors(got, want):
@@ -3218,8 +3340,17 @@ def run_wide_layer1(card):
     return rows, summary
 
 
-def k2_row(name, launches, report, row):
-    """A K2 row of the kernels' JSON line."""
+# how an SE block runs on the card (the kernels' line names it)
+SE_ROUTE = ("sums pass (the block kernel with kSums: m2's per-tile channel sums) -> "
+            "se_gate_kernel (their mean through w3 and b3, the fcs, the sigmoid) -> full pass "
+            "(relu(o * g + identity) in its epilogue); no se_apply pass")
+
+
+def k2_row(name, launches, report, timing, splits):
+    """A K2 row of the kernels' JSON line, its times at the smallest batch
+    timed, with its chain's splits (k2_splits)."""
+    batch = min(int(k[1:].split("_")[0]) for k in timing)
+    row = timing[f"b{batch}_bf16"]
     return {
         "name": name,
         "route": "cuda",
@@ -3234,6 +3365,9 @@ def k2_row(name, launches, report, row):
         "bound_by": row["bound_by"],
         "library_ms": row["library_ms"],
         "errors": report,
+        "se_route": SE_ROUTE if any(v["sums"]["launches"] for v in splits.values())
+        else "no SE block",
+        "split_per_call": splits,
     }
 
 
@@ -3254,8 +3388,14 @@ def main() -> int:
         builds = dict(zip(KERNELS, pool.map(build_library, KERNELS)))
     log("build: " + ", ".join(f"{k} nvcc {v[1]:.1f} s" for k, v in builds.items())
         + f" (phase {time.perf_counter() - t0:.1f} s)")
+    log("K2's SE route in its library: " + json.dumps(check_route_kernels(builds[KERNELS[0]][0])))
 
     report, timing = check_chain_kernel(seeded_layer1(build_resnet("resnet50", se=True)))
+    t0 = time.perf_counter()
+    splits = run_k2_splits()
+    log("phase 3b, K2's per-call split of every chain (block kernels' full passes, SE sums "
+        f"passes, se_gate; no other kernel) on {card}: " + json.dumps(splits)
+        + f" ({time.perf_counter() - t0:.1f} s)")
     with tempfile.TemporaryDirectory() as workdir:
         launches, stats, rates = run_main_path(workdir)
     log(f"serving crops/s at batch {THROUGHPUT_BATCH} (bf16, fused_layer1, flip-test) "
@@ -3300,8 +3440,8 @@ def main() -> int:
     log("phase 14: " + json.dumps(wide))
 
     plan = launch_plan(64, 48, 64, True)
-    kernels = [{**k2_row("bottleneck_chain", launches["bottleneck_chain"], report,
-                         timing[f"b{BATCH}_bf16"]),
+    kernels = [{**k2_row("bottleneck_chain", launches["bottleneck_chain"], report, timing,
+                         splits["resnet50"]),
                 "width_64_kernels": {
                     "bf16": "hopper::bottleneck_block_wgmma_kernel<64> (TMA ring of 4 x 8 KB "
                             "weight chunks, wgmma m64n64k16)",
@@ -3316,13 +3456,12 @@ def main() -> int:
                 "launches_serve_artifact_out": serve_launches}]
     for fam, (fam_report, fam_timing, fam_launches) in families.items():
         kernels.append({**k2_row(f"bottleneck_chain ({fam} layer1)", fam_launches, fam_report,
-                                 fam_timing[f"b{BATCH}_bf16"]),
+                                 fam_timing, splits[fam]),
                         "main_path": f"phase 9b: PoseEvaluator({fam}, fused_layer1, flip-test)",
                         "timing": fam_timing})
     for name, r in wide_rows.items():
-        batch = min(int(k[1:].split("_")[0]) for k in r["timing"])
         kernels.append({**k2_row(f"bottleneck_chain ({name})", r["launches"], r["report"],
-                                 r["timing"][f"b{batch}_bf16"]),
+                                 r["timing"], splits[name.replace(" layer1", "")]),
                         "main_path": r["main_path"], "timing": r["timing"], **r["extra"]})
     rot_row = rot_timing[f"b{TRAIN_BATCH}_bf16"]
     kernels.append({

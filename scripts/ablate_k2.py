@@ -8,7 +8,7 @@ Makes edited copies of the package under build/k2_variants/ (the repo's
 own sources are not touched), builds them side by side, and runs
 scripts/profile_torch_k2.py in each, in the order base, variants, base:
 
-  nostore  the block kernel's global stores (pre, idn, out) switched off
+  nostore  the block kernel's output stores switched off
   no3x3    the 3x3's wgmma products switched off (its weight chunks still
            arrive and are released)
   noxload  the global loads of x in the staging of phases A and C off
@@ -19,7 +19,8 @@ means something.  Then ``timers``: a copy whose block kernel takes
 %globaltimer at each phase boundary of its consumers (after a barrier of
 the three consumer warpgroups, on thread 0), summed over all blocks of
 threads, and prints the mean microseconds per block of threads of each
-phase, for block 0 (SE, projection) and blocks 1-2.
+phase, for block 0's sums pass and full pass (SE, projection) and blocks
+1-2.
 The extra barriers make this copy slower; its shares are what it is for.
 Needs a card; imports torch, numpy and simple_pose_torch only.
 """
@@ -44,9 +45,6 @@ VARIANTS = {
          "          const size_t o = (size_t)n * HW + g.band.lin<kRows>(p);",
          f"          if (p >= npix || n >= cout || !({NEVER})) continue;\n"
          "          const size_t o = (size_t)n * HW + g.band.lin<kRows>(p);"),
-        ("if (n < cout) pre[(size_t)n * HW + g.band.lin<kRows>(p)] = acc[4 * j + 2 * h + e];",
-         f"if (n < cout && {NEVER}) pre[(size_t)n * HW + g.band.lin<kRows>(p)] = "
-         "acc[4 * j + 2 * h + e];"),
     ],
     "no3x3": [
         ("consume(ring, acc, 64 * wg < npix, m1_row + 2 * kP * shift, kN / 16, 64 * kN * 2, k2c);",
@@ -60,9 +58,9 @@ VARIANTS = {
 }
 
 PHASES = ("init", "A stage x, conv1, m1", "B 3x3", "B m2 store", "C x for the projection",
-          "C conv3", "C bias, SE pre+sums", "C identity or projection", "C stores")
+          "C conv3", "C bias, SE gate", "C identity or projection", "C stores", "sums pass sums")
 TIMER_DEFS = r"""
-__device__ unsigned long long g_k2_ns[2][16];
+__device__ unsigned long long g_k2_ns[3][16];
 __device__ __forceinline__ unsigned long long k2_now() {
   unsigned long long t;
   asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
@@ -70,18 +68,18 @@ __device__ __forceinline__ unsigned long long k2_now() {
 }
 #define K2_TICK(k) do { consumers_sync(); if (threadIdx.x == 0) { \
   const unsigned long long n_ = k2_now(); \
-  atomicAdd(&g_k2_ns[a.se][k], n_ - t_); t_ = n_; } } while (0)
+  atomicAdd(&g_k2_ns[kSums ? 2 : se][k], n_ - t_); t_ = n_; } } while (0)
 
 """
 TIMER_EXPORT = r"""
 extern "C" int k2_phase_ns(unsigned long long* out) {
-  static const unsigned long long zeros[32] = {0};
+  static const unsigned long long zeros[48] = {0};
   cudaError_t e = cudaMemcpyFromSymbol(out, hopper::g_k2_ns, sizeof(zeros));
   if (e == cudaSuccess) e = cudaMemcpyToSymbol(hopper::g_k2_ns, zeros, sizeof(zeros));
   return (int)e;
 }
 """
-KERNEL_HEAD = ("template <int kN, bool kRows, typename TI, typename TO>\n"
+KERNEL_HEAD = ("template <int kN, bool kRows, typename TI, typename TO, bool kSums>\n"
                "__global__ void __launch_bounds__(kThreadsW, 1)\n"
                "    bottleneck_block_wgmma_kernel")
 TIMER_EDITS = [  # (anchor, text put after it), on the consumers' side
@@ -96,6 +94,7 @@ TIMER_EDITS = [  # (anchor, text put after it), on the consumers' side
      "            64 * kN * 2, k2c);\n", "    K2_TICK(5);\n"),
     ("    K2_ADD(kTSe, t_se);\n", "    K2_TICK(6);\n"),
     ("    K2_ADD(kTOut, t_out);\n", "    K2_TICK(8);\n"),
+    ("    K2_ADD(kTSe, t_sums);\n", "    K2_TICK(9);\n"),
 ]
 TIMER_BEFORE = [("  K2_MARK(t_sync);\n  consumers_sync();  // every read of m1 is done",
                  "  K2_TICK(2);\n"),
@@ -118,14 +117,15 @@ x = torch.from_numpy(np.abs(np.random.default_rng(1).normal(0, 1, (batch, 64, 64
                      .astype(np.float32)).cuda().to(torch.bfloat16)
 lib = _lib()
 lib.k2_phase_ns.argtypes = [ctypes.c_void_p]
-buf = (ctypes.c_ulonglong * 32)()
+buf = (ctypes.c_ulonglong * 48)()
 bottleneck_chain(x, blocks, torch.bfloat16); torch.cuda.synchronize()
 assert lib.k2_phase_ns(ctypes.addressof(buf)) == 0
 bottleneck_chain(x, blocks, torch.bfloat16); torch.cuda.synchronize()
 assert lib.k2_phase_ns(ctypes.addressof(buf)) == 0
 ctas = batch * 16  # bands of 4 rows at 64x48
-print(json.dumps({"us_per_cta_block0": [buf[16 + k] / ctas / 1e3 for k in range(9)],
-                  "us_per_cta_blocks12": [buf[k] / (2 * ctas) / 1e3 for k in range(9)]}))
+print(json.dumps({"us_per_cta_block0_sums": [buf[32 + k] / ctas / 1e3 for k in range(10)],
+                  "us_per_cta_block0": [buf[16 + k] / ctas / 1e3 for k in range(10)],
+                  "us_per_cta_blocks12": [buf[k] / (2 * ctas) / 1e3 for k in range(10)]}))
 '''
 
 
@@ -194,7 +194,8 @@ def main() -> int:
         print(json.dumps({"variant": name, "card": row["card"],
                           "device_ms_per_call": row["device_ms_per_call"],
                           "block_kernel_ms_by_block": row["block_kernel_ms_by_block"],
-                          "se_apply_ms": row["split"]["se_apply"]["device_ms_per_call"]}))
+                          "sums_ms": row["split"]["sums"]["device_ms_per_call"],
+                          "se_gate_ms": row["split"]["se_gate"]["device_ms_per_call"]}))
     timers = json.loads(run([sys.executable, "-c", TIMER_RUN, str(args.batch)], dirs["timers"]))
     for key, us in timers.items():
         print(json.dumps({key: {p: round(v, 3) for p, v in zip(PHASES, us)},

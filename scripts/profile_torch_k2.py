@@ -9,19 +9,23 @@ Builds csrc/bottleneck_chain.cu, counts the tensor-core instructions
 ``--calls`` bf16 calls of the chain at chip_smoke.py's layer1 shapes
 (``--model``'s layer1 with SE: the flagship resnet50, width 64, or
 wide_resnet50_2, width 128; x [batch, 64, 64, 48], BN folded from seeded
-statistics) with torch.profiler.  Prints, as JSON lines: the card (nvidia-smi
-name and power limit), the HMMA counts, and per kernel (the block kernel,
-``se_gate_kernel``, ``se_apply_kernel``) the device ms per call, its share,
-and the bytes that the code moves counted from its loads and stores (no
-cache reuse assumed) over 3.35 TB/s, beside the chain's operations bound;
-and the block kernel's device ms for each Bottleneck block.
+statistics) with chip_smoke.py's ``k2_split`` (a torch.profiler trace
+that holds exactly the route's launches).  Prints, as JSON lines: the
+card (nvidia-smi name and power limit), the HMMA counts, and per kind of
+launch (``k2_launch_kind``: the block kernels' full passes, the SE block's
+sums pass, ``se_gate_kernel``) the launches and device ms per call, its
+share, and the bytes that the code moves counted from its loads and
+stores (no cache reuse assumed) over 3.35 TB/s, beside the chain's
+operations bound; and the block kernel's device ms for each Bottleneck
+block (the SE block's sums pass apart).
 
 ``--timers`` instead copies the package to build/k2_timers/ with the kernel
 source built under ``K2_PHASE_TIMERS`` (cycle counters in the wgmma kernel,
 see ``hopper::kTimers``) and runs ``--model``'s layer1 with SE one
 Bottleneck block at a time (x bf16 into block 0, f32 into blocks 1-2;
 resnet50: the instance whose products are 64 channels wide,
-wide_resnet50_2: 128): per block the
+wide_resnet50_2: 128; block 0's counters add its sums pass and its full
+pass): per block the
 cycles per block of threads that a consumer warp spends in each region the
 kernel's ``kTimers`` names (waiting for a weight chunk, its products,
 staging x, the epilogues, the barriers, all), and that the producer spends
@@ -43,7 +47,6 @@ import sys
 
 import numpy as np
 import torch
-from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -52,23 +55,18 @@ from chip_smoke import (  # noqa: E402
     PEAK_BYTES,
     card_line,
     chain_work,
+    k2_split,
     seeded_layer1,
 )
 from simple_pose_torch.models.resnet import build_resnet  # noqa: E402
 from simple_pose_torch.ops.bottleneck_chain import (  # noqa: E402
-    bottleneck_chain,
     fold_bottleneck_blocks,
     launch_plan,
     prepare_blocks,
 )
 from simple_pose_torch.utils.cuda_build import build_library  # noqa: E402
 
-KERNEL_GROUPS = {"block": "bottleneck_block", "se_gate": "se_gate_kernel",
-                 "se_apply": "se_apply_kernel"}
-
-
-def group_of(name: str) -> str:
-    return next((g for g, kernel in KERNEL_GROUPS.items() if kernel in name), "other")
+KERNEL_GROUPS = ("block", "sums", "se_gate")
 
 
 def hmma_counts(lib_path: str) -> dict:
@@ -89,29 +87,28 @@ def hmma_counts(lib_path: str) -> dict:
 
 
 def design_bytes(blocks, batch, h, w, th) -> tuple:
-    """Bytes each kernel's loads and stores of activations move per call,
-    counted from the code with no cache reuse: the block kernel reads its
+    """Bytes each kind of launch moves in activations per call, counted from
+    the code with no cache reuse: a block kernel's full pass reads its
     input once per band over th + 2 halo rows (phase A) and once more for
-    the identity or the projection, and writes f32 pre and idn for an SE
-    block (else the output); se_gate reads the band sums; se_apply reads pre
-    and idn and writes the output.  Returned beside it: the weight bytes
-    that every block of threads reads again (served by L2)."""
+    the identity or the projection, and writes the output; an SE block's
+    sums pass reads its input over the halo once more and writes the band
+    sums; se_gate reads the band sums and writes the gate.  Returned beside
+    it: the weight bytes that every block of threads reads again (served by
+    L2)."""
     hw, bands = h * w, -(-h // th)
-    out = {"block": 0, "se_gate": 0, "se_apply": 0}
+    out = dict.fromkeys(KERNEL_GROUPS, 0)
     weight_rereads = 0
     act = 2  # the chain's input is bf16; later blocks read the f32 carry
     for i, blk in enumerate(blocks):
-        cin, cout = blk["w1"].shape[0], blk["w3"].shape[1]
+        cin, width, cout = blk["w1"].shape[0], blk["w1"].shape[1], blk["w3"].shape[1]
         last = i == len(blocks) - 1
         x_bytes = batch * cin * hw * act
-        out["block"] += x_bytes * (th + 2) / th + x_bytes
+        halo_bytes = x_bytes * (th + 2) / th
+        out["block"] += halo_bytes + x_bytes + batch * cout * hw * (2 if last else 4)
         weight_rereads += sum(t.numel() * t.element_size() for t in blk.values()) * bands * batch
         if "sf1" in blk:
-            out["block"] += 2 * batch * cout * hw * 4 + batch * bands * cout * 4
-            out["se_gate"] += batch * bands * cout * 4 + batch * cout * 4
-            out["se_apply"] += 2 * batch * cout * hw * 4 + batch * cout * hw * (2 if last else 4)
-        else:
-            out["block"] += batch * cout * hw * (2 if last else 4)
+            out["sums"] += halo_bytes + batch * bands * width * 4
+            out["se_gate"] += batch * bands * width * 4 + batch * cout * 4
         act = 4
     return out, weight_rereads
 
@@ -130,7 +127,7 @@ blocks = prepare_blocks(fold_bottleneck_blocks(list(seeded_layer1(
 lib = _lib()
 lib.k2_phase_cycles.argtypes = [ctypes.c_void_p]
 names = ("wait_chunk", "products", "stage_x", "store_m1", "barriers_after_a_b", "store_m2",
-         "bias3_and_se", "identity", "store_out", "all")
+         "bias3_se_gate_or_sums", "identity", "store_out", "all")
 buf = (ctypes.c_ulonglong * (len(names) + 2))()
 rng = np.random.default_rng(1)
 tiles = launch_plan(64, 48, blocks[0]["w1"].shape[1], True).tiles
@@ -199,40 +196,20 @@ def main() -> int:
     rng = np.random.default_rng(1)
     x = torch.from_numpy(np.abs(rng.normal(0, 1, (args.batch, 64, 64, 48)))
                          .astype(np.float32)).cuda().to(torch.bfloat16)
-    for _ in range(3):
-        bottleneck_chain(x, blocks, torch.bfloat16)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(args.calls):
-            bottleneck_chain(x, blocks, torch.bfloat16)
-        torch.cuda.synchronize()
-    kernels = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
-                     key=lambda e: e.time_range.start)
-    by_group, blocks_us = {}, []
-    for e in kernels:
-        if KERNEL_GROUPS["block"] in e.name:
-            blocks_us.append(e.time_range.end - e.time_range.start)
-        g = group_of(e.name)
-        by_group[g] = by_group.get(g, 0.0) + (e.time_range.end - e.time_range.start) / args.calls
-    total_us = sum(by_group.values())
+    split = k2_split(x, blocks, torch.bfloat16, args.calls)
 
     th = launch_plan(64, 48, blocks[0]["w1"].shape[1], True).th  # whole-row bands at 64x48
     nbytes, weight_rereads = design_bytes(blocks, args.batch, 64, 48, th)
     flops, io_bytes = chain_work(blocks, args.batch, 64, 48, 2)
-    split = {}
-    for key in KERNEL_GROUPS:
-        us = by_group.get(key, 0.0)
-        split[key] = {"device_ms_per_call": us / 1e3, "share": us / total_us if total_us else 0.0,
-                      "design_mbytes": nbytes[key] / 1e6,
-                      "design_bytes_ms_at_peak": nbytes[key] / PEAK_BYTES * 1e3}
+    kinds = {key: {"launches_per_call": split[key]["launches"],
+                   "device_ms_per_call": split[key]["ms"],
+                   "share": split[key]["ms"] / split["all_ms"],
+                   "design_mbytes": nbytes[key] / 1e6,
+                   "design_bytes_ms_at_peak": nbytes[key] / PEAK_BYTES * 1e3}
+             for key in KERNEL_GROUPS}
     print(json.dumps({"card": card, "model": args.model, "batch": args.batch,
-                      "calls": args.calls,
-                      "device_ms_per_call": total_us / 1e3,
-                      "kernel_launches_per_call": len(kernels) / args.calls, "split": split,
-                      "block_kernel_ms_by_block": [
-                          float(np.mean(blocks_us[i::len(blocks)])) / 1e3
-                          for i in range(len(blocks))],
-                      "other_ms_per_call": by_group.get("other", 0.0) / 1e3}))
+                      "calls": args.calls, "device_ms_per_call": split["all_ms"],
+                      "split": kinds, "block_kernel_ms_by_block": split["block_ms_by_block"]}))
     print(json.dumps({"chain_gflop": flops / 1e9,
                       "operations_bound_ms": flops / PEAK_BF16_FLOPS * 1e3,
                       "io_bytes_bound_ms": io_bytes / PEAK_BYTES * 1e3,

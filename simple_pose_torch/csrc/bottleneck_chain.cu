@@ -27,9 +27,10 @@
 //         one block of threads per SM; its section below says why;
 //   f32:  bottleneck_block_kernel, f32 FMAs on the CUDA cores, since tensor
 //         cores would round f32 operands (TF32 or bf16).
-// With the products on wgmma, what the design still moves (the f32 pre/idn
-// scratch of the SE pass, the f32 carry read twice, each tile's halo) and
-// the activations' global memory latency set the pace, not the products.
+// With the products on wgmma, what the design still moves (the f32 carry
+// read twice, each tile's halo, an SE block's input read once more by its
+// sums pass) and the activations' global memory latency set the pace, not
+// the products.
 //
 // Design.  The TPU kernel keeps a whole 64x48x256 sample in VMEM (~1.5 MB);
 // a Hopper block has 227 KB of shared memory.  So each thread block owns one
@@ -63,11 +64,20 @@
 // 96 pixels and passes of 128 channels.  The bf16 kernel keeps tiles of up
 // to 192 pixels at both of its widths.
 //
-// SE needs the spatial mean over the whole sample before the residual add,
-// so an SE block runs in two passes: pass 1 writes the pre-gate output, the
-// identity and deterministic per-tile channel sums (no atomics); then
-// se_gate_kernel reduces the sums per sample and runs the two fcs and the
-// sigmoid, and se_apply_kernel writes relu(o * g + identity).
+// SE needs the spatial mean of o over the whole sample before the residual
+// add.  conv3 is linear, so mean_hw(o) = mean_hw(m2) . w3 + b3 (in exact
+// arithmetic; only the order of the f32 sums differs), and an SE block runs
+// in three launches:
+//   1. the block kernel's sums pass (template flag kSums): phases A and B
+//      only, then this tile's channel sums of m2 as conv3 reads it (rounded
+//      to the compute type) into partial [B, tiles, width], in a fixed order
+//      (no atomics); no conv3, no projection, no activation stores;
+//   2. se_gate_kernel: per sample v = (sum of the tile sums / HW) . w3 + b3,
+//      then the two fcs and the sigmoid into gate [B, Cout];
+//   3. the block kernel's full pass, whose epilogue writes relu(o * g +
+//      identity) straight into the block's output.
+// So the pre-gate output and the identity never go through global memory;
+// the price is conv1 and the 3x3 of an SE block run twice.
 //
 // Register tiling of the f32 kernel: 256 threads = 8 warps.  Lane l of warp
 // g computes pixels {l, l+32, ...} of the tile and output channels
@@ -140,10 +150,9 @@ template <typename TC> __device__ __forceinline__ float rnd(float v) {
 
 struct BlockArgs {
   const void* x;      // [B, Cin, H, W]   input type
-  void* out;          // [B, Cout, H, W]  output type (no SE)
-  float* pre;         // [B, Cout, H, W]  pre-gate output (SE pass 1)
-  float* idn;         // [B, Cout, H, W]  identity (SE pass 1)
-  float* partial;     // [B, tiles, Cout] per-tile channel sums (SE pass 1)
+  void* out;          // [B, Cout, H, W]  output type (the full pass)
+  float* partial;     // [B, tiles, width] per-tile channel sums of m2 (the sums pass)
+  const float* gate;  // [B, Cout] the SE gate (an SE block's full pass), else null
   const void* w1;     // [Cin, width]        compute type
   const float* b1;    // [width]
   const void* w2;     // [3, 3, width, width]
@@ -154,7 +163,6 @@ struct BlockArgs {
   const float* bd;
   int cin, width, cout, h, w;
   int th, tw, tiles_w, tiles;  // tile rows and columns, tiles per row of tiles, tiles
-  int se;
 };
 
 // Pixels of a tile's band or halo, numbered row by row: pixel q lies at
@@ -203,7 +211,10 @@ __device__ __forceinline__ int band_m1(const Tile& g, int p) {
   return (p / g.tw) * g.pitch + p % g.tw;
 }
 
-template <int kWMax, bool kRows, typename TI, typename TC, typename TO>
+// kGate: an SE block's full pass (o times a.gate before the identity; a
+// block without SE runs an instance with no gate code).  kSums: the SE sums
+// pass (phases A and B, then m2's channel sums).
+template <int kWMax, bool kRows, typename TI, typename TC, typename TO, bool kGate, bool kSums>
 __global__ void __launch_bounds__(kThreads, Cfg<kWMax>::kMinBlocks)
     bottleneck_block_kernel(BlockArgs a) {
   using C = Cfg<kWMax>;
@@ -321,6 +332,24 @@ __global__ void __launch_bounds__(kThreads, Cfg<kWMax>::kMinBlocks)
       }
     }
   }
+  if constexpr (kSums) {
+    // the SE sums pass: this tile's channel sums of m2 as conv3 reads it
+    // (lane order fixed by the xor tree, so the sums are deterministic)
+#pragma unroll
+    for (int j = 0; j < kNJ; ++j) {
+      const int n = n_base + j;
+      float s = 0.f;
+      if (n < width) {
+#pragma unroll
+        for (int i = 0; i < kPC; ++i)
+          if (lane + 32 * i < npix) s += rnd<TC>(fmaxf(acc[i][j] + a.b2[n], 0.f));
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+      if (lane == 0 && n < width) a.partial[((size_t)b * a.tiles + blockIdx.x) * width + n] = s;
+    }
+    return;
+  }
   __syncthreads();  // every read of m1 is done: m2 overwrites it
   float* m2s = m1s;  // [width][band_stride]
 #pragma unroll
@@ -338,9 +367,8 @@ __global__ void __launch_bounds__(kThreads, Cfg<kWMax>::kMinBlocks)
   float* w3s = work;                    // [kKB][kNTile]
   float* xs = work + kKB * kNTile;      // [kKC][kBand]
   float* wds = xs + kKC * kBand;        // [kKC][kNTile]
-  float* pre = a.pre + (size_t)b * cout * HW;
-  float* idn = a.idn + (size_t)b * cout * HW;
   TO* out = static_cast<TO*>(a.out) + (size_t)b * cout * HW;
+  const float* gate = kGate ? a.gate + (size_t)b * cout : nullptr;
   for (int n0 = 0; n0 < cout; n0 += kNTile) {
 #pragma unroll
     for (int i = 0; i < kPC; ++i)
@@ -367,33 +395,18 @@ __global__ void __launch_bounds__(kThreads, Cfg<kWMax>::kMinBlocks)
           for (int j = 0; j < kNJ; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
       }
     }
+    // o = conv3 + b3, times the SE gate before the identity is added
 #pragma unroll
     for (int j = 0; j < kNJ; ++j) {
       const int n = n0 + n_base + j;
       const float bias = n < cout ? a.b3[n] : 0.f;
+      if constexpr (kGate) {  // one loop: two ran the wide chain 3% slower
+        const float gn = n < cout ? gate[n] : 0.f;
 #pragma unroll
-      for (int i = 0; i < kPC; ++i) acc[i][j] += bias;
-    }
-    if (a.se) {
-      // pre-gate output and this tile's channel sums (lane order fixed by
-      // the xor tree, so the sums are deterministic)
+        for (int i = 0; i < kPC; ++i) acc[i][j] = (acc[i][j] + bias) * gn;
+      } else {
 #pragma unroll
-      for (int j = 0; j < kNJ; ++j) {
-        const int n = n0 + n_base + j;
-        float s = 0.f;
-#pragma unroll
-        for (int i = 0; i < kPC; ++i) {
-          const int p = lane + 32 * i;
-          if (p < npix) {
-            s += acc[i][j];
-            if (n < cout) pre[(size_t)n * HW + g.band.lin<kRows>(p)] = acc[i][j];
-          }
-          acc[i][j] = 0.f;
-        }
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-        if (lane == 0 && n < cout)
-          a.partial[((size_t)b * a.tiles + blockIdx.x) * cout + n] = s;
+        for (int i = 0; i < kPC; ++i) acc[i][j] += bias;
       }
     }
     if (wd != nullptr) {
@@ -451,9 +464,7 @@ __global__ void __launch_bounds__(kThreads, Cfg<kWMax>::kMinBlocks)
       for (int i = 0; i < kPC; ++i) {
         const int p = lane + 32 * i;
         if (p >= npix) continue;
-        const size_t o = (size_t)n * HW + g.band.lin<kRows>(p);
-        if (a.se) idn[o] = acc[i][j];
-        else out[o] = from_f<TO>(fmaxf(acc[i][j], 0.f));
+        out[(size_t)n * HW + g.band.lin<kRows>(p)] = from_f<TO>(fmaxf(acc[i][j], 0.f));
       }
     }
   }
@@ -482,18 +493,19 @@ __global__ void __launch_bounds__(kThreads, Cfg<kWMax>::kMinBlocks)
 // The chunks, in the order both sides walk them:
 //   A. per round of up to kBand halo pixels, per 64 input channels: w1;
 //   B. per 3x3 tap: w2[tap] (K = kN);
-//   C. per pass of kN output channels: w3, then per 64 input channels wd.
+//   C. per pass of kN output channels: w3, then per 64 input channels wd
+//      (none in the SE sums pass, which ends after B).
 // Products: wgmma.mma_async m64nNk16 with N = kN (bf16 in, f32 sums), A from
 // registers (ldmatrix from a [pixel][channel] bf16 tile, so the 3x3's A rows
 // are the halo at pixel + shift), B from the stage by descriptor.
 // Activations are staged by the consumers: x with 16-byte loads where its
 // rows allow (whole rows, aligned), converted to bf16 in shared memory
-// [pixel][64 channels].  Biases sit in shared memory, m1 and m2 are stored
-// with stmatrix, and half of the identity is loaded before conv3, so that
-// its latency hides behind the product.  The numerics are those of the f32
-// kernel and the plain version: operands rounded to bf16 where the plain
-// version rounds them, f32 sums, biases and carry, the zero pad after the
-// relu, per-tile SE sums in a fixed order.
+// [pixel][64 channels].  Biases and the SE gate sit in shared memory, m1
+// and m2 are stored with stmatrix, and half of the identity is loaded
+// before conv3, so that its latency hides behind the product.  The
+// numerics are those of the f32 kernel and the plain version: operands
+// rounded to bf16 where the plain version rounds them, f32 sums, biases and
+// carry, the zero pad after the relu, per-tile SE sums in a fixed order.
 //
 // Residency.  At kN = 128 every block of threads streams ~420 KB of weights
 // per tile, and the ring (3 stages of 32 KB) and m1 (272 B a pixel) take
@@ -547,11 +559,12 @@ struct Shape {
   static constexpr int kIdnRows = kN == 64 ? 2 : 1;
   // shared memory after aligning to 1024 B (the swizzle's period):
   // [ring][x tile][SE sums][biases][mbarriers][m1 / m2]; the biases: b1, b2,
-  // then b3 and bd of the even passes of conv3, then of the odd ones
+  // then b3, bd and the SE gate of the even passes of conv3, then of the
+  // odd ones
   static constexpr int kXOff = kStages * kStageBytes;
   static constexpr int kRedOff = kXOff + kBand * kXP * 2;
   static constexpr int kBiasOff = kRedOff + kWarpsC * kN * 4;
-  static constexpr int kBarOff = kBiasOff + 6 * kN * 4;
+  static constexpr int kBarOff = kBiasOff + 8 * kN * 4;
   static constexpr int kM1Off = kBarOff + 64;
   static_assert(2 * kStages * 8 <= 64, "the mbarriers");
 };
@@ -679,10 +692,10 @@ __device__ __forceinline__ void wgmma(float (&d)[64], const uint32_t (&a)[4], ui
 // cycles waiting for a chunk, in its products (ldmatrix, wgmma and their
 // wait), staging x (with the barriers around it), storing m1 (with the
 // zero fill), at the barriers after phases A and B, storing m2, in conv3's
-// bias and the SE sums (with their barriers), adding the identity (x, or
-// the projection's bias), storing the output, and in all; per producer:
-// waiting for a free stage, and in all.  Without the macro they compile to
-// nothing.
+// bias and the SE gate (in the sums pass: the sums, with their barrier),
+// adding the identity (x, or the projection's bias), storing the output,
+// and in all; per producer: waiting for a free stage, and in all.  Without
+// the macro they compile to nothing.
 enum { kTWait, kTMma, kTStage, kTEpiA, kTSync, kTEpiB, kTSe, kTIdn, kTOut, kTAll,
        kTProdWait, kTProdAll, kTimers };
 #ifdef K2_PHASE_TIMERS
@@ -866,8 +879,9 @@ __device__ __forceinline__ void load_bias(float (&bv)[2 * kJ], const float* slot
 }
 
 // Tensor maps: w1 [cin][width], w2 [9][width][width], w3 [width][cout],
-// wd [cin][cout] (w3's map where there is no projection).
-template <int kN, bool kRows, typename TI, typename TO>
+// wd [cin][cout] (w3's map where there is no projection).  kSums: the SE
+// sums pass (phases A and B, then m2's channel sums; w3 and wd unread).
+template <int kN, bool kRows, typename TI, typename TO, bool kSums>
 __global__ void __launch_bounds__(kThreadsW, 1)
     bottleneck_block_wgmma_kernel(BlockArgs a, const __grid_constant__ CUtensorMap tm_w1,
                                   const __grid_constant__ CUtensorMap tm_w2,
@@ -890,8 +904,8 @@ __global__ void __launch_bounds__(kThreadsW, 1)
   const Tile g = tile_of(a, blockIdx.x);
   const int width = a.width, cin = a.cin, cout = a.cout;
   const int rounds = (g.nhalo + kBand - 1) / kBand;
-  const int kchunks = (cin + kKX - 1) / kKX, passes = (cout + kN - 1) / kN;
-  const bool proj = a.wd != nullptr;
+  const int kchunks = (cin + kKX - 1) / kKX, passes = kSums ? 0 : (cout + kN - 1) / kN;
+  const bool proj = a.wd != nullptr, se = a.gate != nullptr;
 
   if (tid == 0) {
     for (int s = 0; s < S::kStages; ++s) {
@@ -997,6 +1011,40 @@ __global__ void __launch_bounds__(kThreadsW, 1)
   K2_MARK(t_sync);
   consumers_sync();  // every read of m1 is done: m2 overwrites it
   K2_ADD(kTSync, t_sync);
+  if constexpr (kSums) {
+    // ---- the SE sums pass: this tile's channel sums of m2 as conv3 reads
+    // it (rounded to bf16), per warp over its 16 rows (the xor tree over the
+    // lanes of one channel pair), then the 12 warps of a channel in a fixed
+    // order (deterministic, no atomics)
+    K2_MARK(t_sums);
+    float bv[2 * kJ];
+    load_bias<kJ>(bv, bias_s + kN, tig);
+#pragma unroll
+    for (int j = 0; j < kJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float s = 0.f;
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          if (row0 + gid + 8 * h < npix)
+            s += __bfloat162float(
+                __float2bfloat16(fmaxf(acc[4 * j + 2 * h + e] + bv[2 * j + e], 0.f)));
+#pragma unroll
+        for (int o = 4; o < 32; o <<= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+        if (gid == 0) red[(tid >> 5) * kN + 8 * j + 2 * tig + e] = s;
+      }
+    consumers_sync();
+    if (tid < width) {
+      float s = red[tid];
+#pragma unroll
+      for (int w = 1; w < kWarpsC; ++w) s += red[w * kN + tid];
+      a.partial[((size_t)b * a.tiles + blockIdx.x) * width + tid] = s;
+    }
+    K2_ADD(kTSe, t_sums);
+    K2_ADD(kTAll, t_all);
+    K2_FLUSH(kTWait, kTProdWait);
+    return;
+  }
   K2_MARK(t_m2);
   bf16* m2s = m1s;   // [tile pixel][kP]
   {
@@ -1008,10 +1056,10 @@ __global__ void __launch_bounds__(kThreadsW, 1)
   __syncwarp();  // conv3 reads only this warp's own rows of m2
   K2_ADD(kTEpiB, t_m2);
 
-  // ---- C: o = m2 . w3 + b3, identity, epilogue; kN output channels a pass
-  float* pre = a.pre + (size_t)b * cout * HW;
-  float* idn = a.idn + (size_t)b * cout * HW;
+  // ---- C: o = m2 . w3 + b3, the SE gate, identity, epilogue; kN output
+  // channels a pass
   TO* out = static_cast<TO*>(a.out) + (size_t)b * cout * HW;
+  const float* gate = se ? a.gate + (size_t)b * cout : nullptr;
   const bool active = 64 * wg < npix;
   const uint32_t xs_row = smem_u32(xs + a_row * kXP + a_k);
   if (x_once) {
@@ -1040,12 +1088,14 @@ __global__ void __launch_bounds__(kThreadsW, 1)
   if (kIdnRows == 2 && !proj) load_identity(0);
   for (int np = 0; np < passes; ++np) {
     const int n0 = kN * np;
-    // this pass's b3 and bd into their slots (the ones of pass np - 2, whose
-    // readers all passed the barrier of pass np - 1), read after conv3
-    float* pass_bias = bias_s + kN * (2 + 2 * (np & 1));
-    if (tid < 2 * kN) {
-      const int n = n0 + tid % kN;
-      pass_bias[tid] = n < cout && (tid < kN || proj) ? (tid < kN ? a.b3 : a.bd)[n] : 0.f;
+    // this pass's b3, bd and SE gate into their slots (the ones of pass np -
+    // 2, whose readers all passed the barrier of pass np - 1), read after
+    // conv3
+    float* pass_bias = bias_s + kN * (2 + 3 * (np & 1));
+    if (tid < 3 * kN) {
+      const int k = tid / kN, n = n0 + tid % kN;
+      const float* src = k == 0 ? a.b3 : k == 1 ? (proj ? a.bd : nullptr) : gate;
+      pass_bias[tid] = n < cout && src != nullptr ? src[n] : 0.f;
     }
     // the identity's first row loaded before conv3, so that its latency
     // hides there
@@ -1066,37 +1116,17 @@ __global__ void __launch_bounds__(kThreadsW, 1)
           acc[4 * j + 2 + e] += bv[2 * j + e];
         }
     }
-    if (a.se) {
-      // pre-gate output and this tile's channel sums: per warp over its 16
-      // rows (the xor tree over the lanes of one channel pair), then the 12
-      // warps of a channel in a fixed order (deterministic, no atomics)
+    if (se) {
+      // the SE gate, applied before the identity is added
+      const float* gs = pass_bias + 2 * kN + 2 * tig;
 #pragma unroll
       for (int j = 0; j < kJ; ++j)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const int nl = 8 * j + 2 * tig + e, n = n0 + nl;
-          float s = 0.f;
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int p = row0 + gid + 8 * h;
-            if (p < npix) {
-              s += acc[4 * j + 2 * h + e];
-              if (n < cout) pre[(size_t)n * HW + g.band.lin<kRows>(p)] = acc[4 * j + 2 * h + e];
-            }
-            acc[4 * j + 2 * h + e] = 0.f;
-          }
-#pragma unroll
-          for (int o = 4; o < 32; o <<= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-          if (gid == 0) red[(tid >> 5) * kN + nl] = s;
+          const float gn = gs[8 * j + e];
+          acc[4 * j + e] *= gn;
+          acc[4 * j + 2 + e] *= gn;
         }
-      consumers_sync();
-      if (tid < kN && n0 + tid < cout) {
-        float s = red[tid];
-#pragma unroll
-        for (int w = 1; w < kWarpsC; ++w) s += red[w * kN + tid];
-        a.partial[((size_t)b * a.tiles + blockIdx.x) * cout + n0 + tid] = s;
-      }
-      consumers_sync();  // red is free for the next pass
     }
     K2_ADD(kTSe, t_se);
     if (proj) {
@@ -1156,8 +1186,7 @@ __global__ void __launch_bounds__(kThreadsW, 1)
           const int p = row0 + gid + 8 * h, n = n0 + 8 * j + 2 * tig + e;
           if (p >= npix || n >= cout) continue;
           const size_t o = (size_t)n * HW + g.band.lin<kRows>(p);
-          if (a.se) idn[o] = acc[4 * j + 2 * h + e];
-          else out[o] = from_f<TO>(fmaxf(acc[4 * j + 2 * h + e], 0.f));
+          out[o] = from_f<TO>(fmaxf(acc[4 * j + 2 * h + e], 0.f));
         }
     K2_ADD(kTOut, t_out);
   }
@@ -1167,45 +1196,73 @@ __global__ void __launch_bounds__(kThreadsW, 1)
 
 }  // namespace hopper
 
-// One block per sample: v = mean_hw(o) from the tile sums, then
-// g = sigmoid(relu(v . sf1 + sb1) . sf2 + sb2); v and the hidden layer are
-// rounded to the compute type as matrix operands.
+// The gate's products, one block of threads per sample: each column n of
+// in [n_in] . w [n_in][n_out] is split over max(1, blockDim / n_out)
+// threads, part p over a fixed span of the inputs, into red[p * n_out + n];
+// parts_sum adds a column's parts in part order.  Many loads in flight:
+// the gate is bound by the latency of its weight loads (SE's reduction
+// ratio is 1, so fc1 and fc2 are Cout x Cout each), not by bytes or
+// operations.
+constexpr int kGateThreads = 1024;
+
 template <typename TC>
-__global__ void se_gate_kernel(const float* partial, int tiles, int c, int hidden, int hw,
-                               const void* sf1_, const float* sb1, const void* sf2_,
-                               const float* sb2, float* gate) {
-  extern __shared__ float s[];  // [c + hidden]
+__device__ __forceinline__ void gemv_parts(const float* in, int n_in, const TC* __restrict__ w,
+                                           int n_out, float* red) {
+  const int parts = max(1, (int)blockDim.x / n_out), span = (n_in + parts - 1) / parts;
+  for (int i = threadIdx.x; i < parts * n_out; i += blockDim.x) {
+    const int n = i % n_out, p = i / n_out, k1 = min(n_in, (p + 1) * span);
+    float acc = 0.f;
+#pragma unroll 16
+    for (int k = p * span; k < k1; ++k)
+      acc = fmaf(in[k], to_f<TC>(__ldg(&w[(size_t)k * n_out + n])), acc);
+    red[i] = acc;
+  }
+  __syncthreads();
+}
+
+__device__ __forceinline__ float parts_sum(const float* red, int n, int n_out) {
+  const int parts = max(1, (int)blockDim.x / n_out);
+  float acc = red[n];
+  for (int p = 1; p < parts; ++p) acc += red[p * n_out + n];
+  return acc;
+}
+
+// One block per sample: the mean of m2 from the sums pass's tile sums
+// (added in tile order), v = mean . w3 + b3 (= mean_hw(o): conv3 is
+// linear), then g = sigmoid(relu(v . sf1 + sb1) . sf2 + sb2); v and the
+// hidden layer are rounded to the compute type as matrix operands, the
+// mean of m2 is not (the JAX kernel rounds none of it before the mean).
+template <typename TC>
+__global__ void __launch_bounds__(kGateThreads)
+    se_gate_kernel(const float* partial, int tiles, int width, int c, int hidden, int hw,
+                   const void* w3_, const float* b3, const void* sf1_, const float* sb1,
+                   const void* sf2_, const float* sb2, float* gate) {
+  extern __shared__ float s[];  // [width + c + hidden + max(blockDim, c, hidden)]
+  const TC* w3 = static_cast<const TC*>(w3_);
   const TC* sf1 = static_cast<const TC*>(sf1_);
   const TC* sf2 = static_cast<const TC*>(sf2_);
   const int b = blockIdx.x;
-  float* v = s;
-  float* g1 = s + c;
-  for (int n = threadIdx.x; n < c; n += blockDim.x) {
+  float* mean = s;
+  float* v = s + width;
+  float* g1 = v + c;
+  float* red = g1 + hidden;
+  for (int k = threadIdx.x; k < width; k += blockDim.x) {
     float acc = 0.f;
-    for (int t = 0; t < tiles; ++t) acc += partial[((size_t)b * tiles + t) * c + n];
-    v[n] = rnd<TC>(acc / (float)hw);
+#pragma unroll 8
+    for (int t = 0; t < tiles; ++t) acc += partial[((size_t)b * tiles + t) * width + k];
+    mean[k] = acc / (float)hw;
   }
   __syncthreads();
-  for (int n = threadIdx.x; n < hidden; n += blockDim.x) {
-    float acc = 0.f;
-    for (int k = 0; k < c; ++k) acc = fmaf(v[k], to_f<TC>(sf1[(size_t)k * hidden + n]), acc);
-    g1[n] = rnd<TC>(fmaxf(acc + sb1[n], 0.f));
-  }
+  gemv_parts(mean, width, w3, c, red);
+  for (int n = threadIdx.x; n < c; n += blockDim.x) v[n] = rnd<TC>(parts_sum(red, n, c) + b3[n]);
   __syncthreads();
-  for (int n = threadIdx.x; n < c; n += blockDim.x) {
-    float acc = 0.f;
-    for (int k = 0; k < hidden; ++k) acc = fmaf(g1[k], to_f<TC>(sf2[(size_t)k * c + n]), acc);
-    gate[(size_t)b * c + n] = 1.f / (1.f + expf(-(acc + sb2[n])));
-  }
-}
-
-template <typename TO>
-__global__ void se_apply_kernel(const float* pre, const float* idn, const float* gate,
-                                TO* out, size_t total, int hw) {
-  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < total;
-       i += (size_t)gridDim.x * blockDim.x) {
-    out[i] = from_f<TO>(fmaxf(pre[i] * gate[i / hw] + idn[i], 0.f));
-  }
+  gemv_parts(v, c, sf1, hidden, red);
+  for (int n = threadIdx.x; n < hidden; n += blockDim.x)
+    g1[n] = rnd<TC>(fmaxf(parts_sum(red, n, hidden) + sb1[n], 0.f));
+  __syncthreads();
+  gemv_parts(g1, hidden, sf2, c, red);
+  for (int n = threadIdx.x; n < c; n += blockDim.x)
+    gate[(size_t)b * c + n] = 1.f / (1.f + expf(-(parts_sum(red, n, c) + sb2[n])));
 }
 
 template <typename K>
@@ -1252,19 +1309,23 @@ cudaError_t allow_smem(K kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-template <int kN, bool kRows, typename TI>
+template <int kN, bool kRows, typename TI, bool kSums>
 cudaError_t launch_wgmma(const BlockArgs& a, int batch, bool out_bf16, cudaStream_t s) {
-  using bf16 = __nv_bfloat16;
   const cuuint64_t width = a.width, cin = a.cin, cout = a.cout;
   const cuuint64_t d1[2] = {width, cin}, d2[3] = {width, width, 9}, d3[2] = {cout, width},
                    dd[2] = {cout, cin};
-  CUtensorMap m1, m2, m3, md;
-  if (!weight_map(&m1, a.w1, 2, d1, hopper::kKX) || !weight_map(&m2, a.w2, 3, d2, kN) ||
-      !weight_map(&m3, a.w3, 2, d3, kN) ||
-      !weight_map(&md, a.wd ? a.wd : a.w3, 2, a.wd ? dd : d3, hopper::kKX))
+  CUtensorMap m1, m2, m3{}, md{};  // the sums pass reads neither w3 nor wd
+  if (!weight_map(&m1, a.w1, 2, d1, hopper::kKX) || !weight_map(&m2, a.w2, 3, d2, kN))
     return cudaErrorInvalidValue;
-  const auto kernel = out_bf16 ? hopper::bottleneck_block_wgmma_kernel<kN, kRows, TI, bf16>
-                               : hopper::bottleneck_block_wgmma_kernel<kN, kRows, TI, float>;
+  // the sums pass stores no output: its one instance has an f32 output type
+  auto kernel = hopper::bottleneck_block_wgmma_kernel<kN, kRows, TI, float, kSums>;
+  if constexpr (!kSums) {
+    if (!weight_map(&m3, a.w3, 2, d3, kN) ||
+        !weight_map(&md, a.wd ? a.wd : a.w3, 2, a.wd ? dd : d3, hopper::kKX))
+      return cudaErrorInvalidValue;
+    if (out_bf16)
+      kernel = hopper::bottleneck_block_wgmma_kernel<kN, kRows, TI, __nv_bfloat16, false>;
+  }
   const size_t smem = hopper::smem_bytes<kN>(a.th, a.tw);
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
@@ -1272,36 +1333,43 @@ cudaError_t launch_wgmma(const BlockArgs& a, int batch, bool out_bf16, cudaStrea
   return cudaGetLastError();
 }
 
-// f32 compute: the CUDA-core kernel for widths up to 64 or up to 128.
-template <int kWMax, bool kRows, typename TI>
+// f32 compute: the CUDA-core kernel for widths up to 64 or up to 128; an
+// SE block's full pass (a.gate set) runs the instance with the gate.
+template <int kWMax, bool kRows, typename TI, bool kSums>
 cudaError_t launch_block(const BlockArgs& a, int batch, bool out_bf16, cudaStream_t s) {
-  using bf16 = __nv_bfloat16;
-  const size_t smem = block_smem_bytes<kWMax>(a.th, a.tw);
-  return out_bf16
-             ? launch(bottleneck_block_kernel<kWMax, kRows, TI, float, bf16>, a, batch, smem, s)
-             : launch(bottleneck_block_kernel<kWMax, kRows, TI, float, float>, a, batch, smem, s);
+  auto kernel = bottleneck_block_kernel<kWMax, kRows, TI, float, float, false, kSums>;
+  if constexpr (!kSums) {
+    if (a.gate != nullptr)
+      kernel = out_bf16
+                   ? bottleneck_block_kernel<kWMax, kRows, TI, float, __nv_bfloat16, true, false>
+                   : bottleneck_block_kernel<kWMax, kRows, TI, float, float, true, false>;
+    else if (out_bf16)
+      kernel = bottleneck_block_kernel<kWMax, kRows, TI, float, __nv_bfloat16, false, false>;
+  }
+  return launch(kernel, a, batch, block_smem_bytes<kWMax>(a.th, a.tw), s);
 }
 
 // The compute type and the width pick the kernel: bf16 runs on wgmma
 // (products 64 channels wide up to width 64, 128 above), f32 on the CUDA
 // cores (tensor cores would round f32 operands); tiles of whole rows or
-// 2-D tiles.
-template <typename TI>
+// 2-D tiles; kSums: the SE sums pass of that kernel (it writes no output,
+// so its output type is f32).
+template <typename TI, bool kSums>
 cudaError_t launch_width(const BlockArgs& a, int batch, bool c_bf16, bool out_bf16,
                          cudaStream_t s) {
   const bool rows = a.tw == a.w;
   if (c_bf16) {
     if (a.width <= 64)
-      return rows ? launch_wgmma<64, true, TI>(a, batch, out_bf16, s)
-                  : launch_wgmma<64, false, TI>(a, batch, out_bf16, s);
-    return rows ? launch_wgmma<128, true, TI>(a, batch, out_bf16, s)
-                : launch_wgmma<128, false, TI>(a, batch, out_bf16, s);
+      return rows ? launch_wgmma<64, true, TI, kSums>(a, batch, out_bf16, s)
+                  : launch_wgmma<64, false, TI, kSums>(a, batch, out_bf16, s);
+    return rows ? launch_wgmma<128, true, TI, kSums>(a, batch, out_bf16, s)
+                : launch_wgmma<128, false, TI, kSums>(a, batch, out_bf16, s);
   }
   if (a.width <= 64)
-    return rows ? launch_block<64, true, TI>(a, batch, out_bf16, s)
-                : launch_block<64, false, TI>(a, batch, out_bf16, s);
-  return rows ? launch_block<128, true, TI>(a, batch, out_bf16, s)
-              : launch_block<128, false, TI>(a, batch, out_bf16, s);
+    return rows ? launch_block<64, true, TI, kSums>(a, batch, out_bf16, s)
+                : launch_block<64, false, TI, kSums>(a, batch, out_bf16, s);
+  return rows ? launch_block<128, true, TI, kSums>(a, batch, out_bf16, s)
+              : launch_block<128, false, TI, kSums>(a, batch, out_bf16, s);
 }
 
 template <typename K>
@@ -1315,11 +1383,11 @@ int occupancy(K kernel, int threads, int smem) {
 template <int kWMax, bool kRows>
 int blocks_per_sm(bool c_bf16, int smem) {
   if (c_bf16) {
-    const auto kernel = hopper::bottleneck_block_wgmma_kernel<kWMax, kRows, float, float>;
+    const auto kernel = hopper::bottleneck_block_wgmma_kernel<kWMax, kRows, float, float, false>;
     return allow_smem(kernel, smem) == cudaSuccess ? occupancy(kernel, hopper::kThreadsW, smem)
                                                    : 0;
   }
-  const auto kernel = bottleneck_block_kernel<kWMax, kRows, float, float, float>;
+  const auto kernel = bottleneck_block_kernel<kWMax, kRows, float, float, float, false, false>;
   if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem) !=
       cudaSuccess)
     return 0;
@@ -1368,47 +1436,45 @@ int bottleneck_blocks_per_sm(int th, int tw, int width, int c_bf16, int rows) {
 // arguments may be null.  In bf16, width and Cout must be multiples of 8
 // and the weights 16-byte aligned (the tensor maps' rows).
 // Tiles of th x tw pixels (bottleneck_smem_bytes must take them); for an
-// SE block, pre and idn are f32 [B, Cout, H, W] scratch, partial is [B,
-// tiles, Cout] with tiles = ceil(h / th) * ceil(w / tw), and gate [B, Cout].
+// SE block, partial is f32 [B, tiles, width] scratch with tiles = ceil(h /
+// th) * ceil(w / tw), and gate f32 [B, Cout]: the sums pass, se_gate_kernel
+// and the full pass run in that order on `stream`.
 // Returns cudaGetLastError() of the launches (0 on success).
-int bottleneck_block_forward(const void* x, void* out, float* pre, float* idn, float* partial,
-                             float* gate, const void* w1, const float* b1, const void* w2,
-                             const float* b2, const void* w3, const float* b3, const void* wd,
-                             const float* bd, const void* sf1, const float* sb1,
-                             const void* sf2, const float* sb2, int batch, int cin, int width,
-                             int cout, int se_hidden, int h, int w, int th, int tw, int x_bf16,
-                             int c_bf16, int out_bf16, void* stream_) {
+int bottleneck_block_forward(const void* x, void* out, float* partial, float* gate,
+                             const void* w1, const float* b1, const void* w2, const float* b2,
+                             const void* w3, const float* b3, const void* wd, const float* bd,
+                             const void* sf1, const float* sb1, const void* sf2,
+                             const float* sb2, int batch, int cin, int width, int cout,
+                             int se_hidden, int h, int w, int th, int tw, int x_bf16, int c_bf16,
+                             int out_bf16, void* stream_) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
   if (bottleneck_smem_bytes(th, tw, width, c_bf16) == 0 || th > h || tw > w)
     return (int)cudaErrorInvalidValue;
-  const bool se = sf1 != nullptr;
   const int tiles_w = (w + tw - 1) / tw;
-  BlockArgs a{x,  out, pre, idn,  partial, w1, b1, w2, b2, w3, b3, wd, bd, cin, width, cout,
-              h,  w,   th,  tw,   tiles_w, ((h + th - 1) / th) * tiles_w, se ? 1 : 0};
-  cudaError_t err = x_bf16 ? launch_width<__nv_bfloat16>(a, batch, c_bf16, out_bf16, stream)
-                           : launch_width<float>(a, batch, c_bf16, out_bf16, stream);
-  if (err != cudaSuccess || !se) return (int)err;
-
-  const size_t gate_smem = sizeof(float) * (cout + se_hidden);
-  if (c_bf16)
-    se_gate_kernel<__nv_bfloat16><<<batch, 256, gate_smem, stream>>>(
-        partial, a.tiles, cout, se_hidden, h * w, sf1, sb1, sf2, sb2, gate);
-  else
-    se_gate_kernel<float><<<batch, 256, gate_smem, stream>>>(
-        partial, a.tiles, cout, se_hidden, h * w, sf1, sb1, sf2, sb2, gate);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-
-  const size_t total = (size_t)batch * cout * h * w;
-  const int grid = (int)((total + 255) / 256 < 65535 * 8 ? (total + 255) / 256 : 65535 * 8);
-  // gate is indexed by (b * cout + n) == element index / (h * w)
-  if (out_bf16)
-    se_apply_kernel<__nv_bfloat16><<<grid, 256, 0, stream>>>(
-        pre, idn, gate, static_cast<__nv_bfloat16*>(out), total, h * w);
-  else
-    se_apply_kernel<float><<<grid, 256, 0, stream>>>(pre, idn, gate, static_cast<float*>(out),
-                                                     total, h * w);
-  return (int)cudaGetLastError();
+  BlockArgs a{x,  out, partial, nullptr, w1, b1, w2, b2, w3, b3, wd, bd, cin, width, cout,
+              h,  w,   th,      tw,      tiles_w, ((h + th - 1) / th) * tiles_w};
+  cudaError_t err;
+  if (sf1 != nullptr) {
+    err = x_bf16 ? launch_width<__nv_bfloat16, true>(a, batch, c_bf16, false, stream)
+                 : launch_width<float, true>(a, batch, c_bf16, false, stream);
+    if (err != cudaSuccess) return (int)err;
+    // within the 48 KB a launch may take without asking (6.6 KB at width 128)
+    const size_t gate_smem =
+        sizeof(float) * (width + cout + se_hidden + cmax(kGateThreads, cmax(cout, se_hidden)));
+    if (gate_smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+    if (c_bf16)
+      se_gate_kernel<__nv_bfloat16><<<batch, kGateThreads, gate_smem, stream>>>(
+          partial, a.tiles, width, cout, se_hidden, h * w, w3, b3, sf1, sb1, sf2, sb2, gate);
+    else
+      se_gate_kernel<float><<<batch, kGateThreads, gate_smem, stream>>>(
+          partial, a.tiles, width, cout, se_hidden, h * w, w3, b3, sf1, sb1, sf2, sb2, gate);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    a.gate = gate;
+  }
+  err = x_bf16 ? launch_width<__nv_bfloat16, false>(a, batch, c_bf16, out_bf16, stream)
+               : launch_width<float, false>(a, batch, c_bf16, out_bf16, stream);
+  return (int)err;
 }
 
 #ifdef K2_PHASE_TIMERS

@@ -3,16 +3,20 @@
 Port of simple_pose_tpu/ops/pallas_bottleneck.py.  At eval time BatchNorm is
 a per-channel affine, so a chain of Bottleneck blocks folds into pure
 (matmul, bias, relu) ops.  On a CUDA tensor :func:`bottleneck_chain` runs the
-hand-written Hopper kernel ``csrc/bottleneck_chain.cu`` (one launch per
-block, two more for an SE gate; a bf16 ``compute_dtype`` runs the products
-on ``wgmma`` with the weights streamed by TMA, 64 channels wide at
-Bottleneck widths up to 64 and 128 at widths 65-128, f32 on CUDA cores); on
-a CPU tensor it runs
-:func:`bottleneck_chain_reference`, the plain PyTorch version of the same
-math.  There is no fallback: a CUDA tensor reaches the kernel or raises.
-The call goes through a registered op (``simple_pose::bottleneck_chain``)
-with a fake implementation, so ``torch.export`` traces an evaluator with
-the fused layer1 and the loaded program launches the same kernel.
+hand-written Hopper kernel ``csrc/bottleneck_chain.cu`` (a bf16
+``compute_dtype`` runs the products on ``wgmma`` with the weights streamed
+by TMA, 64 channels wide at Bottleneck widths up to 64 and 128 at widths
+65-128, f32 on CUDA cores).  A block without SE is one launch.  An SE block
+is three: the block kernel's sums pass (m2's per-tile channel sums), the
+gate (their mean through conv3, the fcs and the sigmoid:
+:func:`se_gate_from_sums_reference` is its plain twin), then the block
+kernel's full pass, which applies the gate in its epilogue.  On a CPU
+tensor it runs :func:`bottleneck_chain_reference`, the plain PyTorch
+version of the same math.  There is no fallback: a CUDA tensor reaches the
+kernel or raises.  The call goes through a registered op
+(``simple_pose::bottleneck_chain``) with a fake implementation, so
+``torch.export`` traces an evaluator with the fused layer1 and the loaded
+program launches the same kernel.
 
 Replaces ``_chain_kernel`` (pallas_bottleneck.py:88, math in ``_block_math``
 :48-85).  What bounds it on the card, and what the design does about it, is
@@ -36,6 +40,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import re
 from typing import List, NamedTuple, Optional, Sequence
 
 import torch
@@ -44,7 +49,8 @@ import torch.nn.functional as F
 from simple_pose_torch.utils.cuda_build import counts_launches, load_library
 
 __all__ = ["fold_conv_bn", "fold_bottleneck_blocks", "bottleneck_chain_reference",
-           "bottleneck_chain", "prepare_blocks", "launch_plan", "LaunchPlan"]
+           "bottleneck_chain", "prepare_blocks", "launch_plan", "LaunchPlan",
+           "se_gate_from_sums_reference", "k2_launch_kind"]
 
 _MATRIX_KEYS = ("w1", "w2", "w3", "wd", "sf1", "sf2")
 
@@ -112,26 +118,56 @@ def _mm(y, w, cd):
     return torch.einsum("bchw,cn->bnhw", _rnd(y, cd), _rnd(w, cd))
 
 
-def _block_reference(y, blk, cd):
+def _m2_reference(y, blk, cd):
+    """m2 = relu(3x3(relu(y . w1 + b1)) + b2), f32, before conv3 rounds it."""
     h, w = y.shape[-2:]
-    if blk.get("wd") is not None:
-        identity = _mm(y, blk["wd"], cd) + blk["bd"].float()[:, None, None]
-    else:
-        identity = y.float()
     m = torch.relu(_mm(y, blk["w1"], cd) + blk["b1"].float()[:, None, None])
     p = F.pad(_rnd(m, cd), (1, 1, 1, 1))  # zero pad after the relu
     acc = torch.zeros_like(m)
     for dy in range(3):
         for dx in range(3):
             acc = acc + _mm(p[:, :, dy:dy + h, dx:dx + w], blk["w2"][dy, dx], cd)
-    m2 = torch.relu(acc + blk["b2"].float()[:, None, None])
-    out = _mm(m2, blk["w3"], cd) + blk["b3"].float()[:, None, None]
+    return torch.relu(acc + blk["b2"].float()[:, None, None])
+
+
+def _se_logits(v, blk, cd):
+    """The SE gate before its sigmoid, from v = mean_hw(o) [B, Cout] f32."""
+    g = torch.relu(_rnd(v, cd) @ _rnd(blk["sf1"], cd) + blk["sb1"].float())
+    return _rnd(g, cd) @ _rnd(blk["sf2"], cd) + blk["sb2"].float()
+
+
+def _block_reference(y, blk, cd):
+    if blk.get("wd") is not None:
+        identity = _mm(y, blk["wd"], cd) + blk["bd"].float()[:, None, None]
+    else:
+        identity = y.float()
+    out = _mm(_m2_reference(y, blk, cd), blk["w3"], cd) + blk["b3"].float()[:, None, None]
     if blk.get("sf1") is not None:
         v = out.mean(dim=(2, 3))  # [B, C] f32
-        g = torch.relu(_rnd(v, cd) @ _rnd(blk["sf1"], cd) + blk["sb1"].float())
-        g = torch.sigmoid(_rnd(g, cd) @ _rnd(blk["sf2"], cd) + blk["sb2"].float())
-        out = out * g[:, :, None, None]
+        out = out * torch.sigmoid(_se_logits(v, blk, cd))[:, :, None, None]
     return torch.relu(out + identity)
+
+
+def se_mean_from_sums_reference(partial, hw: int, blk: dict, compute_dtype):
+    """v = mean_hw(o) [B, Cout] f32 from the sums pass's per-tile channel
+    sums of m2 (``partial`` [B, tiles, width] f32, m2 rounded to the compute
+    dtype as conv3 reads it): conv3 is linear, so mean_hw(o) = (sum of the
+    tile sums / hw) . w3 + b3, the mean itself unrounded.  Channels past
+    w3's rows (the bf16 kernel's zero padding of the width, whose m2 is 0)
+    are dropped."""
+    mean = partial.float().sum(dim=1) / hw
+    width = blk["w3"].shape[0]
+    return mean[:, :width] @ _rnd(blk["w3"], compute_dtype) + blk["b3"].float()
+
+
+def se_gate_from_sums_reference(partial, hw: int, blk: dict, compute_dtype=torch.float32):
+    """The plain twin of the kernel's ``se_gate_kernel``: the SE gate [B,
+    Cout] f32 of block ``blk`` from the sums pass's ``partial`` [B, tiles,
+    width] over a map of ``hw`` pixels.  Tests hold the kernel's gate and
+    the plain chain's against it; no path on the card runs it."""
+    with torch.autocast(device_type=partial.device.type, enabled=False):
+        v = se_mean_from_sums_reference(partial, hw, blk, compute_dtype)
+        return torch.sigmoid(_se_logits(v, blk, compute_dtype))
 
 
 def bottleneck_chain_reference(x, blocks: Sequence[dict], compute_dtype=torch.float32):
@@ -192,10 +228,10 @@ def _smem_bytes(th: int, tw: int, wmax: int, bf16: bool) -> int:
     if bf16:
         # the wgmma kernel with products wmax channels wide: 1 KB of
         # alignment, the ring of [K][wmax] weight chunks, the x tile (192
-        # pixels of 72 channels), the SE sums of 12 warps, 6 slots of biases,
-        # the mbarriers, then m1 at wmax + 8 channels a pixel
+        # pixels of 72 channels), the SE sums of 12 warps, 8 slots of biases
+        # and SE gates, the mbarriers, then m1 at wmax + 8 channels a pixel
         ring = _WGMMA_STAGES[wmax] * wmax * wmax * 2
-        return 1024 + ring + WGMMA_BAND * 72 * 2 + 18 * wmax * 4 + 64 + 2 * (wmax + 8) * store
+        return 1024 + ring + WGMMA_BAND * 72 * 2 + 20 * wmax * 4 + 64 + 2 * (wmax + 8) * store
     kc, halo_round, k_chunk = 16, 32 * (9 if wmax == 64 else 3), 64 if wmax == 64 else 32
     work = max(kc * halo_round + kc * wmax, k_chunk * wmax, k_chunk * wmax + kc * band + kc * wmax)
     return 4 * (wmax * store + work)
@@ -253,7 +289,7 @@ def _lib():
     """The kernel's library (built on first use), with its C signatures."""
     lib = load_library(_KERNEL)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.bottleneck_block_forward.argtypes = [p] * 18 + [i] * 12 + [p]
+    lib.bottleneck_block_forward.argtypes = [p] * 16 + [i] * 12 + [p]
     lib.bottleneck_block_forward.restype = i
     lib.bottleneck_smem_bytes.argtypes = [i] * 4
     lib.bottleneck_smem_bytes.restype = i
@@ -306,50 +342,55 @@ def _tma_weights(blk: dict) -> dict:
     return {k: v if v.data_ptr() % 16 == 0 else v.clone() for k, v in blk.items()}
 
 
+def _launch_block(lib, y, blk, compute_dtype, out_dtype, stream, index=0):
+    """One folded block on the card: its launches (an SE block's sums pass,
+    gate and full pass) on ``stream``.  ``blk`` is prepared and checked.
+    Returns (out, partial, gate): the sums pass's per-tile channel sums of
+    m2 [B, tiles, width] and the gate [B, Cout] (None without SE)."""
+    bsz, cin, h, w = y.shape
+    bf16 = compute_dtype == torch.bfloat16
+    if bf16:
+        blk = _tma_weights(blk)
+    width, cout = blk["w1"].shape[1], blk["w3"].shape[1]
+    plan = launch_plan(h, w, width, bf16)
+    smem = lib.bottleneck_smem_bytes(plan.th, plan.tw, width, int(bf16))
+    if smem != plan.smem_bytes:
+        raise RuntimeError(f"launch plan {plan} disagrees with the kernel's limits "
+                           f"(bottleneck_smem_bytes: {smem})")
+    out = torch.empty((bsz, cout, h, w), device=y.device, dtype=out_dtype)
+    partial = gate = None
+    hidden = 0
+    if "sf1" in blk:
+        hidden = blk["sf1"].shape[1]
+        partial = torch.empty((bsz, plan.tiles, width), device=y.device, dtype=torch.float32)
+        gate = torch.empty((bsz, cout), device=y.device, dtype=torch.float32)
+    rc = lib.bottleneck_block_forward(
+        _ptr(y), _ptr(out), _ptr(partial), _ptr(gate),
+        _ptr(blk["w1"]), _ptr(blk["b1"]), _ptr(blk["w2"]), _ptr(blk["b2"]),
+        _ptr(blk["w3"]), _ptr(blk["b3"]), _ptr(blk.get("wd")), _ptr(blk.get("bd")),
+        _ptr(blk.get("sf1")), _ptr(blk.get("sb1")), _ptr(blk.get("sf2")), _ptr(blk.get("sb2")),
+        bsz, cin, width, cout, hidden, h, w, plan.th, plan.tw,
+        int(y.dtype == torch.bfloat16), int(bf16), int(out_dtype == torch.bfloat16), stream)
+    if rc != 0:
+        raise RuntimeError(f"bottleneck_block_forward (block {index}) failed: cudaError {rc}")
+    return out, partial, gate
+
+
 def _bottleneck_chain_cuda(x, blocks, compute_dtype):
     if x.dtype not in _SUPPORTED or compute_dtype not in _SUPPORTED:
         raise ValueError(f"x {x.dtype} / compute {compute_dtype}: kernel takes f32 or bf16")
     if x.dim() != 4 or not x.is_contiguous() or not 0 < x.shape[0] <= 65535:
         raise ValueError("x must be a contiguous NCHW tensor with 1..65535 samples")
     lib = _lib()
-    bsz, cin, h, w = x.shape
-    bf16 = compute_dtype == torch.bfloat16
+    cin = x.shape[1]
     blocks = prepare_blocks(blocks, compute_dtype)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     y = x
     for i, blk in enumerate(blocks):
-        width, cout = _check_block(blk, cin, compute_dtype, x.device)
-        if bf16:
-            blk = _tma_weights(blk)
-            width = blk["w1"].shape[1]
-        plan = launch_plan(h, w, width, bf16)
-        smem = lib.bottleneck_smem_bytes(plan.th, plan.tw, width, int(bf16))
-        if smem != plan.smem_bytes:
-            raise RuntimeError(f"launch plan {plan} disagrees with the kernel's limits "
-                               f"(bottleneck_smem_bytes: {smem})")
-        last = i == len(blocks) - 1
-        out = torch.empty((bsz, cout, h, w), device=x.device,
-                          dtype=x.dtype if last else torch.float32)
-        pre = idn = partial = gate = None
-        hidden = 0
-        if "sf1" in blk:
-            hidden = blk["sf1"].shape[1]
-            pre = torch.empty((bsz, cout, h, w), device=x.device, dtype=torch.float32)
-            idn = torch.empty_like(pre)
-            partial = torch.empty((bsz, plan.tiles, cout), device=x.device, dtype=torch.float32)
-            gate = torch.empty((bsz, cout), device=x.device, dtype=torch.float32)
-        rc = lib.bottleneck_block_forward(
-            _ptr(y), _ptr(out), _ptr(pre), _ptr(idn), _ptr(partial), _ptr(gate),
-            _ptr(blk["w1"]), _ptr(blk["b1"]), _ptr(blk["w2"]), _ptr(blk["b2"]),
-            _ptr(blk["w3"]), _ptr(blk["b3"]), _ptr(blk.get("wd")), _ptr(blk.get("bd")),
-            _ptr(blk.get("sf1")), _ptr(blk.get("sb1")), _ptr(blk.get("sf2")),
-            _ptr(blk.get("sb2")),
-            bsz, cin, width, cout, hidden, h, w, plan.th, plan.tw,
-            int(y.dtype == torch.bfloat16), int(bf16), int(out.dtype == torch.bfloat16), stream)
-        if rc != 0:
-            raise RuntimeError(f"bottleneck_block_forward (block {i}) failed: "
-                               f"cudaError {rc}")
-        y, cin = out, cout
+        _, cout = _check_block(blk, cin, compute_dtype, x.device)
+        out_dtype = x.dtype if i == len(blocks) - 1 else torch.float32
+        y = _launch_block(lib, y, blk, compute_dtype, out_dtype, stream, i)[0]
+        cin = cout
     return y
 
 
@@ -389,6 +430,30 @@ def _chain_op(x: torch.Tensor, params: List[Optional[torch.Tensor]],
 def _chain_op_fake(x, params, bf16):
     cout = _unflatten_blocks(params)[-1]["w3"].shape[1]
     return x.new_empty((x.shape[0], cout, x.shape[2], x.shape[3]))
+
+
+def _kernel_flags(name: str) -> list:
+    """The bool template arguments of a block kernel's name as a profiler
+    trace gives it, demangled (``<64, true, __nv_bfloat16, float, false>``)
+    or mangled (``...ILi64ELb1E13__nv_bfloat16fLb0EEEv...``)."""
+    m = re.search(r"bottleneck_block\w*<([^<>]*)>", name)
+    if m:
+        return [a.strip() == "true" for a in m.group(1).split(",")
+                if a.strip() in ("true", "false")]
+    return [f == "1" for f in re.findall(r"Lb([01])E", name)]
+
+
+def k2_launch_kind(name: str) -> Optional[str]:
+    """Which of K2's launches a kernel name from a profiler trace is:
+    "block" (a block kernel's full pass), "sums" (an SE block's sums pass:
+    the same kernels with their last template flag, kSums, set), "se_gate",
+    or None for another kernel."""
+    if "se_gate_kernel" in name:
+        return "se_gate"
+    if "bottleneck_block" not in name:
+        return None
+    flags = _kernel_flags(name)
+    return "sums" if flags and flags[-1] else "block"
 
 
 @counts_launches

@@ -13,11 +13,18 @@ from simple_pose_torch.ops.bottleneck_chain import (
     SMEM_LIMIT,
     WGMMA_BAND,
     WGMMA_STORE,
+    _m2_reference,
+    _mm,
+    _rnd,
+    _se_logits,
     _tma_weights,
     bottleneck_chain,
     bottleneck_chain_reference,
     fold_bottleneck_blocks,
+    k2_launch_kind,
     launch_plan,
+    se_gate_from_sums_reference,
+    se_mean_from_sums_reference,
 )
 
 torch.set_num_threads(1)
@@ -170,6 +177,108 @@ def test_reference_matches_pallas_wide(dtype, case):
     else:
         assert err.max() < BF16_MAX_REL * scale and err.mean() < BF16_MEAN_REL * scale, (
             err.max(), err.mean(), scale)
+
+
+def _se_chain_np(rng, se_blocks, n_blocks=3, cin=16, width=8, cout=32):
+    """A projection block then identity blocks, SE (hidden 8) on the blocks
+    in ``se_blocks``; weights fan-in scaled."""
+    blocks = [_rand_block(rng, cin if i == 0 else cout, width, cout, i == 0, i in se_blocks,
+                          hidden=8) for i in range(n_blocks)]
+    return _fan_in_scaled(blocks)
+
+
+# SE on every block (consecutive SE blocks), or on the last block only
+_SE_LAYOUTS = {"every": (0, 1, 2), "last": (2,)}
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("layout", sorted(_SE_LAYOUTS))
+def test_reference_matches_pallas_se_layouts(dtype, layout):
+    """The plain chain against the JAX kernel with SE on every block and
+    with SE in the last block only (tolerances as above)."""
+    rng = np.random.default_rng(70)
+    blocks = _se_chain_np(rng, _SE_LAYOUTS[layout])
+    x = rng.normal(0, 1, (2, 12, 10, 16)).astype(np.float32)
+    want = _pallas(x, blocks, dtype)
+    cd = {"f32": torch.float32, "bf16": torch.bfloat16}[dtype]
+    got = bottleneck_chain(_nchw(x), _torch_blocks(blocks), compute_dtype=cd)
+    err = np.abs(got.permute(0, 2, 3, 1).numpy() - want)
+    scale = np.abs(want).max()
+    if dtype == "f32":
+        assert err.max() < 1e-5 * scale, (err.max(), scale)
+    else:
+        assert err.max() < BF16_MAX_REL * scale and err.mean() < BF16_MEAN_REL * scale, (
+            err.max(), err.mean(), scale)
+
+
+def _tile_sums(m2, plan, cd):
+    """What the kernel's SE sums pass writes: per tile of ``plan`` (in the
+    kernel's tile order), the channel sums of m2 rounded to the compute
+    dtype, [B, tiles, width] f32."""
+    m2 = _rnd(m2, cd)
+    return torch.stack([m2[:, :, ty * plan.th:(ty + 1) * plan.th,
+                           tx * plan.tw:(tx + 1) * plan.tw].sum(dim=(2, 3))
+                        for ty in range(plan.tiles_h) for tx in range(plan.tiles_w)], dim=1)
+
+
+def _bf16_ulp(v):
+    """One bf16 ulp at |v| (8 significant bits)."""
+    return torch.exp2(torch.floor(torch.log2(v.abs().clamp_min(1e-30))) - 7)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("hw", [(24, 12), (3, 97)], ids=["rows", "tiles2d"])
+def test_se_gate_from_sums_matches_the_chain(dtype, hw):
+    """The SE gate from the sums pass's per-tile m2 sums (the kernel's route:
+    mean of m2, then w3 and b3) against the plain chain's gate from the mean
+    of o over the same m2, on bands of whole rows and on 2-D tiles: v =
+    mean_hw(o) within 1e-6 of max|v| in f32 and within one bf16 ulp in
+    bf16 (only the order of f32 sums differs); the pre-sigmoid gate within
+    1e-6 of its max in f32, and in bf16 within 1e-2 (a v rounded one ulp
+    apart moves it through the two fcs)."""
+    rng = np.random.default_rng(71)
+    blk = _torch_blocks(_se_chain_np(rng, (0,), n_blocks=1))[0]
+    h, w = hw
+    x = _nchw(rng.normal(0, 1, (3, h, w, 16)).astype(np.float32))
+    cd = {"f32": torch.float32, "bf16": torch.bfloat16}[dtype]
+    m2 = _m2_reference(x, blk, cd)
+    plan = launch_plan(h, w, blk["w1"].shape[1], cd == torch.bfloat16)
+    assert plan.tiles > 1
+    partial = _tile_sums(m2, plan, cd)
+    v_plain = (_mm(m2, blk["w3"], cd) + blk["b3"][:, None, None]).mean(dim=(2, 3))
+    v_sums = se_mean_from_sums_reference(partial, h * w, blk, cd)
+    logits_plain, logits_sums = _se_logits(v_plain, blk, cd), _se_logits(v_sums, blk, cd)
+    gate = se_gate_from_sums_reference(partial, h * w, blk, cd)
+    assert gate.shape == (3, 32) and gate.dtype == torch.float32
+    assert torch.equal(gate, torch.sigmoid(logits_sums))
+    logit_err = (logits_sums - logits_plain).abs().max().item()
+    logit_scale = logits_plain.abs().max().item()
+    if dtype == "f32":
+        assert (v_sums - v_plain).abs().max().item() < 1e-6 * v_plain.abs().max().item()
+        assert logit_err < 1e-6 * logit_scale, (logit_err, logit_scale)
+    else:
+        assert ((v_sums - v_plain).abs() <= _bf16_ulp(v_plain)).all()
+        assert logit_err < 1e-2 * logit_scale, (logit_err, logit_scale)
+
+
+def test_k2_launch_kind_reads_profiler_names():
+    """The kernel names a profiler trace gives K2's launches, demangled and
+    mangled: the sums pass is the block kernel with its last flag set."""
+    full = ("void (anonymous namespace)::hopper::bottleneck_block_wgmma_kernel<64, true, "
+            "__nv_bfloat16, float, false>((anonymous namespace)::BlockArgs, CUtensorMap_st)")
+    assert k2_launch_kind(full) == "block"
+    assert k2_launch_kind(full.replace("float, false>", "float, true>")) == "sums"
+    f32 = ("void (anonymous namespace)::bottleneck_block_kernel<128, false, float, float, float, "
+           "false, true>")
+    assert k2_launch_kind(f32) == "sums"
+    assert k2_launch_kind(f32.replace("false, true>", "true, false>")) == "block"
+    mangled = ("_ZN12_GLOBAL__N_16hopper29bottleneck_block_wgmma_kernelILi64ELb1E13__nv_bfloat16fLb"
+               "{}EEEv")
+    assert k2_launch_kind(mangled.format(0)) == "block"
+    assert k2_launch_kind(mangled.format(1)) == "sums"
+    assert k2_launch_kind("void (anonymous namespace)::se_gate_kernel<float>(...)") == "se_gate"
+    assert k2_launch_kind("se_apply_kernel") is None
+    assert k2_launch_kind("ampere_sgemm_128x64_nn") is None
 
 
 def _layer1_widths(name):
@@ -570,6 +679,102 @@ def test_wgmma_kernel_is_deterministic_cuda(cuda_device, width):
     torch.cuda.synchronize()
     assert torch.isfinite(first.float()).all()
     assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cd", ["f32", "bf16"])
+def test_se_route_launches_cuda(cuda_device, cd):
+    """One flagship-shape chain call (64 -> 64 -> 256, 3 blocks, SE and a
+    projection in block 0, batch 2 at 64x48) under torch.profiler: 3 block
+    kernels' full passes, 1 sums pass, 1 se_gate and no other kernel (no
+    se_apply pass); its output against the plain version as above."""
+    import collections
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from simple_pose_torch.ops.bottleneck_chain import prepare_blocks
+
+    rng = np.random.default_rng(80)
+    blocks = [_rand_block(rng, 64, 64, 256, True, True, hidden=16)]
+    blocks += [_rand_block(rng, 256, 64, 256, False, False) for _ in range(2)]
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16}[cd]
+    tb = prepare_blocks(_torch_blocks(_fan_in_scaled(blocks), cuda_device), dt)
+    x = _nchw(rng.normal(0, 1, (2, 64, 48, 64)).astype(np.float32), cuda_device, dt)
+    traced = []  # one warm-up step, then the call (a trace can lose its first launches)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=torch.profiler.schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: traced.extend(p.events())) as prof:
+        for _ in range(2):
+            got = bottleneck_chain(x, tb, dt)
+            torch.cuda.synchronize()
+            prof.step()
+    names = [e.name for e in traced if e.device_type == torch.autograd.DeviceType.CUDA
+             and not e.name.startswith("ProfilerStep")]  # the schedule's step annotation
+    kinds = collections.Counter(k2_launch_kind(n) for n in names)
+    assert kinds == {"block": 3, "sums": 1, "se_gate": 1}, names
+    assert not any("se_apply" in n for n in names)
+    want = bottleneck_chain_reference(x, tb, dt).float()
+    err = (got.float() - want).abs()
+    scale = want.abs().max().item()
+    if cd == "f32":
+        assert err.max().item() < 1e-4 * scale
+    else:
+        assert err.max().item() < BF16_MAX_REL * scale and err.mean().item() < BF16_MEAN_REL * scale
+
+
+# one SE block with a projection: (batch, h, w), cin, width, cout
+_SUMS_CASES = {
+    "w64": ((2, 64, 48), 64, 64, 256),
+    "w128": ((2, 64, 48), 64, 128, 256),
+    "tiles_64x97": ((1, 64, 97), 64, 64, 256),
+    "ragged_channels": ((2, 9, 20), 40, 20, 48),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cd", ["f32", "bf16"])
+@pytest.mark.parametrize("case", sorted(_SUMS_CASES))
+def test_sums_pass_matches_plain_sums_cuda(cuda_device, cd, case):
+    """An SE block's launches on the card: the sums pass's per-tile channel
+    sums of m2 against the plain m2's (f32 to 1e-4 of their max; bf16, where
+    a few m2 values round one ulp apart, to BF16_MAX_REL / BF16_MEAN_REL),
+    and zero past the width where the bf16 kernel pads it (20 to 24); the
+    gate against se_gate_from_sums_reference
+    on those same sums (f32 1e-5; bf16 5e-3, where a v rounded one ulp apart
+    moves it through the two fcs); the block's output against the plain
+    version."""
+    from simple_pose_torch.ops.bottleneck_chain import _launch_block, _lib, prepare_blocks
+
+    (batch, h, w), cin, width, cout = _SUMS_CASES[case]
+    rng = np.random.default_rng(81)
+    blk = _fan_in_scaled([_rand_block(rng, cin, width, cout, True, True, hidden=16)])
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16}[cd]
+    tb = prepare_blocks(_torch_blocks(blk, cuda_device), dt)[0]
+    x = _nchw(rng.normal(0, 1, (batch, h, w, cin)).astype(np.float32), cuda_device, dt)
+    stream = torch.cuda.current_stream(cuda_device).cuda_stream
+    out, partial, gate = _launch_block(_lib(), x, tb, dt, torch.float32, stream)
+    torch.cuda.synchronize()
+    plan = launch_plan(h, w, partial.shape[2], dt == torch.bfloat16)
+    assert partial.shape == (batch, plan.tiles, -(-width // 8) * 8 if cd == "bf16" else width)
+    assert not partial[..., width:].any()
+    want = _tile_sums(_m2_reference(x, tb, dt), plan, dt)
+    err = (partial[..., :width] - want).abs()
+    scale = want.abs().max().item()
+    if cd == "f32":
+        assert err.max().item() < 1e-4 * scale, (err.max().item(), scale)
+    else:
+        assert err.max().item() < BF16_MAX_REL * scale, (err.max().item(), scale)
+        assert err.mean().item() < BF16_MEAN_REL * scale, (err.mean().item(), scale)
+    gate_err = (gate - se_gate_from_sums_reference(partial, h * w, tb, dt)).abs().max().item()
+    assert gate_err < (1e-5 if cd == "f32" else 5e-3), gate_err
+    want_out = bottleneck_chain_reference(x.float(), [tb], dt)  # f32 out, as the block's
+    out_err = (out - want_out).abs()
+    out_scale = want_out.abs().max().item()
+    if cd == "f32":
+        assert out_err.max().item() < 1e-4 * out_scale
+    else:
+        assert out_err.max().item() < BF16_MAX_REL * out_scale
+        assert out_err.mean().item() < BF16_MEAN_REL * out_scale
 
 
 def test_ablation_anchors_match_the_kernel_source():
