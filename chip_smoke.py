@@ -19,11 +19,12 @@ raises, and the script exits non-zero without a result line):
      bands of 4 whole rows),
      in bf16 and f32, then timed beside the plain version and the library
      call (the unfused cuDNN layer1 of the port's own model) at batch 32 and
-     128; bf16 runs the wgmma kernel's instance whose products are 64
-     channels wide (the kernels' line names it, the tile and the blocks per
-     SM), f32 the CUDA-core kernel.  The built library holds se_gate_kernel
-     and no se_apply kernel (the full pass applies the gate in its
-     epilogue).  3b: in a fresh process, every K2 chain this script times
+     128; both run the wgmma kernel's instances whose products are 64
+     channels wide, bf16 and f32 (3xTF32: three TF32 products per
+     product; the kernels' line names them, the tiles and the blocks per
+     SM).  The built library holds se_gate_kernel and no se_apply kernel
+     (the full pass applies the gate in its epilogue), and no CUDA-core
+     block kernel.  3b: in a fresh process, every K2 chain this script times
      (phases 3, 9a, 14a, 14b) split from torch.profiler traces (k2_split)
      at its largest batch, bf16 and f32: launches and device ms per call of
      the block kernels' full passes, the SE sums passes and se_gate_kernel,
@@ -227,10 +228,10 @@ raises, and the script exits non-zero without a result line):
         256 channels, 3 blocks, SE and a projection in block 0) against its
         plain version as in phase 3, bf16 and f32 at batch 32, timed at
         batch 32 and 128 beside the plain version and its cuDNN layer1;
-        bf16 runs the wgmma kernel's instance whose products are 128
-        channels wide (bands of 4 whole rows, one block of threads per SM),
-        f32 the CUDA-core kernel; the kernels' line names both, the tile and
-        the blocks per SM; its per-call split in phase 3b;
+        both run the wgmma kernel's instances whose products are 128
+        channels wide (bf16: bands of 4 whole rows; f32, 3xTF32: 8 x 16
+        tiles; one block of threads per SM); the kernels' line names both,
+        the tiles and the blocks per SM; its per-call split in phase 3b;
      b. K2 at ResNet-50+SE's layer1 on 64x97 and 64x128 maps (2-D tiles)
         against its plain version, bf16 and f32, at batch 8, timed there;
      c. phase 4's checks and rates for wide_resnet50_2 (256x192, bf16,
@@ -294,6 +295,7 @@ from simple_pose_torch.models.registry import build_from_cfg
 from simple_pose_torch.models.resnet import build_resnet
 from simple_pose_torch.ops import affine as A
 from simple_pose_torch.ops.bottleneck_chain import (
+    FOLDED_KEYS,
     _lib,
     bottleneck_chain,
     bottleneck_chain_reference,
@@ -326,6 +328,9 @@ from simple_pose_torch.utils.cuda_build import build_library
 # H100 SXM data-sheet peaks (dense): bf16 tensor cores, HBM3 bandwidth
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
+# TF32 tensor cores (dense): K2's f32 products run as three TF32 products
+# each (3xTF32), so the least time of its f32 work is 3 flops / this
+PEAK_TF32_FLOPS = PEAK_BF16_FLOPS / 2
 PEAK_BYTES = 3.35e12
 
 # kernel vs plain, relative to max|plain|.  f32: sum order only.  bf16: a
@@ -508,10 +513,10 @@ def card_line() -> str:
 # ---------------------------------------------------------------------------
 
 
-def seeded_layer1(model):
+def seeded_layer1(model, seed=0):
     """``model``'s layer1 modules with seeded non-trivial BN statistics and
-    affines (numpy RNG), on the card, in eval mode."""
-    rng = np.random.default_rng(0)
+    affines (numpy RNG, ``seed``), on the card, in eval mode."""
+    rng = np.random.default_rng(seed)
     with torch.no_grad():
         for m in model.layer1.modules():
             if isinstance(m, torch.nn.BatchNorm2d):
@@ -528,6 +533,9 @@ def chain_work(blocks, batch, h, w, act_bytes):
     each output written once."""
     flops, wbytes = 0, 0
     cin0, cout = blocks[0]["w1"].shape[0], blocks[-1]["w3"].shape[1]
+    # the folded tensors only: prepare_blocks' f32 packs are the kernel's
+    # copies of them
+    blocks = [{k: v for k, v in blk.items() if k in FOLDED_KEYS} for blk in blocks]
     for blk in blocks:
         cin, width = blk["w1"].shape
         co = blk["w3"].shape[1]
@@ -644,14 +652,16 @@ def run_k2_splits():
 
 
 def check_route_kernels(lib_path):
-    """The SE route of the built K2 library, read from its kernels' names:
-    the sums pass's flag and se_gate_kernel, and no se_apply pass (the full
-    pass applies the gate), so none can run."""
+    """The route of the built K2 library, read from its kernels' names: the
+    sums pass's flag and se_gate_kernel, no se_apply pass (the full pass
+    applies the gate), and no CUDA-core block kernel (f32 runs the wgmma
+    kernel's float instances), so none can run."""
     with open(lib_path, "rb") as f:
         image = f.read()
     assert b"se_gate_kernel" in image and b"bottleneck_block_wgmma_kernel" in image, lib_path
     assert b"se_apply" not in image, f"{lib_path} holds an se_apply kernel"
-    return {"se_gate_kernel": True, "se_apply": False}
+    assert b"bottleneck_block_kernel" not in image, f"{lib_path} holds a CUDA-core block kernel"
+    return {"se_gate_kernel": True, "se_apply": False, "cuda_core_block_kernel": False}
 
 
 def errors(got, want):
@@ -694,7 +704,10 @@ def check_chain_kernel(layer1, label="layer1 chain", batches=(BATCH, THROUGHPUT_
             blocks = prepare_blocks(folded, dt)
             x = xb.to(dt)
             flops, nbytes = chain_work(blocks, batch, h, w, x.element_size())
-            peak = PEAK_BF16_FLOPS if dt == torch.bfloat16 else PEAK_F32_FLOPS
+            # the least time: bf16 products on its tensor cores; f32 as 3
+            # TF32 products each (below the CUDA cores' flops / 67e12,
+            # reported beside it)
+            peak = PEAK_BF16_FLOPS if dt == torch.bfloat16 else PEAK_TF32_FLOPS / 3
             bound_ms = max(flops / peak, nbytes / PEAK_BYTES) * 1e3
             amp = torch.autocast("cuda", dtype=torch.bfloat16, enabled=dt == torch.bfloat16)
 
@@ -710,6 +723,8 @@ def check_chain_kernel(layer1, label="layer1 chain", batches=(BATCH, THROUGHPUT_
                 "bound_by": "operations" if flops / peak > nbytes / PEAK_BYTES else "bytes",
                 "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
             }
+            if dt == torch.float32:
+                row["bound_cuda_core_ms"] = max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES) * 1e3
             timing[f"b{batch}_{name}"] = row
             log(f"{label} b{batch} {name}: " + json.dumps(row))
     return report, timing
@@ -806,10 +821,16 @@ def run_main_path(workdir, cfg=CFG, label="main path"):
     assert max_rel < FUSED_HEAT_TOL[0] and mean_rel < FUSED_HEAT_TOL[1]
     del unfused, hf, hu, h32
 
-    # f32 on the card (the kernel) vs the CPU plain path, 2 crops
+    # f32 on the card (the kernel's float instances) vs the CPU plain path,
+    # 2 crops; its K2 launches counted (one a forward, flip-test: two)
     small = {k: v[:2] for k, v in batches[0].items()}
     kw = dict(amp=False, fused_layer1=True, flip_test=True)
-    h_gpu = PoseEvaluator(cfg, None, INPUT_SHAPE, **kw).heatmaps(small).cpu()
+    ev32 = PoseEvaluator(cfg, None, INPUT_SHAPE, **kw)
+    zero_launch_counts()
+    h_gpu = ev32.heatmaps(small).cpu()
+    launches["bottleneck_chain_f32_serving"] = launch_counts()["bottleneck_chain"]
+    assert launches["bottleneck_chain_f32_serving"] == 2, launches
+    del ev32
     h_cpu = PoseEvaluator(cfg, None, INPUT_SHAPE, device="cpu", **kw).heatmaps(small)
     _, max_rel, _ = errors(h_gpu, h_cpu)
     log(f"{label} f32 card vs CPU heatmaps: max rel {max_rel:.3e} (< {F32_HEAT_REL})")
@@ -1686,7 +1707,8 @@ def run_other_families(card, data, data_dev):
                     "seconds": solver["epoch"]["seconds"],
                     "validate_seconds": solver["validate"]["seconds"]})
     log(f"phase 9d: {time.perf_counter() - t0:.1f} s")
-    return {fam: (*chains[fam], serving[fam]["bottleneck_chain"]) for fam in chains}
+    return {fam: (*chains[fam], serving[fam]["bottleneck_chain"],
+                  serving[fam]["bottleneck_chain_f32_serving"]) for fam in chains}
 
 
 # ---------------------------------------------------------------------------
@@ -3321,20 +3343,20 @@ def run_wide_layer1(card):
         t0 = time.perf_counter()
         summary.update(run_wide_entry_points(workdir))
         log("phase 14d-e: " + json.dumps(summary) + f" ({time.perf_counter() - t0:.1f} s)")
-    plan = launch_plan(64, 48, 128, True)
     rows["wide_resnet50_2 layer1"] = {
         "report": report, "timing": timing, "launches": launches["bottleneck_chain"],
         "main_path": "phase 14c: PoseEvaluator(wide_resnet50_2, fused_layer1, flip-test)",
         "extra": {"launches_eval_gt": summary["eval_gt"]["launches"]["bottleneck_chain"],
+                  "launches_f32_serving": launches["bottleneck_chain_f32_serving"],
                   "launches_loaded_artifact":
                       summary["serve_artifact"]["launches"]["bottleneck_chain"],
                   "width_128_kernels": {
-                      "bf16": "hopper::bottleneck_block_wgmma_kernel<128> (TMA ring of 3 x 32 "
-                              "KB weight chunks, wgmma m64n128k16)",
-                      "f32": "bottleneck_block_kernel<128> (CUDA cores)"},
-                  "bf16_tile": {"th": plan.th, "tw": plan.tw, "smem_bytes": plan.smem_bytes,
-                                "blocks_per_sm": _lib().bottleneck_blocks_per_sm(
-                                    plan.th, plan.tw, 128, 1, 1)}}}
+                      "bf16": "hopper::bottleneck_block_wgmma_kernel<128, __nv_bfloat16> (TMA "
+                              "ring of 3 x 32 KB weight chunks, wgmma m64n128k16)",
+                      "f32": "hopper::bottleneck_block_wgmma_kernel<128, float> (3xTF32: TMA "
+                             "ring of 3 x 32 KB hi/lo weight chunks, 3 x wgmma m64n128k8 .tf32 "
+                             "per k8 step, 2 consumer warpgroups)"},
+                  "bf16_tile": tile_info(128, True), "f32_tile": tile_info(128, False)}}
     torch.cuda.empty_cache()
     log(f"phase 14: {time.perf_counter() - t_phase:.1f} s")
     return rows, summary
@@ -3344,6 +3366,16 @@ def run_wide_layer1(card):
 SE_ROUTE = ("sums pass (the block kernel with kSums: m2's per-tile channel sums) -> "
             "se_gate_kernel (their mean through w3 and b3, the fcs, the sigmoid) -> full pass "
             "(relu(o * g + identity) in its epilogue); no se_apply pass")
+
+
+def tile_info(width, bf16, h=64, w=48):
+    """The tile, shared memory and blocks of threads per SM of K2's launch
+    at Bottleneck width ``width`` on an h x w map (the library's
+    occupancy)."""
+    plan = launch_plan(h, w, width, bf16)
+    return {"th": plan.th, "tw": plan.tw, "smem_bytes": plan.smem_bytes,
+            "blocks_per_sm": _lib().bottleneck_blocks_per_sm(plan.th, plan.tw, width, int(bf16),
+                                                             int(plan.tw == w))}
 
 
 def k2_row(name, launches, report, timing, splits):
@@ -3365,6 +3397,8 @@ def k2_row(name, launches, report, timing, splits):
         "bound_by": row["bound_by"],
         "library_ms": row["library_ms"],
         "errors": report,
+        "f32": {k: timing[f"b{batch}_f32"][k] for k in (
+            "kernel_ms", "plain_ms", "bound_ms", "bound_cuda_core_ms", "library_ms")},
         "se_route": SE_ROUTE if any(v["sums"]["launches"] for v in splits.values())
         else "no SE block",
         "split_per_call": splits,
@@ -3439,26 +3473,26 @@ def main() -> int:
     wide_rows, wide = run_wide_layer1(card)
     log("phase 14: " + json.dumps(wide))
 
-    plan = launch_plan(64, 48, 64, True)
     kernels = [{**k2_row("bottleneck_chain", launches["bottleneck_chain"], report, timing,
                          splits["resnet50"]),
                 "width_64_kernels": {
-                    "bf16": "hopper::bottleneck_block_wgmma_kernel<64> (TMA ring of 4 x 8 KB "
-                            "weight chunks, wgmma m64n64k16)",
-                    "f32": "bottleneck_block_kernel<64> (CUDA cores)"},
-                "bf16_tile": {"th": plan.th, "tw": plan.tw, "smem_bytes": plan.smem_bytes,
-                              "blocks_per_sm": _lib().bottleneck_blocks_per_sm(
-                                  plan.th, plan.tw, 64, 1, 1)},
+                    "bf16": "hopper::bottleneck_block_wgmma_kernel<64, __nv_bfloat16> (TMA ring "
+                            "of 4 x 8 KB weight chunks, wgmma m64n64k16)",
+                    "f32": "hopper::bottleneck_block_wgmma_kernel<64, float> (3xTF32: TMA ring "
+                           "of 4 x 16 KB hi/lo weight chunks, 3 x wgmma m64n64k8 .tf32 per k8 "
+                           "step)"},
+                "bf16_tile": tile_info(64, True), "f32_tile": tile_info(64, False),
+                "launches_f32_serving": launches["bottleneck_chain_f32_serving"],
                 "launches_detections": jpeg["launches"]["bottleneck_chain"],
                 "launches_e2e": e2e_launches,
                 "launches_w8a8_serving": quant_launches,
                 "launches_loaded_artifact": artifact_launches,
                 "launches_serve_artifact_out": serve_launches}]
-    for fam, (fam_report, fam_timing, fam_launches) in families.items():
+    for fam, (fam_report, fam_timing, fam_launches, fam_f32) in families.items():
         kernels.append({**k2_row(f"bottleneck_chain ({fam} layer1)", fam_launches, fam_report,
                                  fam_timing, splits[fam]),
                         "main_path": f"phase 9b: PoseEvaluator({fam}, fused_layer1, flip-test)",
-                        "timing": fam_timing})
+                        "launches_f32_serving": fam_f32, "timing": fam_timing})
     for name, r in wide_rows.items():
         kernels.append({**k2_row(f"bottleneck_chain ({name})", r["launches"], r["report"],
                                  r["timing"], splits[name.replace(" layer1", "")]),

@@ -66,7 +66,7 @@ __device__ __forceinline__ unsigned long long k2_now() {
   asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
   return t;
 }
-#define K2_TICK(k) do { consumers_sync(); if (threadIdx.x == 0) { \
+#define K2_TICK(k) do { consumers_sync<S>(); if (threadIdx.x == 0) { \
   const unsigned long long n_ = k2_now(); \
   atomicAdd(&g_k2_ns[kSums ? 2 : se][k], n_ - t_); t_ = n_; } } while (0)
 
@@ -79,25 +79,24 @@ extern "C" int k2_phase_ns(unsigned long long* out) {
   return (int)e;
 }
 """
-KERNEL_HEAD = ("template <int kN, bool kRows, typename TI, typename TO, bool kSums>\n"
-               "__global__ void __launch_bounds__(kThreadsW, 1)\n"
+KERNEL_HEAD = ("template <int kN, typename TC, bool kRows, typename TI, typename TO, bool kSums>\n"
+               "__global__ void __launch_bounds__(Shape<kN, TC>::kThreads, 1)\n"
                "    bottleneck_block_wgmma_kernel")
 TIMER_EDITS = [  # (anchor, text put after it), on the consumers' side
     ("  float acc[4 * kJ];\n", "  unsigned long long t_ = k2_now();\n"),
     ("      bias_s[i] = i % kN < width ? (i < kN ? a.b1 : a.b2)[i % kN] : 0.f;\n"
      "    K2_ADD(kTEpiA, t0);\n  }\n", "  K2_TICK(0);\n"),
-    ("    consumers_sync();  // m1 is complete\n    K2_ADD(kTSync, t0);\n  }\n",
+    ("    consumers_sync<S>();  // m1 is complete\n    K2_ADD(kTSync, t0);\n  }\n",
      "  K2_TICK(1);\n"),
     ("  __syncwarp();  // conv3 reads only this warp's own rows of m2\n"
      "  K2_ADD(kTEpiB, t_m2);\n", "  K2_TICK(3);\n"),
-    ("    consume(ring, acc, active, smem_u32(m2s + min(a_row, npix - 1) * kP + a_k), kN / 16,\n"
-     "            64 * kN * 2, k2c);\n", "    K2_TICK(5);\n"),
     ("    K2_ADD(kTSe, t_se);\n", "    K2_TICK(6);\n"),
     ("    K2_ADD(kTOut, t_out);\n", "    K2_TICK(8);\n"),
     ("    K2_ADD(kTSe, t_sums);\n", "    K2_TICK(9);\n"),
 ]
-TIMER_BEFORE = [("  K2_MARK(t_sync);\n  consumers_sync();  // every read of m1 is done",
+TIMER_BEFORE = [("  K2_MARK(t_sync);\n  consumers_sync<S>();  // every read of m1 is done",
                  "  K2_TICK(2);\n"),
+                ("    consumers_sync<S>();  // the pass's biases are in place", "    K2_TICK(5);\n"),
                 ("  for (int np = 0; np < passes; ++np) {\n    const int n0 = kN * np;",
                  "  K2_TICK(4);\n"),
                 ("    K2_MARK(t_out);\n", "    K2_TICK(7);\n")]

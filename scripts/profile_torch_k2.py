@@ -1,12 +1,15 @@
 """Where the fused layer1 kernel K2's time goes, on one CUDA card.
 
     python scripts/profile_torch_k2.py [--batch 128] [--calls 3] [--model wide_resnet50_2]
+                                       [--dtype f32]
     python scripts/profile_torch_k2.py --timers [--batch 128] [--model wide_resnet50_2]
 
 Builds csrc/bottleneck_chain.cu, counts the tensor-core instructions
-(``HMMA``: mma.sync, ``HGMMA``: wgmma) of each kernel in its SASS
+(``HMMA``: mma.sync, ``HGMMA``: wgmma, ``HGMMA_TF32``: those on TF32
+operands, the f32 instances' 3xTF32 products) of each kernel in its SASS
 (``cuobjdump -sass``), then traces
-``--calls`` bf16 calls of the chain at chip_smoke.py's layer1 shapes
+``--calls`` calls of the chain in ``--dtype`` (bf16 or f32) at
+chip_smoke.py's layer1 shapes
 (``--model``'s layer1 with SE: the flagship resnet50, width 64, or
 wide_resnet50_2, width 128; x [batch, 64, 64, 48], BN folded from seeded
 statistics) with chip_smoke.py's ``k2_split`` (a torch.profiler trace
@@ -53,6 +56,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from chip_smoke import (  # noqa: E402
     PEAK_BF16_FLOPS,
     PEAK_BYTES,
+    PEAK_TF32_FLOPS,
     card_line,
     chain_work,
     k2_split,
@@ -60,6 +64,7 @@ from chip_smoke import (  # noqa: E402
 )
 from simple_pose_torch.models.resnet import build_resnet  # noqa: E402
 from simple_pose_torch.ops.bottleneck_chain import (  # noqa: E402
+    FOLDED_KEYS,
     fold_bottleneck_blocks,
     launch_plan,
     prepare_blocks,
@@ -79,37 +84,41 @@ def hmma_counts(lib_path: str) -> dict:
         m = re.search(r"Function : (\S+)", line)
         if m:
             current = m.group(1)
-            counts[current] = {"HMMA": 0, "HGMMA": 0}
+            counts[current] = {"HMMA": 0, "HGMMA": 0, "HGMMA_TF32": 0}
         elif current is not None:
-            for op in re.findall(r"\b(HG?MMA)\b", line):
+            for op, kind in re.findall(r"\b(HG?MMA)(\.\S*)?", line):
                 counts[current][op] += 1
+                counts[current]["HGMMA_TF32"] += op == "HGMMA" and "TF32" in kind
     return counts
 
 
-def design_bytes(blocks, batch, h, w, th) -> tuple:
+def design_bytes(blocks, batch, h, w, plan, act) -> tuple:
     """Bytes each kind of launch moves in activations per call, counted from
     the code with no cache reuse: a block kernel's full pass reads its
-    input once per band over th + 2 halo rows (phase A) and once more for
-    the identity or the projection, and writes the output; an SE block's
-    sums pass reads its input over the halo once more and writes the band
-    sums; se_gate reads the band sums and writes the gate.  Returned beside
-    it: the weight bytes that every block of threads reads again (served by
-    L2)."""
-    hw, bands = h * w, -(-h // th)
+    input once per tile over its halo (th + 2 rows; on 2-D tiles also tw +
+    2 columns) in phase A and once more for the identity or the
+    projection, and writes the output; an SE block's sums pass reads its
+    input over the halo once more and writes the tile sums; se_gate reads
+    the tile sums and writes the gate.  ``plan``: the launch's tiles;
+    ``act``: the bytes of an element of the chain's input and output (later
+    blocks read and write the f32 carry).  Returned beside it: the weight
+    bytes that every block of threads reads again (served by L2)."""
+    hw, tiles = h * w, plan.tiles
+    halo = (plan.th + 2) * (plan.tw + (2 if plan.tw < w else 0)) / (plan.th * plan.tw)
     out = dict.fromkeys(KERNEL_GROUPS, 0)
     weight_rereads = 0
-    act = 2  # the chain's input is bf16; later blocks read the f32 carry
+    x_act = act
     for i, blk in enumerate(blocks):
         cin, width, cout = blk["w1"].shape[0], blk["w1"].shape[1], blk["w3"].shape[1]
         last = i == len(blocks) - 1
-        x_bytes = batch * cin * hw * act
-        halo_bytes = x_bytes * (th + 2) / th
-        out["block"] += halo_bytes + x_bytes + batch * cout * hw * (2 if last else 4)
-        weight_rereads += sum(t.numel() * t.element_size() for t in blk.values()) * bands * batch
+        x_bytes = batch * cin * hw * x_act
+        halo_bytes = x_bytes * halo
+        out["block"] += halo_bytes + x_bytes + batch * cout * hw * (act if last else 4)
+        weight_rereads += sum(t.numel() * t.element_size() for t in blk.values()) * tiles * batch
         if "sf1" in blk:
-            out["sums"] += halo_bytes + batch * bands * width * 4
-            out["se_gate"] += batch * bands * width * 4 + batch * cout * 4
-        act = 4
+            out["sums"] += halo_bytes + batch * tiles * width * 4
+            out["se_gate"] += batch * tiles * width * 4 + batch * cout * 4
+        x_act = 4
     return out, weight_rereads
 
 
@@ -178,6 +187,7 @@ def main() -> int:
     ap.add_argument("--batch", type=int, default=128)
     ap.add_argument("--calls", type=int, default=3)
     ap.add_argument("--model", default="resnet50", choices=("resnet50", "wide_resnet50_2"))
+    ap.add_argument("--dtype", default="bf16", choices=("bf16", "f32"))
     ap.add_argument("--timers", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -191,27 +201,30 @@ def main() -> int:
     lib_path, _ = build_library("bottleneck_chain")
     print(json.dumps({"card": card, "hmma_per_kernel": hmma_counts(lib_path)}))
 
+    dt = {"bf16": torch.bfloat16, "f32": torch.float32}[args.dtype]
     layer1 = seeded_layer1(build_resnet(args.model, se=True))
-    blocks = prepare_blocks(fold_bottleneck_blocks(list(layer1)), torch.bfloat16)
+    blocks = prepare_blocks(fold_bottleneck_blocks(list(layer1)), dt)
     rng = np.random.default_rng(1)
     x = torch.from_numpy(np.abs(rng.normal(0, 1, (args.batch, 64, 64, 48)))
-                         .astype(np.float32)).cuda().to(torch.bfloat16)
-    split = k2_split(x, blocks, torch.bfloat16, args.calls)
+                         .astype(np.float32)).cuda().to(dt)
+    split = k2_split(x, blocks, dt, args.calls)
 
-    th = launch_plan(64, 48, blocks[0]["w1"].shape[1], True).th  # whole-row bands at 64x48
-    nbytes, weight_rereads = design_bytes(blocks, args.batch, 64, 48, th)
-    flops, io_bytes = chain_work(blocks, args.batch, 64, 48, 2)
+    plan = launch_plan(64, 48, blocks[0]["w1"].shape[1], dt == torch.bfloat16)
+    folded = [{k: v for k, v in blk.items() if k in FOLDED_KEYS} for blk in blocks]
+    nbytes, weight_rereads = design_bytes(folded, args.batch, 64, 48, plan, x.element_size())
+    flops, io_bytes = chain_work(blocks, args.batch, 64, 48, x.element_size())
+    peak = PEAK_BF16_FLOPS if dt == torch.bfloat16 else PEAK_TF32_FLOPS / 3
     kinds = {key: {"launches_per_call": split[key]["launches"],
                    "device_ms_per_call": split[key]["ms"],
                    "share": split[key]["ms"] / split["all_ms"],
                    "design_mbytes": nbytes[key] / 1e6,
                    "design_bytes_ms_at_peak": nbytes[key] / PEAK_BYTES * 1e3}
              for key in KERNEL_GROUPS}
-    print(json.dumps({"card": card, "model": args.model, "batch": args.batch,
+    print(json.dumps({"card": card, "model": args.model, "batch": args.batch, "dtype": args.dtype,
                       "calls": args.calls, "device_ms_per_call": split["all_ms"],
                       "split": kinds, "block_kernel_ms_by_block": split["block_ms_by_block"]}))
     print(json.dumps({"chain_gflop": flops / 1e9,
-                      "operations_bound_ms": flops / PEAK_BF16_FLOPS * 1e3,
+                      "operations_bound_ms": flops / peak * 1e3,
                       "io_bytes_bound_ms": io_bytes / PEAK_BYTES * 1e3,
                       "design_mbytes_total": sum(nbytes.values()) / 1e6,
                       "design_bytes_ms_at_peak": sum(nbytes.values()) / PEAK_BYTES * 1e3,

@@ -19,9 +19,10 @@ that .gitignore lists and run both in the order old, new, new, old:
 
 Each checkout builds its own library into its own build/.  Prints the
 card's name and power limit, then per run one JSON line of the kernels'
-resources (``cuobjdump -res-usage``; with the tiles, dynamic shared memory
-and blocks per SM of the width-64 and width-128 bf16 launches at 64x48
-where the library reports them) and one of errors and times per layer1.
+resources (``cuobjdump -res-usage``: every instance of the block kernel,
+bf16 and f32; with the tiles, dynamic shared memory and blocks per SM of
+the width-64 and width-128 launches at 64x48, bf16 and f32, where the
+library reports them) and one of errors and times per layer1.
 """
 
 from __future__ import annotations
@@ -46,11 +47,13 @@ from simple_pose_torch.ops.bottleneck_chain import _lib, launch_plan
 path, seconds = build_library("bottleneck_chain")
 lib = _lib() if hasattr(_lib(), "bottleneck_blocks_per_sm") else None
 plans = {}
-for width in (64, 128):
-    plan = launch_plan(64, 48, width, True)
-    plans[width] = {**plan._asdict(), "blocks_per_sm":
-                    lib and lib.bottleneck_blocks_per_sm(plan.th, plan.tw, width, 1, 1)}
-print(json.dumps({"library": path, "nvcc_s": seconds, "bf16_plans_64x48": plans}), flush=True)
+for name, bf16 in (("bf16", True), ("f32", False)):
+    for width in (64, 128):
+        plan = launch_plan(64, 48, width, bf16)
+        plans[f"{name}_width{width}"] = {**plan._asdict(), "blocks_per_sm": lib and
+                                         lib.bottleneck_blocks_per_sm(plan.th, plan.tw, width,
+                                                                      int(bf16), int(plan.tw == 48))}
+print(json.dumps({"library": path, "nvcc_s": seconds, "plans_64x48": plans}), flush=True)
 layer1s = {"resnet50": lambda: build_resnet("resnet50", se=True),
            "hrnet_w32": lambda: build_hrnet("w32"),
            "resnet50_duc": lambda: build_resnet("resnet50", head="duc"),
@@ -91,7 +94,7 @@ def main(argv=None):
         lines = [json.loads(x) for x in proc.stdout.splitlines() if x.startswith("{")]
         head = lines[0]
         print(json.dumps({"tree": spec, "nvcc_s": head["nvcc_s"],
-                          "bf16_plans_64x48": head["bf16_plans_64x48"],
+                          "plans_64x48": head["plans_64x48"],
                           "resources": resources(head["library"])}), flush=True)
         for res in lines[1:]:
             print(json.dumps({"tree": spec,

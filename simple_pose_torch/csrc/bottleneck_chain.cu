@@ -11,34 +11,46 @@
 //   y   = relu(o + identity)    identity = x (f32) or x . wd + bd
 // Matrix operands are rounded to the compute type (bf16 or f32); biases,
 // accumulators, the SE mean and the sigmoid stay f32.  Products of two
-// bf16 values are exact in f32, so f32 FMAs on rounded operands give what
-// a bf16 matrix unit with f32 accumulation gives, up to the order of sums.
+// bf16 values are exact in f32, so a bf16 matrix unit with f32 sums gives
+// what the plain version gives, up to the order of sums.
 //
 // What bounds it on the card: at the flagship layer1 shapes (64x48x64 in,
 // 64x48x256 out, width 64) the chain is ~1.3 GFLOP per sample against
 // ~2 MB of bf16 in and out, far above the H100's ~295 FLOP/byte ridge:
 // it is bound by operations (the wide ResNets' width 128: ~3.9 GFLOP per
-// sample on the same bytes).  Two block kernels, chosen by the compute type:
-//   bf16: hopper::bottleneck_block_wgmma_kernel, every product (conv1, the
-//         3x3, conv3, the projection) on wgmma with the weights streamed by
-//         TMA; one template on the width of its products, kN = 64 for
-//         Bottleneck widths up to 64 (the flagship ResNet-50, HRNet,
-//         ResNet-50-DUC) and kN = 128 for widths 65-128 (the wide ResNets),
-//         one block of threads per SM; its section below says why;
-//   f32:  bottleneck_block_kernel, f32 FMAs on the CUDA cores, since tensor
-//         cores would round f32 operands (TF32 or bf16).
+// sample on the same bytes).  One block kernel,
+// hopper::bottleneck_block_wgmma_kernel, every product (conv1, the 3x3,
+// conv3, the projection) on wgmma with the weights streamed by TMA; one
+// template on the width of its products (kN = 64 for Bottleneck widths up
+// to 64: the flagship ResNet-50, HRNet, ResNet-50-DUC; kN = 128 for widths
+// 65-128: the wide ResNets) and on the compute type:
+//   bf16: one wgmma m64nNk16 per k16 step, bf16 operands, f32 sums;
+//   f32:  3xTF32, three wgmma m64nNk8 .tf32 per k8 step into one f32 sum,
+//         a_lo.b_hi, a_hi.b_lo, then a_hi.b_hi, with hi = tf32(v) and lo =
+//         tf32(v - hi) (cvt.rna): the dropped a_lo.b_lo and lo's own
+//         rounding leave ~2^-22 of each product.  The tensor cores add
+//         each wgmma's sum into the f32 accumulator rounding toward zero,
+//         not to nearest, so the error is biased and grows with K: mean
+//         error 1.8-4.7e-7 of max|out| at the layer1s (the 3x3 at width
+//         128, K = 1152, the largest), ~10x what rounding to nearest
+//         would give, max 2-6e-6 (scripts/k2_f32_error.py replays both
+//         roundings; the kernel sits near the one toward zero), within
+//         the f32 contract of 1e-4 max and 1e-6 mean.  Handing f32 bits
+//         to the tensor cores as they are would drop their low 13 bits
+//         (one TF32 product: ~3e-4 of the output, outside that contract).
+//         Its operation bound is 3 tf32 products per f32 product at 495
+//         TFLOP/s, ~165 TFLOP/s of f32 work (the CUDA cores: 67).
 // With the products on wgmma, what the design still moves (the f32 carry
 // read twice, each tile's halo, an SE block's input read once more by its
-// sums pass) and the activations' global memory latency set the pace, not
-// the products.
+// sums pass) and the activations' global memory latency set the pace of
+// bf16; f32's products are ~6x as long, and take a larger share.
 //
 // Design.  The TPU kernel keeps a whole 64x48x256 sample in VMEM (~1.5 MB);
 // a Hopper block has 227 KB of shared memory.  So each thread block owns one
 // sample and a tile of TH rows by TW columns of it:
 //   A. m1 on the tile's halo (the tile and a 1-pixel ring on all four sides,
-//      (TH+2) x (TW+2)) goes to shared memory, rounded to the compute type
-//      (f32 [channel][pixel] in the f32 kernel, bf16 [pixel][channel] in the
-//      bf16 kernel); ring pixels outside the image stay zero;
+//      (TH+2) x (TW+2)) goes to shared memory [pixel][channel] in the
+//      compute type; ring pixels outside the image stay zero;
 //   B. the 3x3 reads m1 from shared memory, one tap of w2 at a time;
 //   C. conv3 and the identity (x re-read, or x . wd) per pass of output
 //      channels, f32 epilogue.
@@ -49,20 +61,18 @@
 // spans the row, as up to W = 96 at width 64: its band and its halo rows are
 // then one contiguous span per channel, so every global load and store is
 // coalesced (the flagship's 64x48 map: bands of 4 rows, 16 per sample).
-// Wider maps are cut into 2-D tiles of 32 columns (one warp's pixels per
-// row; the bf16 kernel also 64), whose rows are spans of TW (+2) pixels.
-// The wrapper (ops/bottleneck_chain.launch_plan) picks TH and TW;
-// bottleneck_smem_bytes checks them against these limits and gives the
-// shared memory they need.  A launch's grid is (tiles, batch).
+// Wider maps are cut into 2-D tiles of 32 or 64 columns (f32 at width 128:
+// also 16), whose rows are spans of TW (+2) pixels.  The wrapper
+// (ops/bottleneck_chain.launch_plan) picks TH and TW; bottleneck_smem_bytes
+// checks them against these limits and gives the shared memory they need.
+// A launch's grid is (tiles, batch).
 //
 // Width.  Every output channel of the 3x3 reads every m1 channel of the
 // halo, and m2 overwrites m1 in place once the 3x3 is done, so one pass of
-// the 3x3 covers all `width` output channels.  The f32 kernel's tile
-// therefore shrinks as the width grows, with the same 8 warps and the same
-// accumulator registers per thread (Cfg below): up to width 64, tiles of up
-// to 192 pixels and passes of 64 channels; up to width 128, tiles of up to
-// 96 pixels and passes of 128 channels.  The bf16 kernel keeps tiles of up
-// to 192 pixels at both of its widths.
+// the 3x3 covers all `width` output channels.  m1 in f32 at width 128 is
+// 544 B a pixel: that instance takes tiles of up to 128 pixels (two
+// consumer warpgroups) with m1 in up to 180 pixels (8 x 16 tiles at 64x48);
+// the others take up to 192 pixels (three) in up to 320.
 //
 // SE needs the spatial mean of o over the whole sample before the residual
 // add.  conv3 is linear, so mean_hw(o) = mean_hw(m2) . w3 + b3 (in exact
@@ -78,12 +88,6 @@
 //      identity) straight into the block's output.
 // So the pre-gate output and the identity never go through global memory;
 // the price is conv1 and the 3x3 of an SE block run twice.
-//
-// Register tiling of the f32 kernel: 256 threads = 8 warps.  Lane l of warp
-// g computes pixels {l, l+32, ...} of the tile and output channels
-// kNJ*g .. kNJ*g + kNJ-1, so the A operand is read conflict-free from shared
-// memory and the B operand is a warp-wide broadcast.  The bf16 kernel's
-// tiling is at its section below.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -93,43 +97,9 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kKC = 16;               // input-channel chunk of the f32 kernel's x products
 constexpr int kMaxSmem = 232448;      // one block's shared memory (227 KB)
 
 constexpr int cmax(int a, int b) { return a > b ? a : b; }
-
-// The tile limits and the shapes of the f32 kernel for Bottleneck widths up
-// to kWMax (64 or 128).
-template <int kWMax>
-struct Cfg {
-  static_assert(kWMax == 64 || kWMax == 128, "the kernel takes widths up to 64 or up to 128");
-  static constexpr int kNTile = kWMax;                   // output channels per pass
-  static constexpr int kBand = kWMax == 64 ? 192 : 96;   // TH * TW <= kBand
-  static constexpr int kHalo = kWMax == 64 ? 288 : 192;  // (TH + 2) * TW <= kHalo
-  static constexpr int kMinBlocks = kWMax == 64 ? 2 : 1;  // blocks per SM
-  // kNJ output channels per thread, kPC tile pixels per lane, kPA halo
-  // pixels per lane in each round of phase A, w2 and w3 in shared memory kKB
-  // input channels at a time
-  static constexpr int kNJ = kNTile / 8;
-  static constexpr int kPC = kBand / 32;
-  static constexpr int kPA = kWMax == 64 ? 9 : 3;
-  static constexpr int kKB = kWMax == 64 ? 64 : 32;
-  // scratch floats beyond m1: max of phase A (x chunk + w1 chunk), phase B
-  // (a K chunk of one 3x3 tap), phase C (w3 chunk + x chunk + wd chunk)
-  static constexpr int kWork = cmax(cmax(kKC * kPA * 32 + kKC * kNTile, kKB * kNTile),
-                                    kKB * kNTile + kKC * kBand + kKC * kNTile);
-};
-
-template <int kWMax>
-bool tile_fits(int th, int tw) {
-  return th * tw <= Cfg<kWMax>::kBand && (th + 2) * tw <= Cfg<kWMax>::kHalo;
-}
-
-template <int kWMax>
-size_t block_smem_bytes(int th, int tw) {
-  return sizeof(float) * ((size_t)kWMax * (th + 2) * (tw + 2) + Cfg<kWMax>::kWork);
-}
 
 template <typename T> __device__ __forceinline__ float to_f(T v);
 template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
@@ -211,314 +181,72 @@ __device__ __forceinline__ int band_m1(const Tile& g, int p) {
   return (p / g.tw) * g.pitch + p % g.tw;
 }
 
-// kGate: an SE block's full pass (o times a.gate before the identity; a
-// block without SE runs an instance with no gate code).  kSums: the SE sums
-// pass (phases A and B, then m2's channel sums).
-template <int kWMax, bool kRows, typename TI, typename TC, typename TO, bool kGate, bool kSums>
-__global__ void __launch_bounds__(kThreads, Cfg<kWMax>::kMinBlocks)
-    bottleneck_block_kernel(BlockArgs a) {
-  using C = Cfg<kWMax>;
-  constexpr int kNJ = C::kNJ, kPC = C::kPC, kPA = C::kPA, kKB = C::kKB;
-  constexpr int kNTile = C::kNTile, kBand = C::kBand, kRound = kPA * 32;
-  extern __shared__ float smem[];
-  const int tid = threadIdx.x, lane = tid & 31, grp = tid >> 5;
-  const int b = blockIdx.y;
-  const Tile g = tile_of(a, blockIdx.x);
-  const int HW = a.h * a.w, npix = g.npix;
-  const int m1_stride = (a.th + 2) * g.pitch;
-  const int band_stride = a.th * a.tw;
-  const int width = a.width, cin = a.cin, cout = a.cout;
-  const int n_base = grp * kNJ;
-
-  float* m1s = smem;                     // [width][m1_stride]
-  float* work = smem + kWMax * m1_stride;
-
-  const TI* x = static_cast<const TI*>(a.x) + (size_t)b * cin * HW;
-  const TC* w1 = static_cast<const TC*>(a.w1);
-  const TC* w2 = static_cast<const TC*>(a.w2);
-  const TC* w3 = static_cast<const TC*>(a.w3);
-  const TC* wd = static_cast<const TC*>(a.wd);
-
-  for (int i = tid; i < width * m1_stride; i += kThreads) m1s[i] = 0.f;
-
-  // ---- A: m1 = relu(x . w1 + b1) on the halo, in rounds of kRound pixels
-  {
-    float* xs = work;                  // [kKC][kRound]
-    float* ws = work + kKC * kRound;   // [kKC][kNTile]
-    for (int r0 = 0; r0 < g.nhalo; r0 += kRound) {
-      float acc[kPA][kNJ];
-#pragma unroll
-      for (int i = 0; i < kPA; ++i)
-#pragma unroll
-        for (int j = 0; j < kNJ; ++j) acc[i][j] = 0.f;
-
-      for (int k0 = 0; k0 < cin; k0 += kKC) {
-        __syncthreads();
-        for (int i = tid; i < kKC * kRound; i += kThreads) {
-          const int kk = i / kRound, q = r0 + i % kRound;
-          float v = 0.f;
-          if (k0 + kk < cin && q < g.nhalo)
-            v = rnd<TC>(to_f<TI>(x[(size_t)(k0 + kk) * HW + g.halo.lin<kRows>(q)]));
-          xs[i] = v;
-        }
-        for (int i = tid; i < kKC * kNTile; i += kThreads) {
-          const int kk = i / kNTile, n = i % kNTile;
-          ws[i] = (k0 + kk < cin && n < width) ? to_f<TC>(w1[(size_t)(k0 + kk) * width + n]) : 0.f;
-        }
-        __syncthreads();
-#pragma unroll 4
-        for (int kk = 0; kk < kKC; ++kk) {
-          float av[kPA], bv[kNJ];
-#pragma unroll
-          for (int i = 0; i < kPA; ++i) av[i] = xs[kk * kRound + lane + 32 * i];
-#pragma unroll
-          for (int j = 0; j < kNJ; ++j) bv[j] = ws[kk * kNTile + n_base + j];
-#pragma unroll
-          for (int i = 0; i < kPA; ++i)
-#pragma unroll
-            for (int j = 0; j < kNJ; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < kPA; ++i) {
-        const int q = r0 + lane + 32 * i;
-        if (q >= g.nhalo) continue;
-        const int m = halo_m1(g, q);
-#pragma unroll
-        for (int j = 0; j < kNJ; ++j) {
-          const int n = n_base + j;
-          if (n < width) m1s[n * m1_stride + m] = rnd<TC>(fmaxf(acc[i][j] + a.b1[n], 0.f));
-        }
-      }
-    }
-  }
-
-  // ---- B: m2 = relu(3x3(m1) + b2), w2 in shared memory a tap and kKB
-  // input channels at a time
-  float acc[kPC][kNJ];
-#pragma unroll
-  for (int i = 0; i < kPC; ++i)
-#pragma unroll
-    for (int j = 0; j < kNJ; ++j) acc[i][j] = 0.f;
-  {
-    float* w2s = work;  // [kKB][kNTile]
-    int off[kPC];
-#pragma unroll
-    for (int i = 0; i < kPC; ++i) {
-      const int p = lane + 32 * i;
-      off[i] = p < npix ? band_m1(g, p) : 0;
-    }
-    for (int tap = 0; tap < 9; ++tap) {
-      const int shift = (tap / 3) * g.pitch + tap % 3;
-      for (int k0 = 0; k0 < width; k0 += kKB) {
-        const int kn = min(kKB, width - k0);
-        __syncthreads();
-        for (int i = tid; i < kn * kNTile; i += kThreads) {
-          const int k = k0 + i / kNTile, n = i % kNTile;
-          w2s[i] = n < width ? to_f<TC>(w2[((size_t)tap * width + k) * width + n]) : 0.f;
-        }
-        __syncthreads();
-        for (int k = 0; k < kn; ++k) {
-          float av[kPC], bv[kNJ];
-#pragma unroll
-          for (int i = 0; i < kPC; ++i) av[i] = m1s[(k0 + k) * m1_stride + off[i] + shift];
-#pragma unroll
-          for (int j = 0; j < kNJ; ++j) bv[j] = w2s[k * kNTile + n_base + j];
-#pragma unroll
-          for (int i = 0; i < kPC; ++i)
-#pragma unroll
-            for (int j = 0; j < kNJ; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-        }
-      }
-    }
-  }
-  if constexpr (kSums) {
-    // the SE sums pass: this tile's channel sums of m2 as conv3 reads it
-    // (lane order fixed by the xor tree, so the sums are deterministic)
-#pragma unroll
-    for (int j = 0; j < kNJ; ++j) {
-      const int n = n_base + j;
-      float s = 0.f;
-      if (n < width) {
-#pragma unroll
-        for (int i = 0; i < kPC; ++i)
-          if (lane + 32 * i < npix) s += rnd<TC>(fmaxf(acc[i][j] + a.b2[n], 0.f));
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-      if (lane == 0 && n < width) a.partial[((size_t)b * a.tiles + blockIdx.x) * width + n] = s;
-    }
-    return;
-  }
-  __syncthreads();  // every read of m1 is done: m2 overwrites it
-  float* m2s = m1s;  // [width][band_stride]
-#pragma unroll
-  for (int i = 0; i < kPC; ++i) {
-    const int p = lane + 32 * i;
-    if (p >= npix) continue;
-#pragma unroll
-    for (int j = 0; j < kNJ; ++j) {
-      const int n = n_base + j;
-      if (n < width) m2s[n * band_stride + p] = rnd<TC>(fmaxf(acc[i][j] + a.b2[n], 0.f));
-    }
-  }
-
-  // ---- C: o = m2 . w3 + b3, identity, epilogue; kNTile output channels a pass
-  float* w3s = work;                    // [kKB][kNTile]
-  float* xs = work + kKB * kNTile;      // [kKC][kBand]
-  float* wds = xs + kKC * kBand;        // [kKC][kNTile]
-  TO* out = static_cast<TO*>(a.out) + (size_t)b * cout * HW;
-  const float* gate = kGate ? a.gate + (size_t)b * cout : nullptr;
-  for (int n0 = 0; n0 < cout; n0 += kNTile) {
-#pragma unroll
-    for (int i = 0; i < kPC; ++i)
-#pragma unroll
-      for (int j = 0; j < kNJ; ++j) acc[i][j] = 0.f;
-    for (int k0 = 0; k0 < width; k0 += kKB) {
-      const int kn = min(kKB, width - k0);
-      __syncthreads();
-      for (int i = tid; i < kn * kNTile; i += kThreads) {
-        const int k = k0 + i / kNTile, n = n0 + i % kNTile;
-        w3s[i] = n < cout ? to_f<TC>(w3[(size_t)k * cout + n]) : 0.f;
-      }
-      __syncthreads();
-      for (int k = 0; k < kn; ++k) {
-        float av[kPC], bv[kNJ];
-#pragma unroll
-        for (int i = 0; i < kPC; ++i)
-          av[i] = m2s[(k0 + k) * band_stride + min(lane + 32 * i, npix - 1)];
-#pragma unroll
-        for (int j = 0; j < kNJ; ++j) bv[j] = w3s[k * kNTile + n_base + j];
-#pragma unroll
-        for (int i = 0; i < kPC; ++i)
-#pragma unroll
-          for (int j = 0; j < kNJ; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-      }
-    }
-    // o = conv3 + b3, times the SE gate before the identity is added
-#pragma unroll
-    for (int j = 0; j < kNJ; ++j) {
-      const int n = n0 + n_base + j;
-      const float bias = n < cout ? a.b3[n] : 0.f;
-      if constexpr (kGate) {  // one loop: two ran the wide chain 3% slower
-        const float gn = n < cout ? gate[n] : 0.f;
-#pragma unroll
-        for (int i = 0; i < kPC; ++i) acc[i][j] = (acc[i][j] + bias) * gn;
-      } else {
-#pragma unroll
-        for (int i = 0; i < kPC; ++i) acc[i][j] += bias;
-      }
-    }
-    if (wd != nullptr) {
-      for (int k0 = 0; k0 < cin; k0 += kKC) {
-        __syncthreads();
-        for (int i = tid; i < kKC * kBand; i += kThreads) {
-          const int kk = i / kBand, p = i % kBand;
-          xs[i] = (k0 + kk < cin && p < npix)
-                      ? rnd<TC>(to_f<TI>(x[(size_t)(k0 + kk) * HW + g.band.lin<kRows>(p)]))
-                      : 0.f;
-        }
-        for (int i = tid; i < kKC * kNTile; i += kThreads) {
-          const int kk = i / kNTile, n = n0 + i % kNTile;
-          wds[i] = (k0 + kk < cin && n < cout) ? to_f<TC>(wd[(size_t)(k0 + kk) * cout + n]) : 0.f;
-        }
-        __syncthreads();
-#pragma unroll 4
-        for (int kk = 0; kk < kKC; ++kk) {
-          float av[kPC], bv[kNJ];
-#pragma unroll
-          for (int i = 0; i < kPC; ++i) av[i] = xs[kk * kBand + lane + 32 * i];
-#pragma unroll
-          for (int j = 0; j < kNJ; ++j) bv[j] = wds[kk * kNTile + n_base + j];
-#pragma unroll
-          for (int i = 0; i < kPC; ++i)
-#pragma unroll
-            for (int j = 0; j < kNJ; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < kNJ; ++j) {
-        const int n = n0 + n_base + j;
-        const float bias = n < cout ? a.bd[n] : 0.f;
-#pragma unroll
-        for (int i = 0; i < kPC; ++i) acc[i][j] += bias;
-      }
-    } else {
-      // identity: the block's input itself, unrounded (cin == cout)
-#pragma unroll
-      for (int j = 0; j < kNJ; ++j) {
-        const int n = n0 + n_base + j;
-        if (n >= cout) continue;
-#pragma unroll
-        for (int i = 0; i < kPC; ++i) {
-          const int p = lane + 32 * i;
-          if (p < npix) acc[i][j] += to_f<TI>(x[(size_t)n * HW + g.band.lin<kRows>(p)]);
-        }
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < kNJ; ++j) {
-      const int n = n0 + n_base + j;
-      if (n >= cout) continue;
-#pragma unroll
-      for (int i = 0; i < kPC; ++i) {
-        const int p = lane + 32 * i;
-        if (p >= npix) continue;
-        out[(size_t)n * HW + g.band.lin<kRows>(p)] = from_f<TO>(fmaxf(acc[i][j], 0.f));
-      }
-    }
-  }
-}
-
-// ---- the bf16 kernel (wgmma, every width) -----------------------------------
+// ---- the block kernel (wgmma, both compute types, every width) -------------
 //
-// One block of threads takes one tile of up to kBand = 192 pixels (4 whole
-// rows of the 64x48 map: three 64-row wgmma tiles) with 4 warpgroups:
-// warpgroups 0-2 compute, warpgroup w on tile pixels 64w .. 64w + 63 with its
-// 64 x kN f32 sums in registers (kN / 2 per thread); warpgroup 3 is the
-// producer, and hands its registers to the consumers (setmaxnreg).  kN is the
-// width of every product: 64 at Bottleneck widths up to 64, 128 at widths
-// 65-128; a narrower width reads as zeros past its end.  Every weight
-// reaches shared memory as chunks of [K][kN channels] bf16 (K = 64 for w1
-// and wd, kN for w2's taps and w3) in a ring of kStages stages: the
-// producer's thread 0 waits until the stage is free (its `empty` mbarrier:
-// every consumer warp arrives after its last wgmma on it), then asks TMA for
-// the chunk's boxes of [K][64 channels] through the weight's tensor map,
-// completing on the stage's `full` mbarrier.  TMA reads the folded weights
-// as they are ([K][N], N contiguous) and writes them with the 128-byte
-// swizzle, the MN-major layout that wgmma reads B in (`imm-trans-b`),
-// out-of-range rows and columns as zeros.  So the weights of tap t + 1 are
-// in flight while tap t is multiplied, and nothing transposes them.
+// One block of threads takes one tile of up to kBand pixels with kWG + 1
+// warpgroups: warpgroups 0 .. kWG - 1 compute, warpgroup w on tile pixels
+// 64w .. 64w + 63 with its 64 x kN f32 sums in registers (kN / 2 per
+// thread); warpgroup kWG is the producer, and hands its registers to the
+// consumers (setmaxnreg).  kWG = 3 (kBand = 192: 4 whole rows of the 64x48
+// map) but for f32 at kN = 128, whose m1 takes 544 B a pixel: kWG = 2
+// (kBand = 128: 8 x 16 tiles of the 64x48 map).  kN is the width of every
+// product: 64 at Bottleneck widths up to 64, 128 at widths 65-128; a
+// narrower width reads as zeros past its end.  Every weight reaches shared
+// memory as chunks in a ring of kStages stages: the producer's thread 0
+// waits until the stage is free (its `empty` mbarrier: every consumer warp
+// arrives after its last wgmma on it), then asks TMA for the chunk's boxes
+// through the weight's tensor map, completing on the stage's `full`
+// mbarrier; out-of-range rows and columns read as zeros.  So the weights of
+// tap t + 1 are in flight while tap t is multiplied.
+//   bf16: chunks of [K][kN channels] (K = 64 for w1 and wd, kN for w2's
+//         taps and w3) in boxes of [K][64 channels]: TMA reads the folded
+//         weights as they are ([K][N], N contiguous) and writes them with
+//         the 128-byte swizzle, the MN-major layout that wgmma reads B in
+//         (`imm-trans-b`), so nothing transposes them;
+//   f32:  tf32 wgmma reads B only K-major, so the wrapper packs each weight
+//         once (ops/bottleneck_chain.pack_tf32): split into tf32 hi and
+//         lo, transposed to [N][K] (K contiguous, each k8 group in the order
+//         0, 2, 4, 6, 1, 3, 5, 7, so that one 8-byte load gives a thread
+//         the two k of its A fragment).  A chunk is K = 32 (128 B of f32: a
+//         swizzled row) of hi and of lo, two boxes of [kN][32].
 //
-// The chunks, in the order both sides walk them:
-//   A. per round of up to kBand halo pixels, per 64 input channels: w1;
+// The chunks, in the order both sides walk them (f32: each cut in K = 32):
+//   A. per round of up to kBand halo pixels, per kKX input channels: w1;
 //   B. per 3x3 tap: w2[tap] (K = kN);
-//   C. per pass of kN output channels: w3, then per 64 input channels wd
+//   C. per pass of kN output channels: w3, then per kKX input channels wd
 //      (none in the SE sums pass, which ends after B).
-// Products: wgmma.mma_async m64nNk16 with N = kN (bf16 in, f32 sums), A from
-// registers (ldmatrix from a [pixel][channel] bf16 tile, so the 3x3's A rows
-// are the halo at pixel + shift), B from the stage by descriptor.
-// Activations are staged by the consumers: x with 16-byte loads where its
-// rows allow (whole rows, aligned), converted to bf16 in shared memory
-// [pixel][64 channels].  Biases and the SE gate sit in shared memory, m1
-// and m2 are stored with stmatrix, and half of the identity is loaded
-// before conv3, so that its latency hides behind the product.  The
-// numerics are those of the f32 kernel and the plain version: operands
-// rounded to bf16 where the plain version rounds them, f32 sums, biases and
-// carry, the zero pad after the relu, per-tile SE sums in a fixed order.
+// Products: wgmma.mma_async with N = kN and f32 sums, A from registers, B
+// from the stage by descriptor.  bf16: m64nNk16, A by ldmatrix from a
+// [pixel][channel] bf16 tile.  f32: m64nNk8 .tf32 three times per k8 step
+// (a_lo . b_hi, a_hi . b_lo, a_hi . b_hi), A by 8-byte loads from a
+// [pixel][channel] f32 tile, split into hi and lo in registers.  The 3x3's
+// A rows are the halo at pixel + shift.  Activations are staged by the
+// consumers: x with 16-byte loads where its rows allow (whole rows,
+// aligned), in the compute type in shared memory [pixel][kKX channels].
+// Biases and the SE gate sit in shared memory, m1 and m2 are stored with
+// stmatrix (bf16) or 8-byte stores (f32), and part of the identity is
+// loaded before conv3, so that its latency hides behind the product.  The
+// numerics are those of the plain version: operands rounded to bf16 where
+// the plain version rounds them (f32: nothing but the products rounded),
+// f32 sums, biases and carry, the zero pad after the relu, per-tile SE sums
+// in a fixed order.  Row pitches of m1, m2 and the x tile are 8 elements
+// past their channels: ldmatrix rows and f32 fragment loads and stores hit
+// distinct banks.
 //
-// Residency.  At kN = 128 every block of threads streams ~420 KB of weights
-// per tile, and the ring (3 stages of 32 KB) and m1 (272 B a pixel) take
-// ~213 KB: one block per SM.  At kN = 64 the products are a third of that,
-// and the activations' global latency (staging x, the identity's loads, the
-// epilogue's stores) sets the pace.  The 64 instance's shared memory (4
-// stages of 8 KB, m1 at 144 B a pixel: ~107 KB for the 64x48 map's bands)
-// would let two blocks of threads share an SM, but each would then have
-// 32,768 registers, 64 a thread at launch: ptxas spills and serializes the
-// wgmma, and there is no room to load the identity ahead; built so, it
-// measured slower on the H100 (PERF.md).  So both instances run one block per
-// SM, with the consumers at 160 registers holding the next x chunk and the
-// identity while the products run.
+// Residency: one block of threads per SM for every instance.  At kN = 128
+// every block of threads streams ~420 KB of bf16 weights per tile, and the
+// ring (3 stages of 32 KB) and m1 (272 B a pixel) take ~213 KB.  At kN =
+// 64 the products are a third of that, and the activations' global latency
+// (staging x, the identity's loads, the epilogue's stores) sets the pace.
+// The bf16 64 instance's shared memory (4 stages of 8 KB, m1 at 144 B a
+// pixel: ~107 KB for the 64x48 map's bands) would let two blocks of
+// threads share an SM, but each would then have 32,768 registers, 64 a
+// thread at launch: ptxas spills and serializes the wgmma, and there is no
+// room to load the identity ahead; built so, it measured slower on the
+// H100 (PERF.md).  The f32 instances take 213-226 KB (rings of 4 x 16 KB
+// or 3 x 32 KB, m1 in f32).  The consumers run at 160 registers (232 where
+// kWG = 2), holding the next x chunk and the identity while the products
+// run.
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -532,49 +260,60 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
 
 namespace hopper {
 
-constexpr int kConsumers = 384;              // warpgroups 0-2
-constexpr int kThreadsW = kConsumers + 128;  // and the producer warpgroup
-constexpr int kWarpsC = kConsumers / 32;
-constexpr int kBand = 192;                   // tile pixels: 3 x m64
-constexpr int kStore = 320;                  // (th + 2) * (tw + 2): m1 on the tile and its ring
-constexpr int kKX = 64;                      // x channels per chunk (phase A, the projection)
-constexpr int kXP = kKX + 8;                 // x tile row pitch: 144 B
-// registers per thread after setmaxnreg (launched at 65536 / 512 = 128): the
-// producer gives up what the consumers' sums, A fragments and the loads held
-// ahead need
-constexpr int kProducerRegs = 32, kConsumerRegs = 160;
-static_assert(kProducerRegs * 128 + kConsumerRegs * kConsumers <= 65536, "one SM's registers");
-
-// The instance whose products are kN channels wide.
-template <int kN>
+// The instance whose products are kN channels wide in compute type TC_
+// (__nv_bfloat16, or float: 3xTF32).
+template <int kN_, typename TC_>
 struct Shape {
+  static constexpr int kN = kN_;
+  using TC = TC_;
   static_assert(kN == 64 || kN == 128, "products of 64 or 128 channels");
-  static constexpr int kJ = kN / 8;                  // n8 blocks: 4 kJ sums a thread
-  static constexpr int kP = kN + 8;                  // m1 / m2 row pitch: 144 or 272 B
-  static constexpr int kBoxes = kN / 64;             // TMA boxes of 64 channels a chunk
+  static constexpr bool kF32 = sizeof(TC) == 4;
+  static constexpr int kES = sizeof(TC);              // bytes of an element of m1, m2, x
+  static constexpr int kWG = kF32 && kN == 128 ? 2 : 3;  // consumer warpgroups
+  static constexpr int kConsumers = 128 * kWG;
+  static constexpr int kThreads = kConsumers + 128;  // and the producer warpgroup
+  static constexpr int kWarpsC = kConsumers / 32;
+  static constexpr int kBand = 64 * kWG;              // tile pixels: kWG x m64
+  // (th + 2) * (tw + 2): m1 on the tile and its ring
+  static constexpr int kStore = kF32 && kN == 128 ? 180 : 320;
+  static constexpr int kKX = kF32 && kN == 128 ? 32 : 64;  // x channels per staged chunk
+  static constexpr int kXP = kKX + 8;                 // x tile row pitch
+  static constexpr int kJ = kN / 8;                   // n8 blocks: 4 kJ sums a thread
+  static constexpr int kP = kN + 8;                   // m1 / m2 row pitch
   static constexpr int kStages = kN == 64 ? 4 : 3;
-  static constexpr int kStageBytes = kBoxes * kN * 64 * 2;  // kBoxes boxes of [kN k][64 n]
+  // bf16: kN / 64 boxes of [K = kN][64 n] (w1 and wd: K = 64); f32: the hi
+  // and the lo box of [kN n][32 k], kBox bytes each
+  static constexpr int kBox = kN * 32 * 4;
+  static constexpr int kStageBytes = kF32 ? 2 * kBox : (kN / 64) * kN * 64 * 2;
   // the identity's fragment rows held in registers: at kN = 128 the first
   // row, loaded before conv3; at kN = 64 both, loaded during the pass before
   static constexpr int kIdnRows = kN == 64 ? 2 : 1;
+  // registers per thread after setmaxnreg (launched at 65536 / kThreads,
+  // rounded down to 8: 128 or 168): the producer gives up what the
+  // consumers' sums, A fragments and the loads held ahead need
+  static constexpr int kProducerRegs = kWG == 3 ? 32 : 40;
+  static constexpr int kConsumerRegs = kWG == 3 ? 160 : 232;
+  static_assert(kProducerRegs * 128 + kConsumerRegs * kConsumers <= 65536, "one SM's registers");
   // shared memory after aligning to 1024 B (the swizzle's period):
   // [ring][x tile][SE sums][biases][mbarriers][m1 / m2]; the biases: b1, b2,
   // then b3, bd and the SE gate of the even passes of conv3, then of the
   // odd ones
   static constexpr int kXOff = kStages * kStageBytes;
-  static constexpr int kRedOff = kXOff + kBand * kXP * 2;
+  static constexpr int kRedOff = kXOff + kBand * kXP * kES;
   static constexpr int kBiasOff = kRedOff + kWarpsC * kN * 4;
   static constexpr int kBarOff = kBiasOff + 8 * kN * 4;
   static constexpr int kM1Off = kBarOff + 64;
   static_assert(2 * kStages * 8 <= 64, "the mbarriers");
 };
 
-bool tile_fits(int th, int tw) { return th * tw <= kBand && (th + 2) * (tw + 2) <= kStore; }
+template <class S>
+bool tile_fits(int th, int tw) {
+  return th * tw <= S::kBand && (th + 2) * (tw + 2) <= S::kStore;
+}
 
-template <int kN>
+template <class S>
 size_t smem_bytes(int th, int tw) {
-  return 1024 + Shape<kN>::kM1Off +
-         sizeof(__nv_bfloat16) * (size_t)(th + 2) * (tw + 2) * Shape<kN>::kP;
+  return 1024 + S::kM1Off + (size_t)S::kES * (th + 2) * (tw + 2) * S::kP;
 }
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
@@ -632,6 +371,22 @@ __device__ __forceinline__ void tma_chunk(uint32_t dst, const CUtensorMap* map, 
   }
 }
 
+// f32: the hi and the lo box of a weight chunk (planes z and z + 1 of the
+// packed weight, its rows c_n .. c_n + kN - 1, K from c_k: [kN][32] f32
+// each) into dst and dst + box, completing on bar.
+__device__ __forceinline__ void tma_split_chunk(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                                int c_n, int c_k, int z, uint32_t box) {
+  const uint64_t m = reinterpret_cast<uint64_t>(map);
+  mbar_expect_tx(bar, 2 * box);
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    asm volatile(
+        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+        " [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst + h * box),
+        "l"(m), "r"(bar), "r"(c_k), "r"(c_n), "r"(z + h)
+        : "memory");
+}
+
 // wgmma descriptor of an MN-major B tile with the 128-byte swizzle: 8-row
 // K groups 1024 B apart, 64-channel boxes `box` bytes apart.
 __device__ __forceinline__ uint64_t b_desc(uint32_t addr, uint32_t box) {
@@ -687,6 +442,72 @@ __device__ __forceinline__ void wgmma(float (&d)[64], const uint32_t (&a)[4], ui
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
 }
 
+// f32 (3xTF32).  wgmma descriptor of a K-major B tile with the 128-byte
+// swizzle: rows of 32 f32 of K (128 B), 8-row groups 1024 B apart (the
+// leading byte offset is unused); k8 step s of a row starts 32 s B in.
+__device__ __forceinline__ uint64_t k_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         (1ull << 62);
+}
+
+// v = hi + lo + r, hi and lo tf32 (cvt.rna: nearest, ties away from zero;
+// hi's low 13 bits cleared, as lo = v - hi needs them), |r| <= 2^-22 |v|
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
+  uint32_t h, l;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(h) : "f"(v));
+  h &= 0xffffe000u;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(l) : "f"(v - __uint_as_float(h)));
+  hi = h, lo = l;
+}
+
+__device__ __forceinline__ float2 lds64(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];" : "=f"(v.x), "=f"(v.y) : "r"(addr));
+  return v;
+}
+
+// d += A . B over one k8 step in tf32: m64n64k8 (32 sums a thread) and
+// m64n128k8 (64); A's fragment: a[0] (row gid, k tig), a[1] (gid + 8, tig),
+// a[2] (gid, tig + 4), a[3] (gid + 8, tig + 4) of the warp's 16 rows
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32], const uint32_t (&a)[4],
+                                           uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_tf32(float (&d)[64], const uint32_t (&a)[4],
+                                           uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
 // Cycle counters of scripts/profile_torch_k2.py --timers, which builds a
 // copy of this file with K2_PHASE_TIMERS defined.  Per consumer warp: the
 // cycles waiting for a chunk, in its products (ldmatrix, wgmma and their
@@ -712,15 +533,15 @@ __device__ unsigned long long g_k2_cycles[kTimers];
 #endif
 using Timers = unsigned long long[kTimers];
 
+template <class S>
 __device__ __forceinline__ void consumers_sync() {
-  asm volatile("bar.sync 1, %0;" ::"n"(kConsumers) : "memory");
+  asm volatile("bar.sync 1, %0;" ::"n"(S::kConsumers) : "memory");
 }
 
 // The ring as each side walks it: chunk i sits in stage i % kStages and
 // fills for the (i / kStages)-th time.
-template <int kN>
+template <class S>
 struct Ring {
-  using S = Shape<kN>;
   uint32_t base, full, empty;  // stage 0, its full and empty mbarriers (8 B apart per stage)
   int i = 0;
   __device__ __forceinline__ int stage() const { return i % S::kStages; }
@@ -730,11 +551,11 @@ struct Ring {
   __device__ __forceinline__ uint32_t data() const { return base + S::kStageBytes * stage(); }
 };
 
-// One chunk on the consumer side: wait for it, then (if this warpgroup has
-// rows) acc += A . chunk over ksteps k16 steps, A's rows from this lane's
-// ldmatrix address a_addr (k offset 0), then release the stage.
-template <int kN>
-__device__ __forceinline__ void consume(Ring<kN>& r, float (&acc)[kN / 2], bool active,
+// One bf16 chunk on the consumer side: wait for it, then (if this
+// warpgroup has rows) acc += A . chunk over ksteps k16 steps, A's rows from
+// this lane's ldmatrix address a_addr (k offset 0), then release the stage.
+template <class S, int kN = S::kN>
+__device__ __forceinline__ void consume(Ring<S>& r, float (&acc)[kN / 2], bool active,
                                         uint32_t a_addr, int ksteps, uint32_t box, Timers& k2c) {
   K2_MARK(t0);
   mbar_wait(r.full_bar(), r.parity());
@@ -750,6 +571,49 @@ __device__ __forceinline__ void consume(Ring<kN>& r, float (&acc)[kN / 2], bool 
 #pragma unroll
     for (int ks = 0; ks < kN / 16; ++ks)
       if (ks < ksteps) wgmma(acc, a[ks], b_desc(r.data() + 2048 * ks, box));
+    asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+    fence_acc(acc);
+  }
+  K2_ADD(kTMma, t1);
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) mbar_arrive(r.empty_bar());
+  ++r.i;
+}
+
+// One f32 chunk (K = 32) on the consumer side: wait for it, then (if this
+// warpgroup has rows) acc += A . chunk in 3xTF32 over its 4 k8 steps, per
+// step a_lo . b_hi, a_hi . b_lo, then a_hi . b_hi (the small terms first),
+// then release the stage.  A: this thread's fragment rows gid and gid + 8
+// at lo_addr and hi_addr (f32, channel 2 tig of the chunk); the packed
+// k8 groups of B hold channels 0, 2, 4, 6, 1, 3, 5, 7, so the 8-byte load
+// of channels 2 tig and 2 tig + 1 gives fragment columns tig and tig + 4.
+template <class S, int kN = S::kN>
+__device__ __forceinline__ void consume_tf32(Ring<S>& r, float (&acc)[kN / 2], bool active,
+                                             uint32_t lo_addr, uint32_t hi_addr, Timers& k2c) {
+  K2_MARK(t0);
+  mbar_wait(r.full_bar(), r.parity());
+  K2_ADD(kTWait, t0);
+  K2_MARK(t1);
+  if (active) {
+    uint32_t ah[4][4], al[4][4];
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const float2 u = lds64(lo_addr + 32 * s), v = lds64(hi_addr + 32 * s);
+      split_tf32(u.x, ah[s][0], al[s][0]);
+      split_tf32(v.x, ah[s][1], al[s][1]);
+      split_tf32(u.y, ah[s][2], al[s][2]);
+      split_tf32(v.y, ah[s][3], al[s][3]);
+    }
+    const uint32_t b_hi = r.data(), b_lo = b_hi + S::kBox;
+    fence_acc(acc);
+    asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      wgmma_tf32(acc, al[s], k_desc(b_hi + 32 * s));
+      wgmma_tf32(acc, ah[s], k_desc(b_lo + 32 * s));
+      wgmma_tf32(acc, ah[s], k_desc(b_hi + 32 * s));
+    }
     asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
     asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
     fence_acc(acc);
@@ -784,25 +648,28 @@ __device__ __forceinline__ void load8(float (&v)[8], const __nv_bfloat16* p) {
 }
 
 // Pixels q0 .. q0 + kBand of map m (zero past `rows`), channels k0 .. k0 +
-// 63 of x (zero past cin), for xs [kBand][kXP] as bf16, in two steps: load
-// (into registers) and store.  An item is 8 pixels of a channel pair, two
-// items a thread, both in registers at a time; neighbouring lanes
-// take neighbouring pairs, so the shared stores fall in distinct banks.
-// Where the 8 pixels are one aligned span (whole rows), each lane reads 32
-// contiguous bytes of a channel (one sector) with 16-byte loads (one load
-// for bf16 x).
-template <bool kRows, typename TI>
+// kKX - 1 of x (zero past cin), for xs [kBand][kXP] in the compute type, in
+// two steps: load (into registers) and store.  An item is 8 pixels of a
+// channel pair, kItems items a thread (2, or 1 where kWG = 2), all in
+// registers at a time; neighbouring lanes take neighbouring pairs, so the
+// shared stores fall in distinct banks.  Where the 8 pixels are one
+// aligned span (whole rows), each lane reads 32 contiguous bytes of a
+// channel (one sector) with 16-byte loads (one load for bf16 x).
+template <class S, bool kRows, typename TI>
 struct XTile {
+  using TC = typename S::TC;
+  static constexpr int kBand = S::kBand, kKX = S::kKX, kXP = S::kXP, kConsumers = S::kConsumers;
   static constexpr int kVec = 16 / sizeof(TI);  // pixels of one 16-byte load
-  static_assert((kBand / 8) * (kKX / 2) == 2 * kConsumers, "two items per consumer thread");
-  float v[2][2][8];
+  static constexpr int kItems = (kBand / 8) * (kKX / 2) / kConsumers;
+  static_assert(kItems * kConsumers == (kBand / 8) * (kKX / 2), "whole items a consumer thread");
+  float v[kItems][2][8];
 
   __device__ __forceinline__ void load(const TI* x, int HW, const PixMap& m, int q0, int rows,
                                        int k0, int cin) {
     const bool vec = kRows && HW % kVec == 0 && (m.lin0 + q0) % kVec == 0 &&
                      reinterpret_cast<uintptr_t>(x) % 16 == 0;
 #pragma unroll
-    for (int u = 0; u < 2; ++u) {
+    for (int u = 0; u < kItems; ++u) {
       const int i = threadIdx.x + u * kConsumers;
       const int p = 8 * (i / (kKX / 2)), c = k0 + 2 * (i % (kKX / 2));
 #pragma unroll
@@ -820,19 +687,23 @@ struct XTile {
     }
   }
 
-  __device__ __forceinline__ void store(__nv_bfloat16* xs) const {
+  __device__ __forceinline__ void store(TC* xs) const {
 #pragma unroll
-    for (int u = 0; u < 2; ++u) {
+    for (int u = 0; u < kItems; ++u) {
       const int i = threadIdx.x + u * kConsumers;
       const int p = 8 * (i / (kKX / 2)), c = 2 * (i % (kKX / 2));
 #pragma unroll
-      for (int t = 0; t < 8; ++t)
-        *reinterpret_cast<__nv_bfloat162*>(xs + (p + t) * kXP + c) =
-            __floats2bfloat162_rn(v[u][0][t], v[u][1][t]);
+      for (int t = 0; t < 8; ++t) {
+        if constexpr (S::kF32)
+          *reinterpret_cast<float2*>(xs + (p + t) * kXP + c) = make_float2(v[u][0][t], v[u][1][t]);
+        else
+          *reinterpret_cast<__nv_bfloat162*>(xs + (p + t) * kXP + c) =
+              __floats2bfloat162_rn(v[u][0][t], v[u][1][t]);
+      }
     }
   }
 
-  __device__ __forceinline__ void stage(__nv_bfloat16* xs, const TI* x, int HW, const PixMap& m,
+  __device__ __forceinline__ void stage(TC* xs, const TI* x, int HW, const PixMap& m,
                                         int q0, int rows, int k0, int cin) {
     load(x, HW, m, q0, rows, k0, cin);
     store(xs);
@@ -868,6 +739,20 @@ __device__ __forceinline__ void store_rows_bf16(const float (&acc)[4 * kJ],
   }
 }
 
+// Store relu(acc + bias) of this thread's fragment row gid + 8 h as f32,
+// 8-byte stores of channels 8 j + 2 tig and + 1; row_addr: the row at
+// channel 2 tig.
+template <int kJ>
+__device__ __forceinline__ void store_row_f32(const float (&acc)[4 * kJ], const float (&bv)[2 * kJ],
+                                              int h, uint32_t row_addr) {
+#pragma unroll
+  for (int j = 0; j < kJ; ++j)
+    asm volatile("st.shared.v2.f32 [%0], {%1, %2};" ::"r"(row_addr + 32 * j),
+                 "f"(fmaxf(acc[4 * j + 2 * h] + bv[2 * j], 0.f)),
+                 "f"(fmaxf(acc[4 * j + 2 * h + 1] + bv[2 * j + 1], 0.f))
+                 : "memory");
+}
+
 // This thread's biases of the fragment's channels 8 j + 2 tig + e (bv[2 j +
 // e]) from a slot of 8 kJ biases in shared memory.
 template <int kJ>
@@ -878,27 +763,29 @@ __device__ __forceinline__ void load_bias(float (&bv)[2 * kJ], const float* slot
     for (int e = 0; e < 2; ++e) bv[2 * j + e] = slot[8 * j + 2 * tig + e];
 }
 
-// Tensor maps: w1 [cin][width], w2 [9][width][width], w3 [width][cout],
-// wd [cin][cout] (w3's map where there is no projection).  kSums: the SE
-// sums pass (phases A and B, then m2's channel sums; w3 and wd unread).
-template <int kN, bool kRows, typename TI, typename TO, bool kSums>
-__global__ void __launch_bounds__(kThreadsW, 1)
+// Tensor maps, bf16: w1 [cin][width], w2 [9][width][width], w3
+// [width][cout], wd [cin][cout] (w3's map where there is no projection);
+// f32: the packed w1 [2][width][cin], w2 [9 * 2][width][width], w3
+// [2][cout][width], wd [2][cout][cin] (K padded to 8).  kSums: the SE sums
+// pass (phases A and B, then m2's channel sums; w3 and wd unread).
+template <int kN, typename TC, bool kRows, typename TI, typename TO, bool kSums>
+__global__ void __launch_bounds__(Shape<kN, TC>::kThreads, 1)
     bottleneck_block_wgmma_kernel(BlockArgs a, const __grid_constant__ CUtensorMap tm_w1,
                                   const __grid_constant__ CUtensorMap tm_w2,
                                   const __grid_constant__ CUtensorMap tm_w3,
                                   const __grid_constant__ CUtensorMap tm_wd) {
-  using bf16 = __nv_bfloat16;
-  using S = Shape<kN>;
-  constexpr int kJ = S::kJ, kP = S::kP;
-  constexpr int kIdnRows = S::kIdnRows;
+  using S = Shape<kN, TC>;
+  constexpr bool kF32 = S::kF32;
+  constexpr int kJ = S::kJ, kP = S::kP, kXP = S::kXP, kKX = S::kKX, kBand = S::kBand;
+  constexpr int kConsumers = S::kConsumers, kIdnRows = S::kIdnRows;
   extern __shared__ __align__(1024) unsigned char wgmma_smem[];
   unsigned char* base = wgmma_smem + ((1024 - (smem_u32(wgmma_smem) & 1023)) & 1023);
-  bf16* xs = reinterpret_cast<bf16*>(base + S::kXOff);
+  TC* xs = reinterpret_cast<TC*>(base + S::kXOff);
   float* red = reinterpret_cast<float*>(base + S::kRedOff);
   float* bias_s = reinterpret_cast<float*>(base + S::kBiasOff);
-  bf16* m1s = reinterpret_cast<bf16*>(base + S::kM1Off);
+  TC* m1s = reinterpret_cast<TC*>(base + S::kM1Off);
   const uint32_t bars = smem_u32(base + S::kBarOff);
-  Ring<kN> ring{smem_u32(base), bars, bars + 8 * S::kStages};
+  Ring<S> ring{smem_u32(base), bars, bars + 8 * S::kStages};
 
   const int tid = threadIdx.x;
   const Tile g = tile_of(a, blockIdx.x);
@@ -910,7 +797,7 @@ __global__ void __launch_bounds__(kThreadsW, 1)
   if (tid == 0) {
     for (int s = 0; s < S::kStages; ++s) {
       mbar_init(ring.full + 8 * s, 1);
-      mbar_init(ring.empty + 8 * s, kWarpsC);
+      mbar_init(ring.empty + 8 * s, S::kWarpsC);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
@@ -919,23 +806,43 @@ __global__ void __launch_bounds__(kThreadsW, 1)
   K2_MARK(t_all);
 
   if (tid >= kConsumers) {
-    // ---- the producer: thread 0 of warpgroup 3 walks the chunks
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
+    // ---- the producer: thread 0 of warpgroup kWG walks the chunks
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(S::kProducerRegs));
     if (tid != kConsumers) return;
-    auto issue = [&](const CUtensorMap* map, int c_n, int c_k, int tap, uint32_t box) {
-      K2_MARK(t0);
-      mbar_wait(ring.empty_bar(), ring.parity() ^ 1);
-      K2_ADD(kTProdWait, t0);
-      tma_chunk<S::kBoxes>(ring.data(), map, ring.full_bar(), c_n, c_k, tap, box);
-      ++ring.i;
-    };
-    for (int r = 0; r < rounds; ++r)
-      for (int kc = 0; kc < kchunks; ++kc) issue(&tm_w1, 0, kKX * kc, -1, 64 * kKX * 2);
-    for (int tap = 0; tap < 9; ++tap) issue(&tm_w2, 0, 0, tap, 64 * kN * 2);
-    for (int np = 0; np < passes; ++np) {
-      issue(&tm_w3, kN * np, 0, -1, 64 * kN * 2);
-      if (proj)
-        for (int kc = 0; kc < kchunks; ++kc) issue(&tm_wd, kN * np, kKX * kc, -1, 64 * kKX * 2);
+    if constexpr (kF32) {
+      // chunks of K = 32 (z: the plane of hi; lo is z + 1)
+      auto issue = [&](const CUtensorMap* map, int c_n, int c_k, int z) {
+        K2_MARK(t0);
+        mbar_wait(ring.empty_bar(), ring.parity() ^ 1);
+        K2_ADD(kTProdWait, t0);
+        tma_split_chunk(ring.data(), map, ring.full_bar(), c_n, c_k, z, S::kBox);
+        ++ring.i;
+      };
+      for (int r = 0; r < rounds; ++r)
+        for (int k = 0; k < kKX * kchunks; k += 32) issue(&tm_w1, 0, k, 0);
+      for (int tap = 0; tap < 9; ++tap)
+        for (int k = 0; k < kN; k += 32) issue(&tm_w2, 0, k, 2 * tap);
+      for (int np = 0; np < passes; ++np) {
+        for (int k = 0; k < kN; k += 32) issue(&tm_w3, kN * np, k, 0);
+        if (proj)
+          for (int k = 0; k < kKX * kchunks; k += 32) issue(&tm_wd, kN * np, k, 0);
+      }
+    } else {
+      auto issue = [&](const CUtensorMap* map, int c_n, int c_k, int tap, uint32_t box) {
+        K2_MARK(t0);
+        mbar_wait(ring.empty_bar(), ring.parity() ^ 1);
+        K2_ADD(kTProdWait, t0);
+        tma_chunk<kN / 64>(ring.data(), map, ring.full_bar(), c_n, c_k, tap, box);
+        ++ring.i;
+      };
+      for (int r = 0; r < rounds; ++r)
+        for (int kc = 0; kc < kchunks; ++kc) issue(&tm_w1, 0, kKX * kc, -1, 64 * kKX * 2);
+      for (int tap = 0; tap < 9; ++tap) issue(&tm_w2, 0, 0, tap, 64 * kN * 2);
+      for (int np = 0; np < passes; ++np) {
+        issue(&tm_w3, kN * np, 0, -1, 64 * kN * 2);
+        if (proj)
+          for (int kc = 0; kc < kchunks; ++kc) issue(&tm_wd, kN * np, kKX * kc, -1, 64 * kKX * 2);
+      }
     }
     K2_ADD(kTProdAll, t_all);
     K2_FLUSH(kTProdWait, kTimers);
@@ -944,17 +851,25 @@ __global__ void __launch_bounds__(kThreadsW, 1)
 
   // ---- the consumers: warpgroup wg, its warp wq (rows 16 wq .. 16 wq + 15
   // of the warpgroup's 64), fragment rows gid and gid + 8, channel pair tig
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(S::kConsumerRegs));
   const int b = blockIdx.y, HW = a.h * a.w, npix = g.npix;
   const int lane = tid & 31, wg = tid >> 7, wq = (tid >> 5) & 3, gid = lane >> 2, tig = lane & 3;
   const int row0 = 64 * wg + 16 * wq;  // this warp's first row of the tile
-  const int a_row = row0 + (lane & 15), a_k = 8 * (lane >> 4);
+  // A's row and channel: bf16, this lane's ldmatrix row; f32, this thread's
+  // first fragment row (the second is a_row + 8) and its channel pair
+  const int a_row = kF32 ? row0 + gid : row0 + (lane & 15);
+  const int a_k = kF32 ? 2 * tig : 8 * (lane >> 4);
   const TI* x = static_cast<const TI*>(a.x) + (size_t)b * cin * HW;
   float acc[4 * kJ];
+  // f32: acc += A . the next kext / 32 chunks, A's fragment rows (a_row and
+  // a_row + 8) at lo and hi, at channel a_k of the first chunk
+  auto products_f32 = [&](bool active, uint32_t lo, uint32_t hi, int kext) {
+    for (int k = 0; k < kext; k += 32) consume_tf32(ring, acc, active, lo + 4 * k, hi + 4 * k, k2c);
+  };
 
   {
     K2_MARK(t0);
-    for (int i = tid; i < (a.th + 2) * g.pitch * kP / 8; i += kConsumers)
+    for (int i = tid; i < (a.th + 2) * g.pitch * (kP * S::kES / 16); i += kConsumers)
       reinterpret_cast<uint4*>(m1s)[i] = make_uint4(0, 0, 0, 0);
     for (int i = tid; i < 2 * kN; i += kConsumers)  // b1 and b2, zero past the width
       bias_s[i] = i % kN < width ? (i < kN ? a.b1 : a.b2)[i % kN] : 0.f;
@@ -963,7 +878,7 @@ __global__ void __launch_bounds__(kThreadsW, 1)
 
   // ---- A: m1 = relu(x . w1 + b1) on the halo, in rounds of up to kBand
   // pixels; each x chunk's loads fly while the chunk before it is multiplied
-  XTile<kRows, TI> xt;
+  XTile<S, kRows, TI> xt;
   const int steps = rounds * kchunks;
   xt.load(x, HW, g.halo, 0, min(kBand, g.nhalo), 0, cin);
   for (int it = 0; it < steps; ++it) {
@@ -971,21 +886,30 @@ __global__ void __launch_bounds__(kThreadsW, 1)
     const int q0 = kBand * r, rows = min(kBand, g.nhalo - q0);
     if (kc == 0) zero(acc);
     K2_MARK(t0);
-    consumers_sync();  // every read of the previous x tile is done
+    consumers_sync<S>();  // every read of the previous x tile is done
     xt.store(xs);
-    consumers_sync();
+    consumers_sync<S>();
     if (it + 1 < steps) {
       const int q1 = kBand * ((it + 1) / kchunks);
       xt.load(x, HW, g.halo, q1, min(kBand, g.nhalo - q1), kKX * ((it + 1) % kchunks), cin);
     }
     K2_ADD(kTStage, t0);
-    consume(ring, acc, 64 * wg < rows, smem_u32(xs + a_row * kXP + a_k), kKX / 16, 64 * kKX * 2,
-            k2c);
+    const uint32_t xs_a = smem_u32(xs + a_row * kXP + a_k);
+    if constexpr (kF32)
+      products_f32(64 * wg < rows, xs_a, xs_a + 8 * kXP * 4, kKX);
+    else
+      consume(ring, acc, 64 * wg < rows, xs_a, kKX / 16, 64 * kKX * 2, k2c);
     if (kc + 1 < kchunks) continue;
     K2_MARK(t_epi);
     float bv[2 * kJ];
     load_bias<kJ>(bv, bias_s, tig);
-    {
+    if constexpr (kF32) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int q = a_row + 8 * h;
+        if (q < rows) store_row_f32<kJ>(acc, bv, h, smem_u32(m1s + halo_m1(g, q0 + q) * kP + a_k));
+      }
+    } else {
       const int q = row0 + 8 * ((lane >> 3) & 1) + (lane & 7);
       const uint32_t row = q < rows ? smem_u32(m1s + halo_m1(g, q0 + q) * kP) : smem_u32(red);
       store_rows_bf16<kJ>(acc, bv, row, q < rows);
@@ -994,14 +918,21 @@ __global__ void __launch_bounds__(kThreadsW, 1)
   }
   {
     K2_MARK(t0);
-    consumers_sync();  // m1 is complete
+    consumers_sync<S>();  // m1 is complete
     K2_ADD(kTSync, t0);
   }
 
   // ---- B: m2 = relu(3x3(m1) + b2): per tap, A rows are the halo at pixel + shift
   zero(acc);
   const bool x_once = proj && cin <= kKX;  // the projection's x tile is staged once
-  {
+  if constexpr (kF32) {
+    const uint32_t lo = smem_u32(m1s + band_m1(g, min(a_row, npix - 1)) * kP + a_k);
+    const uint32_t hi = smem_u32(m1s + band_m1(g, min(a_row + 8, npix - 1)) * kP + a_k);
+    for (int tap = 0; tap < 9; ++tap) {
+      const int shift = 4 * kP * ((tap / 3) * g.pitch + tap % 3);
+      products_f32(64 * wg < npix, lo + shift, hi + shift, kN);
+    }
+  } else {
     const uint32_t m1_row = smem_u32(m1s + band_m1(g, min(a_row, npix - 1)) * kP + a_k);
     for (int tap = 0; tap < 9; ++tap) {
       const int shift = (tap / 3) * g.pitch + tap % 3;
@@ -1009,13 +940,13 @@ __global__ void __launch_bounds__(kThreadsW, 1)
     }
   }
   K2_MARK(t_sync);
-  consumers_sync();  // every read of m1 is done: m2 overwrites it
+  consumers_sync<S>();  // every read of m1 is done: m2 overwrites it
   K2_ADD(kTSync, t_sync);
   if constexpr (kSums) {
     // ---- the SE sums pass: this tile's channel sums of m2 as conv3 reads
-    // it (rounded to bf16), per warp over its 16 rows (the xor tree over the
-    // lanes of one channel pair), then the 12 warps of a channel in a fixed
-    // order (deterministic, no atomics)
+    // it (rounded to the compute type), per warp over its 16 rows (the xor
+    // tree over the lanes of one channel pair), then the warps of a channel
+    // in a fixed order (deterministic, no atomics)
     K2_MARK(t_sums);
     float bv[2 * kJ];
     load_bias<kJ>(bv, bias_s + kN, tig);
@@ -1027,17 +958,16 @@ __global__ void __launch_bounds__(kThreadsW, 1)
 #pragma unroll
         for (int h = 0; h < 2; ++h)
           if (row0 + gid + 8 * h < npix)
-            s += __bfloat162float(
-                __float2bfloat16(fmaxf(acc[4 * j + 2 * h + e] + bv[2 * j + e], 0.f)));
+            s += rnd<TC>(fmaxf(acc[4 * j + 2 * h + e] + bv[2 * j + e], 0.f));
 #pragma unroll
         for (int o = 4; o < 32; o <<= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
         if (gid == 0) red[(tid >> 5) * kN + 8 * j + 2 * tig + e] = s;
       }
-    consumers_sync();
+    consumers_sync<S>();
     if (tid < width) {
       float s = red[tid];
 #pragma unroll
-      for (int w = 1; w < kWarpsC; ++w) s += red[w * kN + tid];
+      for (int w = 1; w < S::kWarpsC; ++w) s += red[w * kN + tid];
       a.partial[((size_t)b * a.tiles + blockIdx.x) * width + tid] = s;
     }
     K2_ADD(kTSe, t_sums);
@@ -1046,12 +976,19 @@ __global__ void __launch_bounds__(kThreadsW, 1)
     return;
   }
   K2_MARK(t_m2);
-  bf16* m2s = m1s;   // [tile pixel][kP]
+  TC* m2s = m1s;   // [tile pixel][kP]
   {
     float bv[2 * kJ];
     load_bias<kJ>(bv, bias_s + kN, tig);
-    const int p = row0 + 8 * ((lane >> 3) & 1) + (lane & 7);
-    store_rows_bf16<kJ>(acc, bv, p < npix ? smem_u32(m2s + p * kP) : smem_u32(red), p < npix);
+    if constexpr (kF32) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        if (a_row + 8 * h < npix)
+          store_row_f32<kJ>(acc, bv, h, smem_u32(m2s + (a_row + 8 * h) * kP + a_k));
+    } else {
+      const int p = row0 + 8 * ((lane >> 3) & 1) + (lane & 7);
+      store_rows_bf16<kJ>(acc, bv, p < npix ? smem_u32(m2s + p * kP) : smem_u32(red), p < npix);
+    }
   }
   __syncwarp();  // conv3 reads only this warp's own rows of m2
   K2_ADD(kTEpiB, t_m2);
@@ -1065,7 +1002,7 @@ __global__ void __launch_bounds__(kThreadsW, 1)
   if (x_once) {
     K2_MARK(t0);
     xt.stage(xs, x, HW, g.band, 0, npix, 0, cin);
-    consumers_sync();
+    consumers_sync<S>();
     K2_ADD(kTStage, t0);
   }
   // where there is no projection, the identity (the block's input itself,
@@ -1092,18 +1029,22 @@ __global__ void __launch_bounds__(kThreadsW, 1)
     // 2, whose readers all passed the barrier of pass np - 1), read after
     // conv3
     float* pass_bias = bias_s + kN * (2 + 3 * (np & 1));
-    if (tid < 3 * kN) {
-      const int k = tid / kN, n = n0 + tid % kN;
+    for (int i = tid; i < 3 * kN; i += kConsumers) {
+      const int k = i / kN, n = n0 + i % kN;
       const float* src = k == 0 ? a.b3 : k == 1 ? (proj ? a.bd : nullptr) : gate;
-      pass_bias[tid] = n < cout && src != nullptr ? src[n] : 0.f;
+      pass_bias[i] = n < cout && src != nullptr ? src[n] : 0.f;
     }
     // the identity's first row loaded before conv3, so that its latency
     // hides there
     if (kIdnRows == 1 && !proj) load_identity(n0);
     zero(acc);
-    consume(ring, acc, active, smem_u32(m2s + min(a_row, npix - 1) * kP + a_k), kN / 16,
-            64 * kN * 2, k2c);
-    consumers_sync();  // the pass's biases are in place
+    if constexpr (kF32)
+      products_f32(active, smem_u32(m2s + min(a_row, npix - 1) * kP + a_k),
+                   smem_u32(m2s + min(a_row + 8, npix - 1) * kP + a_k), kN);
+    else
+      consume(ring, acc, active, smem_u32(m2s + min(a_row, npix - 1) * kP + a_k), kN / 16,
+              64 * kN * 2, k2c);
+    consumers_sync<S>();  // the pass's biases are in place
     K2_MARK(t_se);
     {
       float bv[2 * kJ];
@@ -1130,17 +1071,21 @@ __global__ void __launch_bounds__(kThreadsW, 1)
     }
     K2_ADD(kTSe, t_se);
     if (proj) {
-      // identity = x . wd + bd, x's tile staged as bf16 per kKX channels
+      // identity = x . wd + bd, x's tile staged in the compute type per kKX
+      // channels
       for (int kc = 0; kc < kchunks; ++kc) {
         if (!x_once) {
           K2_MARK(t0);
           xt.load(x, HW, g.band, 0, npix, kKX * kc, cin);
-          consumers_sync();
+          consumers_sync<S>();
           xt.store(xs);
-          consumers_sync();
+          consumers_sync<S>();
           K2_ADD(kTStage, t0);
         }
-        consume(ring, acc, active, xs_row, kKX / 16, 64 * kKX * 2, k2c);
+        if constexpr (kF32)
+          products_f32(active, xs_row, xs_row + 8 * kXP * 4, kKX);
+        else
+          consume(ring, acc, active, xs_row, kKX / 16, 64 * kKX * 2, k2c);
       }
       K2_MARK(t0);
       float bv[2 * kJ];
@@ -1265,15 +1210,6 @@ __global__ void __launch_bounds__(kGateThreads)
     gate[(size_t)b * c + n] = 1.f / (1.f + expf(-(parts_sum(red, n, c) + sb2[n])));
 }
 
-template <typename K>
-cudaError_t launch(K kernel, const BlockArgs& a, int batch, size_t smem, cudaStream_t stream) {
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<dim3(a.tiles, batch), kThreads, smem, stream>>>(a);
-  return cudaGetLastError();
-}
-
 // cuTensorMapEncodeTiled from the driver the process has loaded (no link
 // against libcuda).
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -1303,73 +1239,93 @@ bool weight_map(CUtensorMap* map, const void* w, int rank, const cuuint64_t* dim
              CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// A packed f32 weight [planes][N][K] (ops/bottleneck_chain.pack_tf32; K
+// innermost, a multiple of 8) as a tensor map with boxes of 32 K by box_n
+// rows of one plane and the 128-byte swizzle; rows past N read as zeros.
+bool split_map(CUtensorMap* map, const void* w, const cuuint64_t* dims, cuuint32_t box_n) {
+  const EncodeTiledFn enc = encode_tiled();
+  if (enc == nullptr || reinterpret_cast<uintptr_t>(w) % 16 != 0 || dims[0] % 8 != 0) return false;
+  const cuuint64_t strides[2] = {4 * dims[0], 4 * dims[0] * dims[1]};
+  const cuuint32_t box[3] = {32, box_n, 1}, steps[3] = {1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(w), dims, strides, box,
+             steps, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The f32 instances' packed weights (ops/bottleneck_chain.pack_tf32), null
+// in bf16: w1 [2][width][cin8], w2 [18][width][width8], w3 [2][cout][width8],
+// wd [2][cout][cin8] or null (cin8, width8: cin and width padded to 8).
+struct Packed {
+  const void *w1, *w2, *w3, *wd;
+};
+
+constexpr cuuint64_t pad8(int v) { return (cuuint64_t)((v + 7) / 8 * 8); }
+
 // The most dynamic shared memory for `kernel`.
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-template <int kN, bool kRows, typename TI, bool kSums>
-cudaError_t launch_wgmma(const BlockArgs& a, int batch, bool out_bf16, cudaStream_t s) {
+template <int kN, typename TC, bool kRows, typename TI, bool kSums>
+cudaError_t launch_wgmma(const BlockArgs& a, const Packed& p, int batch, bool out_bf16,
+                         cudaStream_t s) {
+  using S = hopper::Shape<kN, TC>;
   const cuuint64_t width = a.width, cin = a.cin, cout = a.cout;
-  const cuuint64_t d1[2] = {width, cin}, d2[3] = {width, width, 9}, d3[2] = {cout, width},
-                   dd[2] = {cout, cin};
   CUtensorMap m1, m2, m3{}, md{};  // the sums pass reads neither w3 nor wd
-  if (!weight_map(&m1, a.w1, 2, d1, hopper::kKX) || !weight_map(&m2, a.w2, 3, d2, kN))
-    return cudaErrorInvalidValue;
-  // the sums pass stores no output: its one instance has an f32 output type
-  auto kernel = hopper::bottleneck_block_wgmma_kernel<kN, kRows, TI, float, kSums>;
-  if constexpr (!kSums) {
-    if (!weight_map(&m3, a.w3, 2, d3, kN) ||
-        !weight_map(&md, a.wd ? a.wd : a.w3, 2, a.wd ? dd : d3, hopper::kKX))
+  if constexpr (S::kF32) {
+    const cuuint64_t d1[3] = {pad8(a.cin), width, 2}, d2[3] = {pad8(a.width), width, 18},
+                     d3[3] = {pad8(a.width), cout, 2}, dd[3] = {pad8(a.cin), cout, 2};
+    if (!split_map(&m1, p.w1, d1, kN) || !split_map(&m2, p.w2, d2, kN)) return cudaErrorInvalidValue;
+    if (!kSums && (!split_map(&m3, p.w3, d3, kN) ||
+                   !split_map(&md, p.wd ? p.wd : p.w3, p.wd ? dd : d3, kN)))
       return cudaErrorInvalidValue;
-    if (out_bf16)
-      kernel = hopper::bottleneck_block_wgmma_kernel<kN, kRows, TI, __nv_bfloat16, false>;
+  } else {
+    const cuuint64_t d1[2] = {width, cin}, d2[3] = {width, width, 9}, d3[2] = {cout, width},
+                     dd[2] = {cout, cin};
+    if (!weight_map(&m1, a.w1, 2, d1, S::kKX) || !weight_map(&m2, a.w2, 3, d2, kN))
+      return cudaErrorInvalidValue;
+    if (!kSums && (!weight_map(&m3, a.w3, 2, d3, kN) ||
+                   !weight_map(&md, a.wd ? a.wd : a.w3, 2, a.wd ? dd : d3, S::kKX)))
+      return cudaErrorInvalidValue;
   }
-  const size_t smem = hopper::smem_bytes<kN>(a.th, a.tw);
+  // the sums pass stores no output, and f32 compute writes f32: their one
+  // instance has an f32 output type
+  auto kernel = hopper::bottleneck_block_wgmma_kernel<kN, TC, kRows, TI, float, kSums>;
+  if constexpr (!kSums && !S::kF32) {
+    if (out_bf16)
+      kernel = hopper::bottleneck_block_wgmma_kernel<kN, TC, kRows, TI, __nv_bfloat16, false>;
+  }
+  const size_t smem = hopper::smem_bytes<S>(a.th, a.tw);
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(a.tiles, batch), hopper::kThreadsW, smem, s>>>(a, m1, m2, m3, md);
+  kernel<<<dim3(a.tiles, batch), S::kThreads, smem, s>>>(a, m1, m2, m3, md);
   return cudaGetLastError();
 }
 
-// f32 compute: the CUDA-core kernel for widths up to 64 or up to 128; an
-// SE block's full pass (a.gate set) runs the instance with the gate.
-template <int kWMax, bool kRows, typename TI, bool kSums>
-cudaError_t launch_block(const BlockArgs& a, int batch, bool out_bf16, cudaStream_t s) {
-  auto kernel = bottleneck_block_kernel<kWMax, kRows, TI, float, float, false, kSums>;
-  if constexpr (!kSums) {
-    if (a.gate != nullptr)
-      kernel = out_bf16
-                   ? bottleneck_block_kernel<kWMax, kRows, TI, float, __nv_bfloat16, true, false>
-                   : bottleneck_block_kernel<kWMax, kRows, TI, float, float, true, false>;
-    else if (out_bf16)
-      kernel = bottleneck_block_kernel<kWMax, kRows, TI, float, __nv_bfloat16, false, false>;
-  }
-  return launch(kernel, a, batch, block_smem_bytes<kWMax>(a.th, a.tw), s);
-}
-
-// The compute type and the width pick the kernel: bf16 runs on wgmma
-// (products 64 channels wide up to width 64, 128 above), f32 on the CUDA
-// cores (tensor cores would round f32 operands); tiles of whole rows or
-// 2-D tiles; kSums: the SE sums pass of that kernel (it writes no output,
-// so its output type is f32).
-template <typename TI, bool kSums>
-cudaError_t launch_width(const BlockArgs& a, int batch, bool c_bf16, bool out_bf16,
+// The compute type and the width pick the instance: products 64 channels
+// wide up to width 64, 128 above; bf16 or f32 (3xTF32; f32 x and output
+// only); tiles of whole rows or 2-D tiles; kSums: the SE sums pass (it
+// writes no output, so its output type is f32).
+template <typename TC, typename TI, bool kSums>
+cudaError_t launch_typed(const BlockArgs& a, const Packed& p, int batch, bool out_bf16,
                          cudaStream_t s) {
   const bool rows = a.tw == a.w;
-  if (c_bf16) {
-    if (a.width <= 64)
-      return rows ? launch_wgmma<64, true, TI, kSums>(a, batch, out_bf16, s)
-                  : launch_wgmma<64, false, TI, kSums>(a, batch, out_bf16, s);
-    return rows ? launch_wgmma<128, true, TI, kSums>(a, batch, out_bf16, s)
-                : launch_wgmma<128, false, TI, kSums>(a, batch, out_bf16, s);
-  }
   if (a.width <= 64)
-    return rows ? launch_block<64, true, TI, kSums>(a, batch, out_bf16, s)
-                : launch_block<64, false, TI, kSums>(a, batch, out_bf16, s);
-  return rows ? launch_block<128, true, TI, kSums>(a, batch, out_bf16, s)
-              : launch_block<128, false, TI, kSums>(a, batch, out_bf16, s);
+    return rows ? launch_wgmma<64, TC, true, TI, kSums>(a, p, batch, out_bf16, s)
+                : launch_wgmma<64, TC, false, TI, kSums>(a, p, batch, out_bf16, s);
+  return rows ? launch_wgmma<128, TC, true, TI, kSums>(a, p, batch, out_bf16, s)
+              : launch_wgmma<128, TC, false, TI, kSums>(a, p, batch, out_bf16, s);
+}
+
+template <bool kSums>
+cudaError_t launch_block(const BlockArgs& a, const Packed& p, int batch, bool x_bf16,
+                         bool c_bf16, bool out_bf16, cudaStream_t s) {
+  using bf16 = __nv_bfloat16;
+  if (c_bf16)
+    return x_bf16 ? launch_typed<bf16, bf16, kSums>(a, p, batch, out_bf16, s)
+                  : launch_typed<bf16, float, kSums>(a, p, batch, out_bf16, s);
+  return launch_typed<float, float, kSums>(a, p, batch, false, s);
 }
 
 template <typename K>
@@ -1380,18 +1336,18 @@ int occupancy(K kernel, int threads, int smem) {
   return n;
 }
 
-template <int kWMax, bool kRows>
-int blocks_per_sm(bool c_bf16, int smem) {
-  if (c_bf16) {
-    const auto kernel = hopper::bottleneck_block_wgmma_kernel<kWMax, kRows, float, float, false>;
-    return allow_smem(kernel, smem) == cudaSuccess ? occupancy(kernel, hopper::kThreadsW, smem)
-                                                   : 0;
-  }
-  const auto kernel = bottleneck_block_kernel<kWMax, kRows, float, float, float, false, false>;
-  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem) !=
-      cudaSuccess)
-    return 0;
-  return occupancy(kernel, kThreads, smem);
+template <int kN, typename TC, bool kRows>
+int blocks_per_sm(int smem) {
+  const auto kernel = hopper::bottleneck_block_wgmma_kernel<kN, TC, kRows, float, float, false>;
+  return allow_smem(kernel, smem) == cudaSuccess
+             ? occupancy(kernel, hopper::Shape<kN, TC>::kThreads, smem)
+             : 0;
+}
+
+// The shared memory of the instance S for th x tw tiles, 0 beyond its limits.
+template <class S>
+size_t fit_bytes(int th, int tw) {
+  return hopper::tile_fits<S>(th, tw) ? hopper::smem_bytes<S>(th, tw) : 0;
 }
 
 }  // namespace
@@ -1400,41 +1356,43 @@ extern "C" {
 
 // Shared memory bytes of one block of threads for tiles of th rows by tw
 // columns at Bottleneck width `width` (bf16 compute if c_bf16, else f32);
-// 0 if that tile or width is beyond the kernels' limits (width <= 128; in
-// bf16 th * tw <= hopper::kBand and (th + 2) * (tw + 2) <= hopper::kStore;
-// in f32 th * tw and (th + 2) * tw within Cfg's kBand and kHalo).
+// 0 if that tile or width is beyond the kernel's limits (width <= 128;
+// th * tw <= Shape::kBand and (th + 2) * (tw + 2) <= Shape::kStore of the
+// instance: 192 and 320, but 128 and 180 for f32 at widths 65-128).
 int bottleneck_smem_bytes(int th, int tw, int width, int c_bf16) {
+  using bf16 = __nv_bfloat16;
+  using hopper::Shape;
   if (th < 1 || tw < 1 || width < 1 || width > 128) return 0;
-  size_t bytes;
-  if (c_bf16) {
-    if (!hopper::tile_fits(th, tw)) return 0;
-    bytes = width <= 64 ? hopper::smem_bytes<64>(th, tw) : hopper::smem_bytes<128>(th, tw);
-  } else if (width <= 64) {
-    if (!tile_fits<64>(th, tw)) return 0;
-    bytes = block_smem_bytes<64>(th, tw);
-  } else {
-    if (!tile_fits<128>(th, tw)) return 0;
-    bytes = block_smem_bytes<128>(th, tw);
-  }
+  const size_t bytes = width <= 64 ? (c_bf16 ? fit_bytes<Shape<64, bf16>>(th, tw)
+                                             : fit_bytes<Shape<64, float>>(th, tw))
+                                   : (c_bf16 ? fit_bytes<Shape<128, bf16>>(th, tw)
+                                             : fit_bytes<Shape<128, float>>(th, tw));
   return bytes <= (size_t)kMaxSmem ? (int)bytes : 0;
 }
 
 // Blocks of threads that fit on one SM (the occupancy calculator) for the
-// block kernel a launch with these tiles runs (f32 x and output; rows: the
-// tiles span whole rows); 0 if the tile is beyond the kernels' limits.
+// instance a launch with these tiles runs (f32 x and output; rows: the
+// tiles span whole rows); 0 if the tile is beyond the kernel's limits.
 int bottleneck_blocks_per_sm(int th, int tw, int width, int c_bf16, int rows) {
+  using bf16 = __nv_bfloat16;
   const int smem = bottleneck_smem_bytes(th, tw, width, c_bf16);
   if (smem == 0) return 0;
-  if (width <= 64)
-    return rows ? blocks_per_sm<64, true>(c_bf16, smem) : blocks_per_sm<64, false>(c_bf16, smem);
-  return rows ? blocks_per_sm<128, true>(c_bf16, smem) : blocks_per_sm<128, false>(c_bf16, smem);
+  if (width <= 64) {
+    if (c_bf16) return rows ? blocks_per_sm<64, bf16, true>(smem) : blocks_per_sm<64, bf16, false>(smem);
+    return rows ? blocks_per_sm<64, float, true>(smem) : blocks_per_sm<64, float, false>(smem);
+  }
+  if (c_bf16) return rows ? blocks_per_sm<128, bf16, true>(smem) : blocks_per_sm<128, bf16, false>(smem);
+  return rows ? blocks_per_sm<128, float, true>(smem) : blocks_per_sm<128, float, false>(smem);
 }
 
 // One folded Bottleneck block.  x: [B, Cin, H, W] (bf16 if x_bf16, else f32);
-// out: [B, Cout, H, W] (bf16 if out_bf16, else f32).  Weights are in the
-// compute type (bf16 if c_bf16, else f32), biases f32.  wd/bd and the SE
+// out: [B, Cout, H, W] (bf16 if out_bf16, else f32); f32 compute takes f32
+// x and writes f32 out only.  Weights are in the compute type (bf16 if
+// c_bf16, else f32), biases f32.  wd/bd and the SE
 // arguments may be null.  In bf16, width and Cout must be multiples of 8
-// and the weights 16-byte aligned (the tensor maps' rows).
+// and the weights 16-byte aligned (the tensor maps' rows).  In f32 the
+// products read w1p, w2p, w3p and wdp (Packed; wdp null without wd,
+// 16-byte aligned) and se_gate_kernel reads w3.
 // Tiles of th x tw pixels (bottleneck_smem_bytes must take them); for an
 // SE block, partial is f32 [B, tiles, width] scratch with tiles = ceil(h /
 // th) * ceil(w / tw), and gate f32 [B, Cout]: the sums pass, se_gate_kernel
@@ -1444,19 +1402,23 @@ int bottleneck_block_forward(const void* x, void* out, float* partial, float* ga
                              const void* w1, const float* b1, const void* w2, const float* b2,
                              const void* w3, const float* b3, const void* wd, const float* bd,
                              const void* sf1, const float* sb1, const void* sf2,
-                             const float* sb2, int batch, int cin, int width, int cout,
-                             int se_hidden, int h, int w, int th, int tw, int x_bf16, int c_bf16,
-                             int out_bf16, void* stream_) {
+                             const float* sb2, const void* w1p, const void* w2p,
+                             const void* w3p, const void* wdp, int batch, int cin, int width,
+                             int cout, int se_hidden, int h, int w, int th, int tw, int x_bf16,
+                             int c_bf16, int out_bf16, void* stream_) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
   if (bottleneck_smem_bytes(th, tw, width, c_bf16) == 0 || th > h || tw > w)
     return (int)cudaErrorInvalidValue;
+  if (!c_bf16 && (x_bf16 || out_bf16 || w1p == nullptr || w2p == nullptr || w3p == nullptr ||
+                  (wd && !wdp)))
+    return (int)cudaErrorInvalidValue;
+  const Packed p{w1p, w2p, w3p, wdp};
   const int tiles_w = (w + tw - 1) / tw;
   BlockArgs a{x,  out, partial, nullptr, w1, b1, w2, b2, w3, b3, wd, bd, cin, width, cout,
               h,  w,   th,      tw,      tiles_w, ((h + th - 1) / th) * tiles_w};
   cudaError_t err;
   if (sf1 != nullptr) {
-    err = x_bf16 ? launch_width<__nv_bfloat16, true>(a, batch, c_bf16, false, stream)
-                 : launch_width<float, true>(a, batch, c_bf16, false, stream);
+    err = launch_block<true>(a, p, batch, x_bf16, c_bf16, false, stream);
     if (err != cudaSuccess) return (int)err;
     // within the 48 KB a launch may take without asking (6.6 KB at width 128)
     const size_t gate_smem =
@@ -1472,9 +1434,7 @@ int bottleneck_block_forward(const void* x, void* out, float* partial, float* ga
     if (err != cudaSuccess) return (int)err;
     a.gate = gate;
   }
-  err = x_bf16 ? launch_width<__nv_bfloat16, false>(a, batch, c_bf16, out_bf16, stream)
-               : launch_width<float, false>(a, batch, c_bf16, out_bf16, stream);
-  return (int)err;
+  return (int)launch_block<false>(a, p, batch, x_bf16, c_bf16, out_bf16, stream);
 }
 
 #ifdef K2_PHASE_TIMERS

@@ -3,10 +3,12 @@
 Port of simple_pose_tpu/ops/pallas_bottleneck.py.  At eval time BatchNorm is
 a per-channel affine, so a chain of Bottleneck blocks folds into pure
 (matmul, bias, relu) ops.  On a CUDA tensor :func:`bottleneck_chain` runs the
-hand-written Hopper kernel ``csrc/bottleneck_chain.cu`` (a bf16
-``compute_dtype`` runs the products on ``wgmma`` with the weights streamed
-by TMA, 64 channels wide at Bottleneck widths up to 64 and 128 at widths
-65-128, f32 on CUDA cores).  A block without SE is one launch.  An SE block
+hand-written Hopper kernel ``csrc/bottleneck_chain.cu``: every product on
+``wgmma`` with the weights streamed by TMA, 64 channels wide at Bottleneck
+widths up to 64 and 128 at widths 65-128; a bf16 ``compute_dtype`` as bf16
+products, f32 as three TF32 products each (3xTF32, on the weights that
+:func:`prepare_blocks` splits and packs with :func:`pack_tf32`).  A block
+without SE is one launch.  An SE block
 is three: the block kernel's sums pass (m2's per-tile channel sums), the
 gate (their mean through conv3, the fcs and the sigmoid:
 :func:`se_gate_from_sums_reference` is its plain twin), then the block
@@ -33,7 +35,9 @@ Parity points held by both versions (the reference math):
 
 Folded blocks are dicts in the JAX package's layout: w1 [Cin, width], w2
 [3, 3, width, width], w3 [width, Cout], optional wd [Cin, Cout], SE fcs sf1
-[Cout, hidden], sf2 [hidden, Cout]; biases 1-D.  Activations are NCHW.
+[Cout, hidden], sf2 [hidden, Cout]; biases 1-D; prepared for f32 compute
+also the packs w1p, w2p, w3p, wdp (:func:`pack_tf32`).  Activations are
+NCHW.
 """
 
 from __future__ import annotations
@@ -50,9 +54,12 @@ from simple_pose_torch.utils.cuda_build import counts_launches, load_library
 
 __all__ = ["fold_conv_bn", "fold_bottleneck_blocks", "bottleneck_chain_reference",
            "bottleneck_chain", "prepare_blocks", "launch_plan", "LaunchPlan",
-           "se_gate_from_sums_reference", "k2_launch_kind"]
+           "se_gate_from_sums_reference", "k2_launch_kind", "tf32_round", "tf32_split",
+           "pack_tf32", "FOLDED_KEYS"]
 
 _MATRIX_KEYS = ("w1", "w2", "w3", "wd", "sf1", "sf2")
+# the weights of the products and the keys of their packs for the f32 instances
+_PACKED = {"w1": "w1p", "w2": "w2p", "w3": "w3p", "wd": "wdp"}
 
 
 def fold_conv_bn(kernel, scale, bias, mean, var, eps=1e-5):
@@ -97,9 +104,78 @@ def fold_bottleneck_blocks(blocks: Sequence[torch.nn.Module]) -> list:
 
 def prepare_blocks(blocks: Sequence[dict], compute_dtype) -> list:
     """Matrix operands in the compute dtype, biases f32, all contiguous (what
-    the kernel reads).  Idempotent, so a caller may prepare once."""
-    return [{k: (v.to(compute_dtype) if k in _MATRIX_KEYS else v.float()).contiguous()
-             for k, v in blk.items() if v is not None} for blk in blocks]
+    the kernel reads); in f32 also each product's weight packed for the
+    card's 3xTF32 products (:func:`pack_tf32`, under ``w1p``, ``w2p``,
+    ``w3p``, ``wdp``).  Idempotent: a pack is kept while it is current
+    (:func:`_pack_is_current`), so a caller that prepares once launches
+    only the kernel's route, and a weight replaced or changed in place is
+    packed anew."""
+    out = []
+    for blk in blocks:
+        d = {k: (v.to(compute_dtype) if k in _MATRIX_KEYS else v.float()).contiguous()
+             for k, v in blk.items() if v is not None
+             and (compute_dtype == torch.float32 or k not in _PACKED.values())}
+        if compute_dtype == torch.float32:
+            for k, pk in _PACKED.items():
+                if k not in d:
+                    d.pop(pk, None)
+                elif not _pack_is_current(d.get(pk), d[k]):
+                    d[pk] = pack_tf32(d[k])
+                    d[pk]._k2_packed_from = (d[k], _version(d[k]))
+        out.append(d)
+    return out
+
+
+def _pack_is_current(pack: Optional[torch.Tensor], w: torch.Tensor) -> bool:
+    """Whether ``pack`` may stand for ``pack_tf32(w)``: one that
+    prepare_blocks made records its weight and that weight's version, and
+    is current while the block holds that very tensor, unchanged; one
+    without that record (a loaded program's parameter, a copy moved to
+    another device) is taken as made from the block's weight."""
+    if pack is None:
+        return False
+    made = getattr(pack, "_k2_packed_from", None)
+    return made is None or (made[0] is w and made[1] == _version(w))
+
+
+def _version(t: torch.Tensor) -> Optional[int]:
+    """t's in-place version counter (None for an inference tensor, which
+    keeps none)."""
+    return None if t.is_inference() else t._version
+
+
+def tf32_round(t: torch.Tensor) -> torch.Tensor:
+    """f32 ``t`` rounded to TF32 as ``cvt.rna.tf32.f32`` rounds (to nearest,
+    ties away from zero): its low 13 mantissa bits cleared."""
+    bits = t.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split(t: torch.Tensor):
+    """(hi, lo) = (tf32(t), tf32(t - hi)): t = hi + lo to ~2^-22 of |t|, the
+    operands of the kernel's 3xTF32 products."""
+    hi = tf32_round(t)
+    return hi, tf32_round(t.float() - hi)
+
+
+# a k8 group of the packed weights: hardware k position p holds channel
+# _TF32_K_ORDER[p], so that one 8-byte load of channels 2 t and 2 t + 1
+# gives a thread its A fragment's columns t and t + 4
+_TF32_K_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
+
+
+def pack_tf32(w: torch.Tensor) -> torch.Tensor:
+    """A product's f32 weight [K, N] (w1, w3, wd) or [3, 3, K, N] (w2) as
+    the kernel's f32 instances read it: [planes, N, K8], plane 2 t + 0 the tf32
+    hi and 2 t + 1 the lo of tap t (t = 3 dy + dx; one tap for a 1x1), K
+    zero-padded to K8, a multiple of 8, and contiguous (tf32 wgmma reads B
+    K-major), each k8 group in _TF32_K_ORDER."""
+    k = w.shape[-2]
+    k8 = -(-k // 8) * 8
+    t = torch.stack(tf32_split(w), dim=-3)              # [..., 2, K, N]
+    t = F.pad(t, (0, 0, 0, k8 - k)).transpose(-1, -2)   # [..., 2, N, K8]
+    t = t.reshape(*t.shape[:-1], k8 // 8, 8)[..., list(_TF32_K_ORDER)]
+    return t.reshape(-1, t.shape[-3], k8).contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -188,21 +264,15 @@ def bottleneck_chain_reference(x, blocks: Sequence[dict], compute_dtype=torch.fl
 
 _KERNEL = "bottleneck_chain"
 _SUPPORTED = (torch.float32, torch.bfloat16)
-# csrc/bottleneck_chain.cu's Cfg (the f32 kernel): for Bottleneck widths up
-# to 64 and up to 128, the most pixels a tile holds (TH * TW) and the bound
-# on (TH + 2) * TW
-_TILE_LIMITS = {64: (192, 288), 128: (96, 192)}
-# its namespace hopper (the wgmma kernel, bf16 at every width): the most
-# pixels a tile holds (three 64-row wgmma tiles) and the bound on
-# (TH + 2) * (TW + 2) (m1 on the tile and its ring)
+# csrc/bottleneck_chain.cu's hopper::Shape: the most pixels a tile holds
+# (three 64-row wgmma tiles) and the bound on (TH + 2) * (TW + 2) (m1 on
+# the tile and its ring), bf16 at both product widths and f32 at 64
 WGMMA_BAND, WGMMA_STORE = 192, 320
-# the ring stages of its instance whose products are 64 or 128 channels wide
-_WGMMA_STAGES = {64: 4, 128: 3}
+# f32 at width 128 (m1 at 544 B a pixel): two 64-row wgmma tiles, m1 in
+# 180 pixels
+F32_WIDE_BAND, F32_WIDE_STORE = 128, 180
 MAX_WIDTH = 128
 SMEM_LIMIT = 232448  # one block of threads' shared memory on Hopper (227 KB)
-# the columns of a 2-D tile: one warp's pixels, so that a warp's 32 loads
-# along pixels of one channel read one contiguous span
-_TILE_W = 32
 
 
 class LaunchPlan(NamedTuple):
@@ -221,20 +291,30 @@ class LaunchPlan(NamedTuple):
         return self.tiles_h * self.tiles_w
 
 
+def _limits(wmax: int, bf16: bool) -> tuple:
+    """(band, store) of the kernel's instance: the most pixels a tile holds
+    and the bound on (TH + 2) * (TW + 2)."""
+    if wmax == 128 and not bf16:
+        return F32_WIDE_BAND, F32_WIDE_STORE
+    return WGMMA_BAND, WGMMA_STORE
+
+
 def _smem_bytes(th: int, tw: int, wmax: int, bf16: bool) -> int:
-    """Shared memory of one block of threads (bottleneck_smem_bytes)."""
-    band = _TILE_LIMITS[wmax][0]
+    """Shared memory of one block of threads (bottleneck_smem_bytes): 1 KB
+    of alignment, the ring of weight chunks (bf16: 4 stages of [64][64] or
+    3 of [128][128]; f32: the hi and lo [wmax][32] f32, 4 or 3 stages), the
+    x tile (band pixels of kKX + 8 channels: kKX 64, f32 at width 128 32),
+    the SE sums of the consumer warps, 8 slots of biases and SE gates, the
+    mbarriers, then m1 at wmax + 8 channels a pixel."""
+    es = 2 if bf16 else 4
+    band = _limits(wmax, bf16)[0]
     store = (th + 2) * (tw + 2)  # m1 on the tile and its 1-pixel ring
-    if bf16:
-        # the wgmma kernel with products wmax channels wide: 1 KB of
-        # alignment, the ring of [K][wmax] weight chunks, the x tile (192
-        # pixels of 72 channels), the SE sums of 12 warps, 8 slots of biases
-        # and SE gates, the mbarriers, then m1 at wmax + 8 channels a pixel
-        ring = _WGMMA_STAGES[wmax] * wmax * wmax * 2
-        return 1024 + ring + WGMMA_BAND * 72 * 2 + 20 * wmax * 4 + 64 + 2 * (wmax + 8) * store
-    kc, halo_round, k_chunk = 16, 32 * (9 if wmax == 64 else 3), 64 if wmax == 64 else 32
-    work = max(kc * halo_round + kc * wmax, k_chunk * wmax, k_chunk * wmax + kc * band + kc * wmax)
-    return 4 * (wmax * store + work)
+    stages = 4 if wmax == 64 else 3
+    ring = stages * (wmax * wmax * 2 if bf16 else 2 * wmax * 32 * 4)
+    kx = 32 if wmax == 128 and not bf16 else 64
+    warps = band // 16  # 4 per consumer warpgroup of 64 pixels
+    return (1024 + ring + band * (kx + 8) * es + warps * wmax * 4 + 8 * wmax * 4 + 64
+            + es * (wmax + 8) * store)
 
 
 @functools.lru_cache(maxsize=None)
@@ -242,39 +322,34 @@ def launch_plan(h: int, w: int, width: int, bf16: bool) -> LaunchPlan:
     """The tiles of one block launch on an [h, w] map at Bottleneck width
     ``width`` (``bf16``: bf16 compute, else f32).  A tile spans whole rows
     (TW = w) where a band of them fits, so its loads and stores stay
-    contiguous; wider maps take 2-D tiles of ``_TILE_W`` columns (the wgmma
-    kernel: 32 or 64, :func:`_wgmma_tile`) and as many rows as fit.  Needs
-    no library: the wrapper checks the result against the kernel's
-    ``bottleneck_smem_bytes``."""
+    contiguous; wider maps take 2-D tiles (:func:`_wgmma_tile`) and as many
+    rows as fit.  Needs no library: the wrapper checks the result against
+    the kernel's ``bottleneck_smem_bytes``."""
     if not 0 < width <= MAX_WIDTH:
         raise ValueError(f"the kernel takes Bottleneck widths 1..{MAX_WIDTH}, got {width} "
                          "(every trunk layer1_block_names accepts has 64 or 128)")
     if h < 1 or w < 1:
         raise ValueError(f"empty map {h}x{w}")
     wmax = 64 if width <= 64 else 128
-    if bf16:
-        th, tw = _wgmma_tile(h, w, wmax)
-    else:
-        band, halo = _TILE_LIMITS[wmax]
-        tw = w if min(halo // w - 2, band // w) >= 1 else _TILE_W
-        th = min(halo // tw - 2, band // tw, h)
+    th, tw = _wgmma_tile(h, w, wmax, *_limits(wmax, bf16))
     return LaunchPlan(th, tw, -(-h // th), -(-w // tw), wmax, _smem_bytes(th, tw, wmax, bf16))
 
 
-def _wgmma_tile(h: int, w: int, wmax: int) -> tuple:
-    """(th, tw) of the wgmma kernel.  Products 64 channels wide (Bottleneck
-    widths up to 64): whole rows (tw = w) up to 96 columns, as many as its
-    limits take, as the f32 kernel.  Otherwise whole rows or 2-D tiles of 32
-    or 64 columns, as many rows as its limits take; the tile with the most
-    pixels among those that hold a multiple of 64 (whole wgmma row tiles),
-    else the most pixels; whole rows where two tie."""
+def _wgmma_tile(h: int, w: int, wmax: int, band: int, store: int) -> tuple:
+    """(th, tw) within ``band`` pixels and (th + 2) * (tw + 2) <= ``store``.
+    Products 64 channels wide (Bottleneck widths up to 64): whole rows (tw =
+    w) up to 96 columns, as many as the limits take.  Otherwise whole rows
+    or 2-D tiles of 32 or 64 columns (f32 at width 128, whose m1 holds 180
+    pixels: also 16), as many rows as the limits take; the tile with the
+    most pixels among those that hold a multiple of 64 (whole wgmma row
+    tiles), else the most pixels; whole rows where two tie."""
     if wmax == 64 and w <= 96:
-        return min(h, WGMMA_BAND // w, WGMMA_STORE // (w + 2) - 2), w
+        return min(h, band // w, store // (w + 2) - 2), w
     best = None
-    for tw in (w, 32, 64):
+    for tw in (w, 32, 64) if band == WGMMA_BAND else (w, 16, 32, 64):
         if tw > w:
             continue
-        th = min(h, WGMMA_BAND // tw, WGMMA_STORE // (tw + 2) - 2)
+        th = min(h, band // tw, store // (tw + 2) - 2)
         if th < 1:
             continue
         th = next((t for t in range(th, 0, -1) if t * tw % 64 == 0), th)
@@ -289,7 +364,7 @@ def _lib():
     """The kernel's library (built on first use), with its C signatures."""
     lib = load_library(_KERNEL)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.bottleneck_block_forward.argtypes = [p] * 16 + [i] * 12 + [p]
+    lib.bottleneck_block_forward.argtypes = [p] * 20 + [i] * 12 + [p]
     lib.bottleneck_block_forward.restype = i
     lib.bottleneck_smem_bytes.argtypes = [i] * 4
     lib.bottleneck_smem_bytes.restype = i
@@ -313,6 +388,11 @@ def _check_block(blk, cin, cd, dev):
     if "sf1" in blk:
         hidden = blk["sf1"].shape[1]
         shapes.update(sf1=(cout, hidden), sb1=(hidden,), sf2=(hidden, cout), sb2=(cout,))
+    if cd == torch.float32:  # pack_tf32's [planes, N, K8]
+        cin8, width8 = -(-cin // 8) * 8, -(-width // 8) * 8
+        shapes.update(w1p=(2, width, cin8), w2p=(18, width, width8), w3p=(2, cout, width8))
+        if "wd" in blk:
+            shapes["wdp"] = (2, cout, cin8)
     for k, shape in shapes.items():
         t = blk[k]
         want = cd if k in _MATRIX_KEYS else torch.float32
@@ -323,13 +403,14 @@ def _check_block(blk, cin, cd, dev):
 
 
 def _tma_weights(blk: dict) -> dict:
-    """What the wgmma kernel (bf16, every width) reads: its tensor maps
-    need rows of a multiple of 16 bytes and 16-byte aligned bases.  So the
-    width is zero-padded to a multiple of 8 (w1's and w2's output channels,
-    w2's and w3's input channels, b1, b2: the padded channels of m1 and m2
-    are relu(0) = 0 and meet zero weights, so the block computes the same
+    """What the bf16 instances read: their tensor maps need rows of a
+    multiple of 16 bytes and 16-byte aligned bases.  So the width is
+    zero-padded to a multiple of 8 (w1's and w2's output channels, w2's and
+    w3's input channels, b1, b2: the padded channels of m1 and m2 are
+    relu(0) = 0 and meet zero weights, so the block computes the same
     function), a misaligned matrix is copied, and Cout must be a multiple of
-    8 already."""
+    8 already.  (The f32 instances read pack_tf32's packs, whose K is
+    padded to 8.)"""
     cout = blk["w3"].shape[1]
     if cout % 8:
         raise ValueError(f"Cout {cout}: the bf16 kernel takes Cout in multiples of 8 (every "
@@ -351,6 +432,9 @@ def _launch_block(lib, y, blk, compute_dtype, out_dtype, stream, index=0):
     bf16 = compute_dtype == torch.bfloat16
     if bf16:
         blk = _tma_weights(blk)
+    else:  # the packs' tensor maps need 16-byte aligned bases
+        blk = {k: v if k not in _PACKED.values() or v.data_ptr() % 16 == 0 else v.clone()
+               for k, v in blk.items()}
     width, cout = blk["w1"].shape[1], blk["w3"].shape[1]
     plan = launch_plan(h, w, width, bf16)
     smem = lib.bottleneck_smem_bytes(plan.th, plan.tw, width, int(bf16))
@@ -369,6 +453,7 @@ def _launch_block(lib, y, blk, compute_dtype, out_dtype, stream, index=0):
         _ptr(blk["w1"]), _ptr(blk["b1"]), _ptr(blk["w2"]), _ptr(blk["b2"]),
         _ptr(blk["w3"]), _ptr(blk["b3"]), _ptr(blk.get("wd")), _ptr(blk.get("bd")),
         _ptr(blk.get("sf1")), _ptr(blk.get("sb1")), _ptr(blk.get("sf2")), _ptr(blk.get("sb2")),
+        *(_ptr(blk.get(k)) for k in _PACKED.values()),
         bsz, cin, width, cout, hidden, h, w, plan.th, plan.tw,
         int(y.dtype == torch.bfloat16), int(bf16), int(out_dtype == torch.bfloat16), stream)
     if rc != 0:
@@ -379,6 +464,9 @@ def _launch_block(lib, y, blk, compute_dtype, out_dtype, stream, index=0):
 def _bottleneck_chain_cuda(x, blocks, compute_dtype):
     if x.dtype not in _SUPPORTED or compute_dtype not in _SUPPORTED:
         raise ValueError(f"x {x.dtype} / compute {compute_dtype}: kernel takes f32 or bf16")
+    if compute_dtype == torch.float32 and x.dtype != torch.float32:
+        raise ValueError(f"x {x.dtype} with f32 compute: the kernel's f32 instances take f32 x "
+                         "(an f32 model feeds f32)")
     if x.dim() != 4 or not x.is_contiguous() or not 0 < x.shape[0] <= 65535:
         raise ValueError("x must be a contiguous NCHW tensor with 1..65535 samples")
     lib = _lib()
@@ -394,7 +482,11 @@ def _bottleneck_chain_cuda(x, blocks, compute_dtype):
     return y
 
 
-_BLOCK_KEYS = ("w1", "b1", "w2", "b2", "w3", "b3", "wd", "bd", "sf1", "sb1", "sf2", "sb2")
+# a folded block's own tensors, the function's inputs
+FOLDED_KEYS = ("w1", "b1", "w2", "b2", "w3", "b3", "wd", "bd", "sf1", "sb1", "sf2", "sb2")
+# the op's flat parameters: the folded tensors, then the f32 packs (absent,
+# so None, in bf16), so that an exported f32 program carries its packs
+_BLOCK_KEYS = (*FOLDED_KEYS, *_PACKED.values())
 
 
 def _flatten_blocks(blocks) -> list:
@@ -434,8 +526,8 @@ def _chain_op_fake(x, params, bf16):
 
 def _kernel_flags(name: str) -> list:
     """The bool template arguments of a block kernel's name as a profiler
-    trace gives it, demangled (``<64, true, __nv_bfloat16, float, false>``)
-    or mangled (``...ILi64ELb1E13__nv_bfloat16fLb0EEEv...``)."""
+    trace gives it, demangled (``<64, float, true, __nv_bfloat16, float,
+    false>``) or mangled (``...ILi64EfLb1E13__nv_bfloat16fLb0EEEv...``)."""
     m = re.search(r"bottleneck_block\w*<([^<>]*)>", name)
     if m:
         return [a.strip() == "true" for a in m.group(1).split(",")

@@ -8,7 +8,7 @@ compiled for Hopper into ``build/`` at the root of the checkout:
          csrc/<name>.cu
 
 ``--split-compile=0`` runs the optimizer over a source's kernels on all
-cores (bottleneck_chain.cu holds 32 kernel instantiations); the registers
+cores (bottleneck_chain.cu holds 50 kernel instantiations); the registers
 per kernel stay the same (scripts/time_torch_k2.py prints them).
 
 The file name carries a hash of the source, so an edited source is rebuilt

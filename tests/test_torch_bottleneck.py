@@ -8,7 +8,10 @@ import numpy as np
 import pytest
 import torch
 
+from simple_pose_torch.ops import bottleneck_chain as k2
 from simple_pose_torch.ops.bottleneck_chain import (
+    F32_WIDE_BAND,
+    F32_WIDE_STORE,
     MAX_WIDTH,
     SMEM_LIMIT,
     WGMMA_BAND,
@@ -23,8 +26,12 @@ from simple_pose_torch.ops.bottleneck_chain import (
     fold_bottleneck_blocks,
     k2_launch_kind,
     launch_plan,
+    pack_tf32,
+    prepare_blocks,
     se_gate_from_sums_reference,
     se_mean_from_sums_reference,
+    tf32_round,
+    tf32_split,
 )
 
 torch.set_num_threads(1)
@@ -35,6 +42,9 @@ torch.set_num_threads(1)
 # downstream products; f32 differs by sum order only.
 BF16_MAX_REL, BF16_MEAN_REL = 1e-2, 1e-3
 F32_ATOL = 1e-5
+# f32 on the card (3xTF32 products) against the plain version, relative to
+# max|plain|, max and mean: chip_smoke.py's TOL["f32"]
+F32_MAX_REL, F32_MEAN_REL = 1e-4, 1e-6
 
 
 def _rand_block(rng, cin, width, cout, downsample, se, hidden=None):
@@ -263,17 +273,18 @@ def test_se_gate_from_sums_matches_the_chain(dtype, hw):
 
 def test_k2_launch_kind_reads_profiler_names():
     """The kernel names a profiler trace gives K2's launches, demangled and
-    mangled: the sums pass is the block kernel with its last flag set."""
-    full = ("void (anonymous namespace)::hopper::bottleneck_block_wgmma_kernel<64, true, "
-            "__nv_bfloat16, float, false>((anonymous namespace)::BlockArgs, CUtensorMap_st)")
+    mangled: the sums pass is the block kernel with its last flag set, in
+    both compute types."""
+    full = ("void (anonymous namespace)::hopper::bottleneck_block_wgmma_kernel<64, "
+            "__nv_bfloat16, true, __nv_bfloat16, float, false>((anonymous namespace)::BlockArgs, "
+            "CUtensorMap_st)")
     assert k2_launch_kind(full) == "block"
     assert k2_launch_kind(full.replace("float, false>", "float, true>")) == "sums"
-    f32 = ("void (anonymous namespace)::bottleneck_block_kernel<128, false, float, float, float, "
-           "false, true>")
+    f32 = ("void (anonymous namespace)::hopper::bottleneck_block_wgmma_kernel<128, float, false, "
+           "float, float, true>((anonymous namespace)::BlockArgs, CUtensorMap_st)")
     assert k2_launch_kind(f32) == "sums"
-    assert k2_launch_kind(f32.replace("false, true>", "true, false>")) == "block"
-    mangled = ("_ZN12_GLOBAL__N_16hopper29bottleneck_block_wgmma_kernelILi64ELb1E13__nv_bfloat16fLb"
-               "{}EEEv")
+    assert k2_launch_kind(f32.replace("float, true>", "float, false>")) == "block"
+    mangled = "_ZN12_GLOBAL__N_16hopper29bottleneck_block_wgmma_kernelILi64EfLb1EffLb{}EEEv"
     assert k2_launch_kind(mangled.format(0)) == "block"
     assert k2_launch_kind(mangled.format(1)) == "sums"
     assert k2_launch_kind("void (anonymous namespace)::se_gate_kernel<float>(...)") == "se_gate"
@@ -315,10 +326,11 @@ def test_launch_plan_covers_every_trunk(trunk):
     """For every trunk the fused layer1 takes, at the configs' input sizes
     and at input widths up to 1024 (layer1 at a quarter of the input): the
     kernel's tiles cover the map once, stay within its tile limits, and
-    their shared memory fits one block of threads (227 KB).  The wgmma
-    kernel (bf16) takes up to three 64-row wgmma tiles with m1 and its ring
-    in WGMMA_STORE pixels, and at widths 65-128 a multiple of 64 pixels on
-    every map of at least 6 rows and 32 columns."""
+    their shared memory fits one block of threads (227 KB).  The kernel
+    takes up to three 64-row wgmma tiles with m1 and its ring in
+    WGMMA_STORE pixels (f32 at widths 65-128: two, in F32_WIDE_STORE), and
+    at widths 65-128 a multiple of 64 pixels on every map of at least 6 rows
+    and 32 columns."""
     import glob
 
     from simple_pose_torch.train.config import load_config
@@ -330,21 +342,18 @@ def test_launch_plan_covers_every_trunk(trunk):
     assert (192, 256) in sizes
     maps = {(ih // 4, iw // 4) for iw, ih in sizes}
     maps |= {(h, iw // 4) for h in (1, 7, 64, 96) for iw in range(4, 1025, 4)}
-    limits = {64: (192, 288), 128: (96, 192)}
     for width in widths:
         for h, w in sorted(maps):
             for bf16 in (False, True):
                 plan = launch_plan(h, w, width, bf16)
                 assert plan.wmax == (64 if width <= 64 else 128)
                 assert 1 <= plan.th <= h and 1 <= plan.tw <= w, (h, w, plan)
-                if bf16:
-                    assert plan.th * plan.tw <= WGMMA_BAND, plan
-                    assert (plan.th + 2) * (plan.tw + 2) <= WGMMA_STORE, plan
-                    if width > 64 and h >= 6 and w >= 32:
-                        assert plan.th * plan.tw % 64 == 0, (h, w, plan)
-                else:
-                    band, halo = limits[plan.wmax]
-                    assert plan.th * plan.tw <= band and (plan.th + 2) * plan.tw <= halo, plan
+                band, store = ((F32_WIDE_BAND, F32_WIDE_STORE) if width > 64 and not bf16
+                               else (WGMMA_BAND, WGMMA_STORE))
+                assert plan.th * plan.tw <= band, plan
+                assert (plan.th + 2) * (plan.tw + 2) <= store, plan
+                if width > 64 and h >= 6 and w >= 32:
+                    assert plan.th * plan.tw % 64 == 0, (h, w, plan)
                 rows = np.zeros(h, int)
                 cols = np.zeros(w, int)
                 for t in range(plan.tiles_h):
@@ -355,10 +364,13 @@ def test_launch_plan_covers_every_trunk(trunk):
                 assert 0 < plan.smem_bytes <= SMEM_LIMIT, (h, w, width, bf16, plan)
                 if w <= 96 and width <= 64:  # a band of whole rows, as before 2-D tiles
                     assert plan.tw == w
-    # the flagship's layer1 keeps its bands of 4 whole rows; the wide
-    # ResNets' takes bands of 4 whole rows too (192 pixels)
+    # the flagship's layer1 keeps its bands of 4 whole rows in both compute
+    # types; the wide ResNets' takes bands of 4 whole rows too (192 pixels)
+    # in bf16, and 8 x 16 tiles (128 pixels, m1 in 180) in f32
     assert launch_plan(64, 48, 64, True)[:4] == (4, 48, 16, 1)
+    assert launch_plan(64, 48, 64, False)[:4] == (4, 48, 16, 1)
     assert launch_plan(64, 48, 128, True)[:4] == (4, 48, 16, 1)
+    assert launch_plan(64, 48, 128, False)[:4] == (8, 16, 8, 3)
 
 
 def test_launch_plan_refuses_beyond_the_kernel():
@@ -410,6 +422,140 @@ def test_wide_weights_pad_and_align(dtype, width):
     out = _tma_weights(blk)
     assert all(t.data_ptr() % 16 == 0 for t in out.values())
     assert torch.equal(out["wd"], view)
+
+
+def _unpack_tf32(packed, k):
+    """pack_tf32's [planes, N, K8] back to its hi and lo [taps, K, N] and the
+    K padding [taps, 2, N, K8 - K]."""
+    order = k2._TF32_K_ORDER
+    k8 = packed.shape[-1]
+    idx = torch.tensor([8 * g + order[p] for g in range(k8 // 8) for p in range(8)])
+    natural = torch.empty_like(packed)
+    natural[..., idx] = packed
+    natural = natural.reshape(-1, 2, *packed.shape[1:])  # [taps, 2, N, K8]
+    return natural[:, 0, :, :k].transpose(1, 2), natural[:, 1, :, :k].transpose(1, 2), \
+        natural[..., k:]
+
+
+def test_tf32_split_and_pack():
+    """The host split and pack of the f32 products' weights: hi and lo are
+    TF32 values (their low 13 bits zero), |w - hi - lo| <= 2^-21 |w|, hi is
+    w rounded to nearest with ties away from zero (cvt.rna); the packs of
+    w1, w2, w3 and wd map back to the folded weights (hi and lo planes per
+    tap, each k8 group in the kernel's order), the K padding of a width or
+    Cin not a multiple of 8 zero."""
+    rng = np.random.default_rng(90)
+    vals = torch.from_numpy(np.concatenate([
+        rng.normal(0, 1, 4000), rng.normal(0, 1e-3, 4000), rng.normal(0, 1e4, 4000),
+        [0.0, 1.0, -1.0, 3.0000002, 1e-30, -5e20]]).astype(np.float32))
+    hi, lo = tf32_split(vals)
+    for t in (hi, lo):
+        assert not (t.view(torch.int32) & 0x1FFF).any()
+    assert ((vals - hi - lo).abs() <= 2.0 ** -21 * vals.abs()).all()
+    assert ((vals - hi).abs() <= 2.0 ** -11 * vals.abs()).all()
+    tie = torch.tensor([1 + 2.0 ** -11, -(1 + 2.0 ** -11), 1 + 3 * 2.0 ** -11])
+    assert torch.equal(tf32_round(tie), torch.tensor([1 + 2.0 ** -10, -(1 + 2.0 ** -10),
+                                                      1 + 2 * 2.0 ** -10]))
+
+    blk = _torch_blocks([_rand_block(rng, 40, 20, 48, True, False)])[0]
+    for key, (taps, k, n) in {"w1": (1, 40, 20), "w2": (9, 20, 20), "w3": (1, 20, 48),
+                              "wd": (1, 40, 48)}.items():
+        w = blk[key]
+        packed = pack_tf32(w)
+        assert packed.shape == (2 * taps, n, -(-k // 8) * 8) and packed.is_contiguous(), key
+        got_hi, got_lo, pad = _unpack_tf32(packed, k)
+        want_hi, want_lo = tf32_split(w.reshape(taps, k, n))
+        assert torch.equal(got_hi, want_hi) and torch.equal(got_lo, want_lo), key
+        assert not pad.any(), key
+
+
+def test_prepare_blocks_packs_once():
+    """prepare_blocks in f32 packs each product's weight (w1p, w2p, w3p,
+    and wdp where the block has a projection) in the shapes the kernel's
+    wrapper checks, and is idempotent: a prepared chain prepared again
+    keeps its very tensors (no second pack, so a chain on the card
+    launches only its route's kernels); bf16 preparing drops the packs."""
+    rng = np.random.default_rng(91)
+    blocks = _torch_blocks(_se_chain_np(rng, (0,), n_blocks=2, width=20))
+    once = prepare_blocks(blocks, torch.float32)
+    assert {"w1p", "w2p", "w3p", "wdp"} <= set(once[0]) and "wdp" not in once[1]
+    twice = prepare_blocks(once, torch.float32)
+    for a, b in zip(once, twice):
+        assert a.keys() == b.keys() and all(a[key] is b[key] for key in a)
+    cin = 16
+    for blk in once:
+        cin = k2._check_block(blk, cin, torch.float32, torch.device("cpu"))[1]
+    for blk in prepare_blocks(once, torch.bfloat16):
+        assert not {"w1p", "w2p", "w3p", "wdp"} & set(blk)
+    x = _nchw(rng.normal(0, 1, (1, 5, 4, 16)).astype(np.float32))
+    assert torch.equal(bottleneck_chain(x, once), bottleneck_chain_reference(x, blocks))
+
+
+def test_prepare_blocks_repacks_a_changed_weight(monkeypatch):
+    """A pack is tied to the weight it was made from: a prepared block
+    whose w3 is replaced by another tensor, or whose w1 changes in place,
+    gets those packs anew from prepare_blocks and keeps the others; the
+    registered op hands the kernel's route the very pack tensors (with
+    their record), so a prepared chain is not packed again inside a call."""
+    rng = np.random.default_rng(93)
+    once = prepare_blocks(_torch_blocks(_se_chain_np(rng, (0,), n_blocks=1, width=20)),
+                          torch.float32)[0]
+    new_w3 = torch.from_numpy(rng.normal(0, 1, tuple(once["w3"].shape)).astype(np.float32))
+    swapped = prepare_blocks([{**once, "w3": new_w3}], torch.float32)[0]
+    assert swapped["w3p"] is not once["w3p"] and torch.equal(swapped["w3p"], pack_tf32(new_w3))
+    assert all(swapped[k] is once[k] for k in ("w1p", "w2p", "wdp"))
+    once["w1"].mul_(2.0)
+    again = prepare_blocks([once], torch.float32)[0]
+    assert again["w1p"] is not once["w1p"] and torch.equal(again["w1p"], pack_tf32(once["w1"]))
+    assert all(again[k] is once[k] for k in ("w2p", "w3p", "wdp"))
+    seen = []
+    reference = k2.bottleneck_chain_reference
+    monkeypatch.setattr(k2, "bottleneck_chain_reference",
+                        lambda x, blocks, cd: seen.append(blocks) or reference(x, blocks, cd))
+    bottleneck_chain(_nchw(rng.normal(0, 1, (1, 5, 4, 16)).astype(np.float32)), [again])
+    assert all(seen[0][0][k] is again[k] for k in ("w1p", "w2p", "w3p", "wdp"))
+    assert prepare_blocks(seen[0], torch.float32)[0]["w1p"] is again["w1p"]
+
+
+def test_card_route_refuses_bf16_x_with_f32_compute():
+    """The kernel's f32 instances take f32 x (an f32 model feeds f32): the
+    card's route refuses bf16 x with f32 compute before it builds or
+    launches anything."""
+    x, blocks = _chain_np(batch=1)
+    with pytest.raises(ValueError, match="f32 compute"):
+        k2._bottleneck_chain_cuda(_nchw(x, dtype=torch.bfloat16), _torch_blocks(blocks),
+                                  torch.float32)
+
+
+@pytest.mark.parametrize("products", ["3xtf32", "1xtf32"])
+def test_tf32_products_emulated(monkeypatch, products):
+    """The card's f32 products emulated in plain torch on the flagship
+    layer1's channels (64 -> 64 -> 256, 3 blocks, SE and a projection in
+    block 0, fan-in scaled weights) on relu'd inputs on a 2 x 8 x 6 map:
+    each operand split into TF32 hi and lo and summed as a_lo . b_hi +
+    a_hi . b_lo + a_hi . b_hi (products exact in f32, as on the tensor
+    cores; only the order of sums differs) lands within F32_MAX_REL /
+    F32_MEAN_REL of the true f32 chain; one TF32 product per product
+    (a_hi . b_hi) lands outside them, so the bound tells the two apart."""
+    rng = np.random.default_rng(92)
+    blocks = [_rand_block(rng, 64, 64, 256, True, True, hidden=16)]
+    blocks += [_rand_block(rng, 256, 64, 256, False, False) for _ in range(2)]
+    blocks = _torch_blocks(_fan_in_scaled(blocks))
+    x = _nchw(np.abs(rng.normal(0, 1, (2, 8, 6, 64))).astype(np.float32))
+    want = bottleneck_chain_reference(x, blocks)
+
+    def tf32_mm(y, w, cd):
+        (ah, al), (bh, bl) = tf32_split(y), tf32_split(w)
+        terms = ((al, bh), (ah, bl), (ah, bh)) if products == "3xtf32" else ((ah, bh),)
+        return sum(torch.einsum("bchw,cn->bnhw", a, b) for a, b in terms)
+
+    monkeypatch.setattr(k2, "_mm", tf32_mm)
+    got = bottleneck_chain_reference(x, blocks)
+    err = (got - want).abs()
+    scale = want.abs().max().item()
+    max_rel, mean_rel = err.max().item() / scale, err.mean().item() / scale
+    within = max_rel < F32_MAX_REL and mean_rel < F32_MEAN_REL
+    assert within == (products == "3xtf32"), (max_rel, mean_rel)
 
 
 def test_zero_pad_after_relu():
@@ -514,7 +660,7 @@ def cuda_device():
 
 def _check_cuda_chain(device, x, blocks, x_dtype, cd):
     """One kernel call against the plain version on the card: one launch,
-    the input's dtype and shape, f32 to 1e-4 relative, bf16 to
+    the input's dtype and shape, f32 to F32_MAX_REL / F32_MEAN_REL, bf16 to
     BF16_MAX_REL / BF16_MEAN_REL."""
     dt = {"f32": torch.float32, "bf16": torch.bfloat16}
     xt = _nchw(x, device, dt[x_dtype])
@@ -529,7 +675,8 @@ def _check_cuda_chain(device, x, blocks, x_dtype, cd):
     err = (got.float() - want).abs()
     scale = want.abs().max().item()
     if cd == "f32":
-        assert err.max().item() < 1e-4 * scale
+        assert err.max().item() < F32_MAX_REL * scale, (err.max().item(), scale)
+        assert err.mean().item() < F32_MEAN_REL * scale, (err.mean().item(), scale)
     else:
         assert err.max().item() < BF16_MAX_REL * scale
         assert err.mean().item() < BF16_MEAN_REL * scale
@@ -603,16 +750,20 @@ def test_kernel_checks_the_launch_plan_cuda(cuda_device):
                     plan.smem_bytes
     assert lib.bottleneck_smem_bytes(4, 48, 129, 1) == 0
     assert lib.bottleneck_smem_bytes(5, 48, 64, 1) == 0  # 240 pixels > 192
-    assert lib.bottleneck_smem_bytes(3, 48, 128, 0) == 0  # f32: 144 pixels > 96
+    assert lib.bottleneck_smem_bytes(3, 48, 128, 0) == 0  # f32: 144 pixels > 128
+    assert lib.bottleneck_smem_bytes(2, 48, 128, 0) == 0  # f32: 4 x 50 > 180 of m1
+    assert lib.bottleneck_smem_bytes(8, 16, 128, 0) > 0   # f32: 128 pixels, 10 x 18 of m1
+    assert lib.bottleneck_smem_bytes(5, 48, 64, 0) == 0   # f32: 240 pixels > 192
     assert lib.bottleneck_smem_bytes(5, 48, 128, 1) == 0  # wgmma: 240 pixels > 192
     assert lib.bottleneck_smem_bytes(2, 104, 128, 1) == 0  # wgmma: 4 x 106 > 320 of m1
     assert lib.bottleneck_smem_bytes(2, 104, 64, 1) == 0  # the same at width 64
-    # one block of threads per SM in bf16 at both widths (also on 2-D
-    # tiles), two at width 64 in f32
+    # one block of threads per SM in both compute types at both widths
+    # (also on 2-D tiles)
     assert lib.bottleneck_blocks_per_sm(4, 48, 128, 1, 1) == 1
     assert lib.bottleneck_blocks_per_sm(4, 48, 64, 1, 1) == 1
     assert lib.bottleneck_blocks_per_sm(6, 32, 64, 1, 0) == 1
-    assert lib.bottleneck_blocks_per_sm(4, 48, 64, 0, 1) == 2
+    assert lib.bottleneck_blocks_per_sm(4, 48, 64, 0, 1) == 1
+    assert lib.bottleneck_blocks_per_sm(8, 16, 128, 0, 0) == 1
 
 
 def _wide_chain(rng, cin, width, cout, n_blocks, se, projection=True):
@@ -649,33 +800,37 @@ _WGMMA_CASES = {
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("x_dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("x_dtype,cd", [("f32", "bf16"), ("bf16", "bf16"), ("f32", "f32")])
 @pytest.mark.parametrize("case", sorted(_WGMMA_CASES))
-def test_wgmma_kernel_matches_reference_cuda(cuda_device, x_dtype, case):
-    """The wgmma kernel (bf16) against the plain version: wide_resnet50_2's
+def test_wgmma_kernel_matches_reference_cuda(cuda_device, x_dtype, case, cd):
+    """The wgmma kernel (bf16, and f32 in 3xTF32) against the plain version: wide_resnet50_2's
     layer1 shape (64 -> 128 -> 256, SE, a projection) at batch 1, 3 and 128
     (a ragged last wave of tiles), on 2-D tiles of 64x97 / 64x128 / 64x200
     maps, with ragged channel counts (cin 40, width 100 padded to 104, cout
     48), without SE, and a lone identity block; the w64 cases at widths up
-    to 64 (products 64 channels wide)."""
+    to 64 (products 64 channels wide); f32 also to F32_MEAN_REL."""
     (batch, h, w), cin, width, cout, n_blocks, se, projection = _WGMMA_CASES[case]
     rng = np.random.default_rng(50)
     blocks = _wide_chain(rng, cin, width, cout, n_blocks, se, projection)
     x = rng.normal(0, 1, (batch, h, w, cin)).astype(np.float32)
-    _check_cuda_chain(cuda_device, x, blocks, x_dtype, "bf16")
+    _check_cuda_chain(cuda_device, x, blocks, x_dtype, cd)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("cd", ["bf16", "f32"])
 @pytest.mark.parametrize("width", [64, 128])
-def test_wgmma_kernel_is_deterministic_cuda(cuda_device, width):
+def test_wgmma_kernel_is_deterministic_cuda(cuda_device, width, cd):
     """Two launches of the wgmma kernel on the same inputs are bitwise
-    equal: the SE sums of a tile are taken in a fixed order (no atomics);
-    batch 8, 128 blocks of threads at once."""
+    equal, in both compute types: the SE sums of a tile are taken in a
+    fixed order (no atomics); batch 8, 128 or 192 blocks of threads at
+    once."""
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16}[cd]
     rng = np.random.default_rng(60 + width)
-    blocks = _torch_blocks(_wide_chain(rng, 64, width, 256, 3, True), cuda_device)
-    x = _nchw(rng.normal(0, 1, (8, 64, 48, 64)).astype(np.float32), cuda_device, torch.bfloat16)
-    first = bottleneck_chain(x, blocks, torch.bfloat16)
-    second = bottleneck_chain(x, blocks, torch.bfloat16)
+    blocks = prepare_blocks(_torch_blocks(_wide_chain(rng, 64, width, 256, 3, True), cuda_device),
+                            dt)
+    x = _nchw(rng.normal(0, 1, (8, 64, 48, 64)).astype(np.float32), cuda_device, dt)
+    first = bottleneck_chain(x, blocks, dt)
+    second = bottleneck_chain(x, blocks, dt)
     torch.cuda.synchronize()
     assert torch.isfinite(first.float()).all()
     assert torch.equal(first, second)
