@@ -1,8 +1,9 @@
 """Chip smoke test of the PyTorch + CUDA port: drives the serving path, the
 training step, the training solver, the detect -> pose programs, W8A8
 serving, the serving export, the fused export, the demos, the
-multi-process (DDP) training and eval and the wide ResNets' fused layer1
-on one CUDA card and holds every kernel against its plain PyTorch version.
+multi-process (DDP) training and eval, the wide ResNets' fused layer1 and
+the discriminative AP gate's path on one CUDA card and holds every kernel
+against its plain PyTorch version.
 
     python3 chip_smoke.py
 
@@ -239,6 +240,22 @@ raises, and the script exits non-zero without a result line):
      d. eval gt --fused-layer1 --flip-test with it on the fixture's JPEGs
         (K2 twice per pipeline batch, one prediction per person);
      e. eval export --fused-layer1 of it, served by serve_artifact (K2 once).
+ 15. the discriminative held-out AP gate's path
+     (scripts/drive_torch_discrim_ap.py), with every ``import cv2`` made to
+     raise:
+     a. its color corpus painted (scripts/torch_discrim_corpus.py) as PNGs,
+        64 train and 16 val images;
+     b. ResNet-18-DConv trained 2 epochs through PoseSolver at the gate's
+        width (128x128 crops, batch 32, canvas 224, bf16), the counters
+        zeroed just before and read just after: the crop kernel once per
+        step, K1 and K2 never;
+     c. predicts_by_gt on val in float and each of the gate's variants
+        (flip-test, w8a8 dynamic and static, the basic and dark_original
+        decoders): the int8 route in the W8A8 ones only, K2 in none;
+     d. eval gt in one process and with --mesh-devices 2 on the one card
+        (gloo): the same instances, predictions within DDP_PRED_TOL;
+     e. HRNet-W32 trained 1 epoch, then fused_layer1: K2 launched, its
+        heatmaps within FUSED_HEAT_TOL of the unfused forward's.
 
 The line before the last holds the kernels' JSON; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -323,7 +340,7 @@ from simple_pose_torch.ops.warp import (
 )
 from simple_pose_torch.parallel.distributed import free_port
 from simple_pose_torch.train.solver import PoseSolver, init_train_state, make_train_step
-from simple_pose_torch.utils.cuda_build import build_library
+from simple_pose_torch.utils.cuda_build import build_library, launch_counts, zero_launch_counts
 
 # H100 SXM data-sheet peaks (dense): bf16 tensor cores, HBM3 bandwidth
 PEAK_BF16_FLOPS = 989e12
@@ -487,18 +504,6 @@ def busy_us(events) -> float:
         else:
             cur_e = max(cur_e, e)
     return total + (cur_e - cur_s if cur_e is not None else 0.0)
-
-
-def launch_counts() -> dict:
-    return {"bottleneck_chain": bottleneck_chain.launches,
-            "rotate_resample": rotate_resample.launches,
-            "rotate_resample_crop": affine_crop_two_stage.launches,
-            "int8_conv": int8_conv.launches}
-
-
-def zero_launch_counts():
-    for fn in (bottleneck_chain, rotate_resample, affine_crop_two_stage, int8_conv):
-        fn.launches = 0
 
 
 def card_line() -> str:
@@ -3368,6 +3373,169 @@ SE_ROUTE = ("sums pass (the block kernel with kSums: m2's per-tile channel sums)
             "(relu(o * g + identity) in its epilogue); no se_apply pass")
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the discriminative held-out AP gate's path
+# ---------------------------------------------------------------------------
+
+# scripts/drive_torch_discrim_ap.py at its width (ResNet-18-DConv, 128x128
+# crops, batch 32, canvas 224, bf16) on its color corpus cut to 64 train and
+# 16 val images, 2 epochs; HRNet-W32 1 epoch for the fused layer1
+DISCRIM_ARGS = ["--train-images", "64", "--val-images", "16", "--epochs", "2",
+                "--val-every", "2"]
+DISCRIM_HRNET_ARGS = ["--model", "pose_hrnet:w32", "--epochs", "1", "--val-every", "1"]
+
+
+@contextlib.contextmanager
+def cv2_blocked():
+    """Every ``import cv2`` raises inside: _imread_rgb's cv2 branch fails."""
+    had, saved = "cv2" in sys.modules, sys.modules.get("cv2")
+    sys.modules["cv2"] = None
+    try:
+        yield
+    finally:
+        if had:
+            sys.modules["cv2"] = saved
+        else:
+            del sys.modules["cv2"]
+
+
+def train_discrim(gate, args, corpus):
+    """PoseSolver.run on the gate's configuration, the launch counters zeroed
+    just before and read just after.  Returns (checkpoint, launches, steps,
+    seconds)."""
+    solver = PoseSolver(gate.train_config(args, corpus, amp=True), device=args.device)
+    cwd = os.getcwd()
+    os.chdir(args.dir)  # validate writes its results JSON to the working directory
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        solver.run()
+        torch.cuda.synchronize()
+    finally:
+        os.chdir(cwd)
+    launches = launch_counts()
+    return solver.checkpoint_path(), launches, solver.state.step, time.perf_counter() - t0
+
+
+def discrim_variants(gate, args, ckpt, va_root, va_ann):
+    """Float and the gate's variants once on val through the gate's own
+    evaluation, every kernel's launches counted per run.  Returns {name:
+    {"AP", "launches"}}."""
+    # ResNet-18's trunk has no Bottleneck layer1; HRNet runs the fused one only
+    runs = [("float", {})] + [(n, x) for n, x in gate.VARIANTS
+                              if (n == "fused_layer1") == (args.mtype == "pose_hrnet")]
+    res = gate.evaluate(args, ckpt, va_root, va_ann, runs)
+    for name, r in res.items():
+        lc = r["launches"]
+        assert 0.0 <= r["AP"] <= 1.0, (name, r)
+        assert lc["rotate_resample"] == lc["rotate_resample_crop"] == 0, (name, lc)
+        assert (lc["int8_conv"] > 0) == name.startswith("w8a8"), (name, lc)
+        assert (lc["bottleneck_chain"] > 0) == (name == "fused_layer1"), (name, lc)
+    return res
+
+
+def fused_heatmaps(ckpt, args, va_root, va_ann):
+    """K2 on the trained HRNet-W32's layer1: heatmaps of one val batch with
+    fused_layer1 against the unfused forward (bf16), K2's launches counted."""
+    model_cfg = {"type": args.mtype, "name": args.mname, "num_joints": 17}
+    shape = (args.input, args.input)
+    pipe = data_pipeline.PosePipeline(load_coco_keypoints(va_root, va_ann), args.batch_size,
+                                      input_shape=shape, output_shape=(shape[0] // 4,
+                                                                       shape[1] // 4),
+                                      canvas=224, augment=False, shuffle=False,
+                                      drop_last=False)
+    batch = next(iter(pipe.epoch(0)))
+    fused = PoseEvaluator(model_cfg, ckpt, shape, fused_layer1=True, device=args.device)
+    unfused = PoseEvaluator(model_cfg, ckpt, shape, device=args.device)
+    zero_launch_counts()
+    hf = fused.heatmaps(batch)
+    torch.cuda.synchronize()
+    launches = launch_counts()["bottleneck_chain"]
+    hu = unfused.heatmaps(batch)
+    assert hf.shape == hu.shape and torch.isfinite(hf).all(), hf.shape
+    _, max_rel, mean_rel = errors(hf, hu)
+    res = {"k2_launches": launches, "max_rel": max_rel, "mean_rel": mean_rel,
+           "max_abs_unfused": hu.float().abs().max().item(), "tol": list(FUSED_HEAT_TOL)}
+    assert launches == 1, res
+    assert max_rel < FUSED_HEAT_TOL[0] and mean_rel < FUSED_HEAT_TOL[1], res
+    return res
+
+
+def discrim_two_ranks(gate, args, ckpt, va_root, va_ann):
+    """The gate's ``eval gt`` on val in one process and as two ranks sharing
+    one card (``--mesh-devices 2``, gloo), bf16, gauss_taylor: the
+    predictions instance for instance."""
+    runs = {}
+    for name, ranks in (("one", 1), ("two", 2)):
+        out = os.path.join(args.dir, f"two_ranks_{name}.json")
+        t0 = time.perf_counter()
+        ap = gate.eval_gt(args, ckpt, va_root, va_ann, out, mesh_devices=ranks)
+        runs[name] = {"AP": ap, "seconds": time.perf_counter() - t0,
+                      "predictions": sorted_predictions(out)}
+    pred_diff = prediction_diff(runs["one"]["predictions"], runs["two"]["predictions"])
+    res = {name: {k: v for k, v in r.items() if k != "predictions"} for name, r in runs.items()}
+    res.update(instances=[len(r["predictions"]) for r in runs.values()],
+               max_prediction_diff=pred_diff)
+    assert res["instances"][0] == res["instances"][1] > 0, res
+    assert pred_diff <= DDP_PRED_TOL and abs(runs["one"]["AP"] - runs["two"]["AP"]) <= DDP_AP_TOL, res
+    return res
+
+
+def run_discrim_phase(card):
+    """Phase 15.  Returns the summary and the launch counts for the kernels'
+    line."""
+    t_phase = time.perf_counter()
+    gate = load_script("drive_torch_discrim_ap")
+    summary = {"card": card}
+    with tempfile.TemporaryDirectory() as workdir, cv2_blocked():
+        args = gate.parse_args(DISCRIM_ARGS + ["--dir", os.path.join(workdir, "r18")])
+        t0 = time.perf_counter()
+        corpus = gate.paint_corpora(args)
+        tr_root, _, va_root, va_ann = corpus
+        summary["15a_paint_s"] = time.perf_counter() - t0
+        assert all(f.endswith(".png") for f in os.listdir(tr_root)), os.listdir(tr_root)[:4]
+
+        ckpt, launches, steps, seconds = train_discrim(gate, args, corpus)
+        summary["15b_train"] = {"launches": launches, "steps": steps, "seconds": seconds}
+        log("phase 15b, ResNet-18-DConv through PoseSolver on the painted PNGs: "
+            + json.dumps(summary["15b_train"]))
+        assert launches["rotate_resample_crop"] == steps > 0, summary["15b_train"]
+        assert launches["rotate_resample"] == launches["bottleneck_chain"] == 0, launches
+
+        t0 = time.perf_counter()
+        variants = discrim_variants(gate, args, ckpt, va_root, va_ann)
+        summary["15c_variants"] = variants
+        summary["15c_seconds"] = time.perf_counter() - t0
+        log("phase 15c, the gate's variants once on val: " + json.dumps(variants))
+
+        t0 = time.perf_counter()
+        summary["15d_two_ranks"] = discrim_two_ranks(gate, args, ckpt, va_root, va_ann)
+        summary["15d_seconds"] = time.perf_counter() - t0
+        log("phase 15d, eval gt one process vs two ranks on one card: "
+            + json.dumps(summary["15d_two_ranks"]))
+
+        t0 = time.perf_counter()
+        hargs = gate.parse_args(DISCRIM_ARGS + DISCRIM_HRNET_ARGS
+                                + ["--dir", os.path.join(workdir, "hrnet")])
+        hcorpus = gate.paint_corpora(hargs)
+        hckpt, hlaunches, hsteps, _ = train_discrim(gate, hargs, hcorpus)
+        assert hlaunches["rotate_resample_crop"] == hsteps > 0, hlaunches
+        hvariants = discrim_variants(gate, hargs, hckpt, hcorpus[2], hcorpus[3])
+        heat = fused_heatmaps(hckpt, hargs, hcorpus[2], hcorpus[3])
+        summary["15e_hrnet_fused_layer1"] = {"train_launches": hlaunches, "steps": hsteps,
+                                             "variants": hvariants, "heatmaps": heat,
+                                             "seconds": time.perf_counter() - t0}
+        log("phase 15e, K2 on HRNet-W32's trained layer1: "
+            + json.dumps(summary["15e_hrnet_fused_layer1"]))
+    summary["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 15: {summary['seconds']:.1f} s")
+    counts = {"crop_launches": launches["rotate_resample_crop"] + hlaunches["rotate_resample_crop"],
+              "steps": steps + hsteps,
+              "k2_fused_layer1": hvariants["fused_layer1"]["launches"]["bottleneck_chain"]
+              + heat["k2_launches"]}
+    return summary, counts
+
+
 def tile_info(width, bf16, h=64, w=48):
     """The tile, shared memory and blocks of threads per SM of K2's launch
     at Bottleneck width ``width`` on an h x w map (the library's
@@ -3472,6 +3640,8 @@ def main() -> int:
     log("phase 13: " + json.dumps(ddp))
     wide_rows, wide = run_wide_layer1(card)
     log("phase 14: " + json.dumps(wide))
+    discrim, discrim_counts = run_discrim_phase(card)
+    log("phase 15: " + json.dumps(discrim))
 
     kernels = [{**k2_row("bottleneck_chain", launches["bottleneck_chain"], report, timing,
                          splits["resnet50"]),
@@ -3493,6 +3663,8 @@ def main() -> int:
                                  fam_timing, splits[fam]),
                         "main_path": f"phase 9b: PoseEvaluator({fam}, fused_layer1, flip-test)",
                         "launches_f32_serving": fam_f32, "timing": fam_timing})
+        if fam == "hrnet_w32":
+            kernels[-1]["launches_discrim_fused_layer1"] = discrim_counts["k2_fused_layer1"]
     for name, r in wide_rows.items():
         kernels.append({**k2_row(f"bottleneck_chain ({name})", r["launches"], r["report"],
                                  r["timing"], splits[name.replace(" layer1", "")]),
@@ -3525,6 +3697,8 @@ def main() -> int:
         "launches_solver": solver_launches["rotate_resample_crop"],
         "launches_ddp_per_rank": ddp_launches,
         "ddp_steps_per_rank": ddp_steps,
+        "launches_discrim_gate": discrim_counts["crop_launches"],
+        "discrim_gate_steps": discrim_counts["steps"],
         "max_abs_err": max(crop_report["f32"]["max_abs_err"], crop_report["bf16"]["max_abs_err"]),
         "ms": crop_row["kernel_ms"],
         "kernel_ms": crop_row["kernel_ms"],

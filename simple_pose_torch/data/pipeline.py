@@ -27,9 +27,13 @@ Decoding: ``.jpg``/``.jpeg`` files go through the native loader
 (data/native.py: libjpeg, or where it is absent the port's decoder with
 libjpeg's arithmetic; one batched ctypes call that releases the
 interpreter lock) when the pipeline has one; anything else goes through
-:func:`_imread_rgb`, which imports cv2 when called.  ``use_native=True``
-raises where the loader cannot be built, ``False`` never builds it, and
-``None`` takes it where it builds and says once which decoder it took.
+:func:`_imread_rgb`: a ``.png`` that utils/viz.read_png reads (8-bit RGB
+or grayscale, filter 0: what ``write_png`` writes) decodes with numpy and
+zlib alone, and every other file, a PNG that ``read_png`` refuses too,
+through cv2, imported when called (an ImportError where it is absent).
+``use_native=True`` raises where the loader cannot be built, ``False``
+never builds it, and ``None`` takes it where it builds and says once which
+decoder it took.
 """
 
 from __future__ import annotations
@@ -44,6 +48,7 @@ import numpy as np
 from simple_pose_torch.data import native
 from simple_pose_torch.data.coco import JOINT_PAIRS, DetBoxRecord, PoseRecord
 from simple_pose_torch.ops import affine as A
+from simple_pose_torch.utils.viz import read_png
 
 __all__ = ["PosePipeline", "DetBoxPipeline", "RGB_MEAN"]
 
@@ -53,6 +58,15 @@ RGB_MEAN = np.array([0.485, 0.456, 0.406], dtype=np.float32)
 
 
 def _imread_rgb(path):
+    """An image file as HxWx3 uint8 RGB, the pixels cv2.imread reads
+    (grayscale as three equal channels)."""
+    if path.lower().endswith(".png"):
+        try:
+            img = read_png(path)
+        except ValueError:  # another kind of PNG: cv2 reads it, or raises
+            pass
+        else:
+            return img if img.ndim == 3 else np.repeat(img[..., None], 3, axis=-1)
     import cv2 as cv
 
     cv.setNumThreads(0)

@@ -548,7 +548,7 @@ def k2_launch_kind(name: str) -> Optional[str]:
     return "sums" if flags and flags[-1] else "block"
 
 
-@counts_launches
+@counts_launches("bottleneck_chain")
 def bottleneck_chain(x, blocks: Sequence[dict], compute_dtype=torch.float32):
     """Fused folded-Bottleneck chain on NCHW ``x`` -> [B, Cout, H, W] in x's
     dtype, through the registered op ``torch.ops.simple_pose.bottleneck_chain``.

@@ -151,7 +151,7 @@ def _int8_conv_fake(x8, w8, stride, padding, dilation, groups):
         memory_format=torch.channels_last)
 
 
-@counts_launches
+@counts_launches("int8_conv")
 def int8_conv(x8, w8, stride=(1, 1), padding=(0, 0), dilation=(1, 1), groups=1):
     """Exact int32 conv of int8 NCHW ``x8`` and OIHW ``w8`` through the
     registered op ``torch.ops.simple_pose.int8_conv``: CPU tensors take

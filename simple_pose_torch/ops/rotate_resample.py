@@ -137,7 +137,7 @@ def _rotate_resample_cuda(inter_img, scalars, out_hw, out_dtype):
     return out
 
 
-@counts_launches
+@counts_launches("rotate_resample")
 def rotate_resample(inter_img, r_mat, u0, out_hw, out_dtype=torch.float32):
     """Stage-2 rotation resample: [B, C, H, W] bf16 -> [B, oh, ow, C] in
     ``out_dtype`` (f32 or bf16; the accumulation is f32 either way).
@@ -201,7 +201,7 @@ def _rotate_resample_crop_cuda(images, scalars, out_hw, inter, out_dtype):
     return out
 
 
-@counts_launches
+@counts_launches("rotate_resample_crop")
 def affine_crop_two_stage(images, trans, out_hw, inter: int = 328, out_dtype=torch.float32):
     """Two-stage batched bilinear affine crop (training augmentation warp).
 

@@ -18,8 +18,9 @@ temporary file and renames it into place).
 Every kernel's Python wrapper carries a launch counter, set up by
 :func:`counts_launches`: ``<wrapper>.launches`` grows by one where the
 wrapper launches its kernel, and nowhere else, so a run can show that its
-path went through the kernel (``chip_smoke.py`` zeroes the counters before
-the main path and reads them after).
+path went through the kernel: :func:`zero_launch_counts` before the path,
+:func:`launch_counts` after (``chip_smoke.py`` and the discriminative AP
+gate do so).
 """
 
 from __future__ import annotations
@@ -32,7 +33,8 @@ import shutil
 import subprocess
 import time
 
-__all__ = ["CSRC_DIR", "BUILD_DIR", "build_library", "load_library", "counts_launches"]
+__all__ = ["CSRC_DIR", "BUILD_DIR", "build_library", "load_library", "counts_launches",
+           "launch_counts", "zero_launch_counts"]
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(CSRC_DIR)), "build")
@@ -75,8 +77,31 @@ def load_library(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(path)
 
 
-def counts_launches(wrapper):
-    """Give a kernel wrapper its launch counter, ``wrapper.launches = 0``.
-    The wrapper adds one to it where it launches its kernel."""
-    wrapper.launches = 0
-    return wrapper
+_COUNTED = {}
+
+
+def counts_launches(kernel: str):
+    """Give a kernel wrapper its launch counter, ``wrapper.launches = 0``,
+    reported as ``kernel`` by :func:`launch_counts`.  The wrapper adds one
+    to it where it launches its kernel."""
+    def count(wrapper):
+        wrapper.launches = 0
+        _COUNTED[kernel] = wrapper
+        return wrapper
+    return count
+
+
+def _counted() -> dict:
+    # the modules that hold every counted wrapper (imported, they register)
+    from simple_pose_torch.ops import bottleneck_chain, int8_conv, rotate_resample  # noqa: F401
+    return _COUNTED
+
+
+def launch_counts() -> dict:
+    """{kernel: launches} of every kernel wrapper."""
+    return {kernel: w.launches for kernel, w in _counted().items()}
+
+
+def zero_launch_counts() -> None:
+    for w in _counted().values():
+        w.launches = 0
