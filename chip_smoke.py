@@ -1,9 +1,9 @@
 """Chip smoke test of the PyTorch + CUDA port: drives the serving path, the
 training step, the training solver, the detect -> pose programs, W8A8
 serving, the serving export, the fused export, the demos, the
-multi-process (DDP) training and eval, the wide ResNets' fused layer1 and
-the discriminative AP gate's path on one CUDA card and holds every kernel
-against its plain PyTorch version.
+multi-process (DDP) training and eval, the wide ResNets' fused layer1,
+the discriminative AP gate's path and the detector-chain gate's path on one
+CUDA card and holds every kernel against its plain PyTorch version.
 
     python3 chip_smoke.py
 
@@ -256,6 +256,25 @@ raises, and the script exits non-zero without a result line):
         (gloo): the same instances, predictions within DDP_PRED_TOL;
      e. HRNet-W32 trained 1 epoch, then fused_layer1: K2 launched, its
         heatmaps within FUSED_HEAT_TOL of the unfused forward's.
+ 16. the detector-chain gate's path
+     (scripts/drive_torch_discrim_detchain.py), with every ``import cv2``
+     made to raise:
+     a. its crowded flipsym corpus painted as PNGs (256x192, 1-3 people an
+        image in train, 3-4 in val), 32 train and 8 val images;
+     b. ResNet-18-DConv trained 2 epochs through PoseSolver at the gate's
+        width (128x128 crops, batch 32, canvas 288, flip augmentation,
+        bf16): the crop kernel once per step, K1 and K2 never;
+     c. the synthetic detections (jittered true boxes, duplicates, false
+        positives), predicts_by_detections and the AP ladder on its raw
+        predictions: every AP in [0, 1], one raw prediction per detection,
+        rescoring alone keeps every one, the full chain (OKS-NMS 0.9) no
+        more than that; no kernel launched;
+     d. ResNet-50-DConv+SE (the flagship family, SE in layer1's block 0)
+        trained 1 epoch, then fused_layer1 on one val batch: K2 once (the
+        SE route: sums pass, se_gate, full pass), its heatmaps within
+        FUSED_HEAT_TOL of the unfused forward's; then c's chain unfused
+        and fused: K2 once per pose batch in the fused pass, never in the
+        other.
 
 The line before the last holds the kernels' JSON; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -3434,15 +3453,16 @@ def discrim_variants(gate, args, ckpt, va_root, va_ann):
     return res
 
 
-def fused_heatmaps(ckpt, args, va_root, va_ann):
-    """K2 on the trained HRNet-W32's layer1: heatmaps of one val batch with
-    fused_layer1 against the unfused forward (bf16), K2's launches counted."""
-    model_cfg = {"type": args.mtype, "name": args.mname, "num_joints": 17}
+def fused_heatmaps(gate, ckpt, args, va_root, va_ann, canvas=224):
+    """K2 on a trained layer1 (``gate.model_cfg(args)``): heatmaps of one val
+    batch with fused_layer1 against the unfused forward (bf16), K2's
+    launches counted."""
+    model_cfg = gate.model_cfg(args)
     shape = (args.input, args.input)
     pipe = data_pipeline.PosePipeline(load_coco_keypoints(va_root, va_ann), args.batch_size,
                                       input_shape=shape, output_shape=(shape[0] // 4,
                                                                        shape[1] // 4),
-                                      canvas=224, augment=False, shuffle=False,
+                                      canvas=canvas, augment=False, shuffle=False,
                                       drop_last=False)
     batch = next(iter(pipe.epoch(0)))
     fused = PoseEvaluator(model_cfg, ckpt, shape, fused_layer1=True, device=args.device)
@@ -3521,7 +3541,7 @@ def run_discrim_phase(card):
         hckpt, hlaunches, hsteps, _ = train_discrim(gate, hargs, hcorpus)
         assert hlaunches["rotate_resample_crop"] == hsteps > 0, hlaunches
         hvariants = discrim_variants(gate, hargs, hckpt, hcorpus[2], hcorpus[3])
-        heat = fused_heatmaps(hckpt, hargs, hcorpus[2], hcorpus[3])
+        heat = fused_heatmaps(gate, hckpt, hargs, hcorpus[2], hcorpus[3])
         summary["15e_hrnet_fused_layer1"] = {"train_launches": hlaunches, "steps": hsteps,
                                              "variants": hvariants, "heatmaps": heat,
                                              "seconds": time.perf_counter() - t0}
@@ -3532,6 +3552,126 @@ def run_discrim_phase(card):
     counts = {"crop_launches": launches["rotate_resample_crop"] + hlaunches["rotate_resample_crop"],
               "steps": steps + hsteps,
               "k2_fused_layer1": hvariants["fused_layer1"]["launches"]["bottleneck_chain"]
+              + heat["k2_launches"]}
+    return summary, counts
+
+
+# scripts/drive_torch_discrim_detchain.py at its width (ResNet-18-DConv,
+# 128x128 crops, batch 32, canvas 288, bf16) on its crowded corpus cut to 32
+# train and 8 val images, 2 epochs; ResNet-50-DConv+SE 1 epoch for K2's SE
+# route on trained weights
+DETCHAIN_ARGS = ["--train-images", "32", "--val-images", "8", "--epochs", "2",
+                 "--val-every", "2"]
+DETCHAIN_R50_ARGS = ["--model", "pose_resnet_dconv:resnet50", "--se", "--epochs", "1",
+                     "--val-every", "1"]
+
+
+@contextlib.contextmanager
+def pose_batches_counted():
+    """Yields a record whose ``"batches"`` grows by one a
+    ``PoseEvaluator.__call__``: a pose batch of predicts_by_detections."""
+    record = {"batches": 0}
+    call = PoseEvaluator.__call__
+
+    def counted(self, batch):
+        record["batches"] += 1
+        return call(self, batch)
+
+    PoseEvaluator.__call__ = counted
+    try:
+        yield record
+    finally:
+        PoseEvaluator.__call__ = call
+
+
+def detchain_pass(chain, args, ckpt, va_root, va_ann, det_json, n_dets, fused=False):
+    """One predicts_by_detections pass at the gate's settings and the AP
+    ladder on its raw predictions (in ``<dir>/<name>/``), with the phase's
+    checks.  Returns the ladder, the kept counts, the launches, the pose
+    batches and the seconds."""
+    name = "fused_layer1" if fused else "unfused"
+    t0 = time.perf_counter()
+    with pose_batches_counted() as record:
+        stats, launches, raw = chain.run_chain(args, ckpt, va_root, det_json, va_ann, name,
+                                               fused_layer1=fused)
+    out_dir = os.path.join(args.dir, name)
+    os.makedirs(out_dir, exist_ok=True)
+    aps = chain.ap_ladder(raw, va_ann, out_dir)
+
+    def count(path):
+        with open(path) as f:
+            return len(json.load(f))
+
+    kept = {"raw": count(raw), **{rung: count(os.path.join(out_dir, f"ladder_{rung}.json"))
+                                  for rung in ("rescore_only", "full_chain")}}
+    res = {"ap": aps, "kept": kept, "launches": launches, "pose_batches": record["batches"],
+           "seconds": time.perf_counter() - t0}
+    assert all(0.0 <= v <= 1.0 for v in aps.values()), res
+    assert aps["full_chain"] == stats["AP"], (stats, res)
+    assert kept["raw"] == n_dets and kept["rescore_only"] == kept["raw"], res
+    assert 0 < kept["full_chain"] <= kept["rescore_only"], res
+    assert launches["rotate_resample"] == launches["rotate_resample_crop"] == 0, res
+    assert record["batches"] > 0, res
+    assert launches["bottleneck_chain"] == (record["batches"] if fused else 0), res
+    return res
+
+
+def run_detchain_phase(card):
+    """Phase 16.  Returns the summary and the launch counts for the kernels'
+    line."""
+    t_phase = time.perf_counter()
+    chain = load_script("drive_torch_discrim_detchain")
+    summary = {"card": card}
+    with tempfile.TemporaryDirectory() as workdir, cv2_blocked():
+        args = chain.parse_args(DETCHAIN_ARGS + ["--dir", os.path.join(workdir, "r18")])
+        t0 = time.perf_counter()
+        *corpus, va_gt = chain.paint_corpora(args)
+        tr_root, _, va_root, va_ann = corpus
+        summary["16a_paint_s"] = time.perf_counter() - t0
+        assert all(f.endswith(".png") for f in os.listdir(tr_root)), os.listdir(tr_root)[:4]
+        people = np.bincount([a["image_id"] for a in va_gt["annotations"]])[1:]
+        assert people.min() >= 3 and people.max() <= 4, people
+
+        ckpt, launches, steps, seconds = train_discrim(chain, args, corpus)
+        summary["16b_train"] = {"launches": launches, "steps": steps, "seconds": seconds}
+        log("phase 16b, ResNet-18-DConv through PoseSolver on the crowded PNGs: "
+            + json.dumps(summary["16b_train"]))
+        assert launches["rotate_resample_crop"] == steps > 0, summary["16b_train"]
+        assert launches["rotate_resample"] == launches["bottleneck_chain"] == 0, launches
+
+        det_json, det_stats = chain.write_detections(args, va_gt)
+        assert det_stats["true"] == len(va_gt["annotations"]), det_stats
+        summary["16c_detections"] = det_stats
+        summary["16c_chain"] = detchain_pass(chain, args, ckpt, va_root, va_ann, det_json,
+                                             det_stats["total"])
+        log("phase 16c, predicts_by_detections and the AP ladder: "
+            + json.dumps(summary["16c_chain"]))
+
+        t0 = time.perf_counter()
+        rargs = chain.parse_args(DETCHAIN_ARGS + DETCHAIN_R50_ARGS
+                                 + ["--dir", os.path.join(workdir, "r50se")])
+        os.makedirs(rargs.dir)
+        rckpt, rlaunches, rsteps, _ = train_discrim(chain, rargs, corpus)
+        assert rlaunches["rotate_resample_crop"] == rsteps > 0, rlaunches
+        assert rlaunches["rotate_resample"] == rlaunches["bottleneck_chain"] == 0, rlaunches
+        heat = fused_heatmaps(chain, rckpt, rargs, va_root, va_ann, canvas=chain.CANVAS)
+        passes = {fused: detchain_pass(chain, rargs, rckpt, va_root, va_ann, det_json,
+                                       det_stats["total"], fused=fused)
+                  for fused in (False, True)}
+        summary["16d_r50_se"] = {"train_launches": rlaunches, "steps": rsteps,
+                                 "heatmaps": heat, "unfused": passes[False],
+                                 "fused_layer1": passes[True],
+                                 "full_chain_delta": passes[True]["ap"]["full_chain"]
+                                 - passes[False]["ap"]["full_chain"],
+                                 "seconds": time.perf_counter() - t0}
+        log("phase 16d, K2's SE route on ResNet-50-DConv+SE's trained layer1, the chain "
+            "unfused and fused: " + json.dumps(summary["16d_r50_se"]))
+    summary["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 16: {summary['seconds']:.1f} s")
+    counts = {"crop_launches": launches["rotate_resample_crop"]
+              + rlaunches["rotate_resample_crop"],
+              "steps": steps + rsteps,
+              "k2_fused_layer1": passes[True]["launches"]["bottleneck_chain"]
               + heat["k2_launches"]}
     return summary, counts
 
@@ -3642,6 +3782,8 @@ def main() -> int:
     log("phase 14: " + json.dumps(wide))
     discrim, discrim_counts = run_discrim_phase(card)
     log("phase 15: " + json.dumps(discrim))
+    detchain, detchain_counts = run_detchain_phase(card)
+    log("phase 16: " + json.dumps(detchain))
 
     kernels = [{**k2_row("bottleneck_chain", launches["bottleneck_chain"], report, timing,
                          splits["resnet50"]),
@@ -3657,7 +3799,8 @@ def main() -> int:
                 "launches_e2e": e2e_launches,
                 "launches_w8a8_serving": quant_launches,
                 "launches_loaded_artifact": artifact_launches,
-                "launches_serve_artifact_out": serve_launches}]
+                "launches_serve_artifact_out": serve_launches,
+                "launches_detchain_fused_layer1": detchain_counts["k2_fused_layer1"]}]
     for fam, (fam_report, fam_timing, fam_launches, fam_f32) in families.items():
         kernels.append({**k2_row(f"bottleneck_chain ({fam} layer1)", fam_launches, fam_report,
                                  fam_timing, splits[fam]),
@@ -3699,6 +3842,8 @@ def main() -> int:
         "ddp_steps_per_rank": ddp_steps,
         "launches_discrim_gate": discrim_counts["crop_launches"],
         "discrim_gate_steps": discrim_counts["steps"],
+        "launches_detchain": detchain_counts["crop_launches"],
+        "detchain_steps": detchain_counts["steps"],
         "max_abs_err": max(crop_report["f32"]["max_abs_err"], crop_report["bf16"]["max_abs_err"]),
         "ms": crop_row["kernel_ms"],
         "kernel_ms": crop_row["kernel_ms"],

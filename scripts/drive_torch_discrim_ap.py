@@ -148,18 +148,21 @@ def paint_corpora(args):
     return tr_root, tr_ann, va_root, va_ann
 
 
-def train_config(args, corpus, amp):
+def train_config(args, corpus, amp, canvas=224, aug_flip=None):
+    """The trainer's configuration; ``aug_flip`` None: on for the flipsym
+    corpus only."""
     tr_root, tr_ann, va_root, va_ann = corpus
+    if aug_flip is None:
+        # color: mirroring swaps the labels of a left/right pair but not its
+        # hues, 50% label noise; flipsym: in distribution
+        aug_flip = args.corpus == "flipsym"
     return {
         "model_name": "torch_discrim_drive",
         "data": {"train_ann_path": tr_ann, "val_ann_path": va_ann, "train_img_root": tr_root,
                  "val_img_root": va_root, "batch_size": args.batch_size, "num_workers": 2,
-                 "canvas": 224, "input_shape": [args.input, args.input], "augment": True,
-                 "aug_scale": [0.9, 1.1], "aug_rot": [-12.0, 12.0],
-                 # color: mirroring swaps the labels of a left/right pair but
-                 # not its hues, 50% label noise; flipsym: in distribution
-                 "aug_flip": args.corpus == "flipsym"},
-        "model": {"type": args.mtype, "name": args.mname, "num_joints": 17},
+                 "canvas": canvas, "input_shape": [args.input, args.input], "augment": True,
+                 "aug_scale": [0.9, 1.1], "aug_rot": [-12.0, 12.0], "aug_flip": aug_flip},
+        "model": model_cfg(args),
         "optim": {"lr": 1e-3, "milestones": [max(2, args.epochs - 100)],
                   "epochs": args.epochs, "gamma": 0.1, "amp": amp},
         "val": {"interval": args.val_every, "weight_path": os.path.join(args.dir, "weights")},
@@ -232,7 +235,11 @@ def _load_progress(args):
 
 
 def model_cfg(args):
-    return {"type": args.mtype, "name": args.mname, "num_joints": 17}
+    """The model's configuration; ``args.se`` (where set) adds SE blocks."""
+    cfg = {"type": args.mtype, "name": args.mname, "num_joints": 17}
+    if getattr(args, "se", False):
+        cfg["reduction"] = True
+    return cfg
 
 
 def evaluate(args, ckpt, img_root, ann, runs):

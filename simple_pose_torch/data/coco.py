@@ -98,10 +98,13 @@ def load_coco_keypoints(img_root: str, ann_path: str, debug: int = 0,
     return records
 
 
-def load_detection_boxes(img_root: str, det_json_path: str, debug: int = 0) -> List[DetBoxRecord]:
+def load_detection_boxes(img_root: str, det_json_path: str, debug: int = 0,
+                         img_ext: str = ".jpg") -> List[DetBoxRecord]:
     """Load a COCO detection-results JSON (person category only), mirroring
     datasets/naive_data.py:85-102: each image resolves to
-    ``{img_root}/{image_id:012d}.jpg``; ``debug`` keeps the first N boxes."""
+    ``{img_root}/{image_id:012d}.jpg`` (``img_ext`` in place of ``.jpg``:
+    ``.png`` for a corpus painted as PNGs); ``debug`` keeps the first N
+    boxes."""
     with open(det_json_path) as rf:
         data = json.load(rf)
     records: List[DetBoxRecord] = []
@@ -110,7 +113,7 @@ def load_detection_boxes(img_root: str, det_json_path: str, debug: int = 0) -> L
             continue
         x, y, w, h = item["bbox"]
         img_id = item["image_id"]
-        file_path = os.path.join(img_root, "{0:012d}.jpg".format(img_id))
+        file_path = os.path.join(img_root, "{0:012d}{1}".format(img_id, img_ext))
         records.append(DetBoxRecord(file_path, [x, y, x + w, y + h], item["score"], img_id))
         if debug and len(records) >= debug:
             break

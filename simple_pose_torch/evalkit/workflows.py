@@ -366,14 +366,15 @@ def predicts_by_detections(img_root, det_json_path, gt_ann_path, model_cfg, weig
                            fused_layer1=False, device=None,
                            filtered_out_path="filter_kps_predicts.json", use_native=None,
                            quant=None, quant_calib=0, quant_scales=None,
-                           quant_scales_out=None):
+                           quant_scales_out=None, img_ext=".jpg"):
     """Detector-box eval + OKS-NMS rescoring (eval.py:101-150 + 153-197).
 
     Writes the raw predictions to ``out_path`` and the rescored, filtered
     ones to ``filtered_out_path``.  ``use_native`` as for data/pipeline;
-    the ``quant*`` arguments as for predicts_by_gt.  Returns the stats dict
-    of the latter."""
-    records = load_detection_boxes(img_root, det_json_path, debug=debug)
+    the ``quant*`` arguments as for predicts_by_gt; ``img_ext`` as for
+    data/coco.load_detection_boxes.  Returns the stats dict of the
+    latter."""
+    records = load_detection_boxes(img_root, det_json_path, debug=debug, img_ext=img_ext)
     pipe = DetBoxPipeline(records, batch_size, input_shape=input_shape,
                           output_shape=(input_shape[0] // 4, input_shape[1] // 4),
                           canvas=canvas, use_native=use_native, **_process_shard_kwargs(),

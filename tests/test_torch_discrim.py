@@ -63,13 +63,30 @@ def test_palettes_are_cv2s():
     assert corpus.HUES_9 == _hsv_palette(9)
 
 
-@pytest.mark.parametrize("draw", sorted(DRAWS))
-@pytest.mark.parametrize("kind", ["color", "flipsym"])
+def _crowded(draw, n=12):
+    """The detector-chain gate's crowded flipsym draws
+    (scripts/drive_discrim_detchain.py:118-140) at ``n`` images each: the
+    people counts from default_rng(7), val's first."""
+    rng = np.random.default_rng(7)
+    counts = {"detchain_val": rng.integers(3, 5, n), "detchain_train": rng.integers(1, 4, n)}
+    seed, scale_range, sep = {"detchain_val": (777, (9.0, 13.0), 1.7),
+                              "detchain_train": (100, (10.0, 15.0), 2.4)}[draw]
+    return dict(num_images=n, seed=seed, img_w=256, img_h=192, scale_range=scale_range,
+                people_per_image=[int(p) for p in counts[draw]], min_center_sep=sep,
+                blob_sigma=2.5, occlude_frac=0.0)
+
+
+@pytest.mark.parametrize("kind, draw", [
+    pytest.param(kind, draw, id=f"{kind}-{draw}")
+    for kind, draw in [("color", "train"), ("color", "val"), ("flipsym", "train"),
+                       ("flipsym", "val"), ("flipsym", "detchain_train"),
+                       ("flipsym", "detchain_val")]])
 def test_painted_corpus_equals_jax_arrays(tmp_path, monkeypatch, kind, draw):
     """12 images: the PNG read back as BGR equals, exactly, the uint8 array
     the JAX generator hands to cv2.imwrite (before its JPEG encode); the
-    annotations are equal apart from the file suffix."""
-    seed, scale_range, occlude = DRAWS[draw]
+    annotations are equal apart from the file suffix.  The detchain draws
+    are the detector-chain gate's crowded 256x192 corpora (1-4 people an
+    image, ``min_center_sep``)."""
     handed = {}
 
     def imwrite(path, img, *params):
@@ -79,7 +96,13 @@ def test_painted_corpus_equals_jax_arrays(tmp_path, monkeypatch, kind, draw):
     monkeypatch.setattr(cv2, "imwrite", imwrite)
     make, paint, kw = ((us.make_discriminative_coco, corpus.paint_discriminative, COLOR)
                        if kind == "color" else (us.make_flipsym_coco, corpus.paint_flipsym, BASE))
-    common = dict(num_images=12, seed=seed, scale_range=scale_range, occlude_frac=occlude, **kw)
+    if draw.startswith("detchain"):
+        common = _crowded(draw)
+        occlude = 0.0
+    else:
+        seed, scale_range, occlude = DRAWS[draw]
+        common = dict(num_images=12, seed=seed, scale_range=scale_range, occlude_frac=occlude,
+                      **kw)
     _, _, want_gt = make(str(tmp_path / "jax"), **common)
     img_root, ann_path, got_gt = paint(str(tmp_path / "torch"), **common)
     assert json.dumps(got_gt) == json.dumps(want_gt).replace(".jpg", ".png")
@@ -94,6 +117,9 @@ def test_painted_corpus_equals_jax_arrays(tmp_path, monkeypatch, kind, draw):
     assert len(handed) == 12
     # the val draw paints occluders (uniform 96 patches), the train draw none
     assert (occluded > 0) == (occlude > 0), occluded
+    if draw.startswith("detchain"):  # several people an image, as drawn
+        people = np.bincount([a["image_id"] for a in got_gt["annotations"]])[1:]
+        assert people.tolist() == common["people_per_image"]
 
 
 def test_imread_rgb_reads_png_as_cv2(tmp_path, monkeypatch):
