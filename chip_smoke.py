@@ -200,7 +200,8 @@ raises, and the script exits non-zero without a result line):
         sequential files, warned progressions) through the port's decoder
         against its CRC32s (libjpeg's decode);
      b. two ranks sharing cuda:0 over gloo (NCCL refuses two ranks on one
-        card), each on 64 of a global batch of 128 (phase 5's canvas
+        card), meeting through a file (no port chosen before they start;
+        c too), each on 64 of a global batch of 128 (phase 5's canvas
         shapes), the flagship at full width: DDP_F32_STEPS f32 DDP train
         steps (cuDNN deterministic) from a state F32_STEP_WARMUP
         one-process steps in, with the launch counters zeroed just before
@@ -221,8 +222,9 @@ raises, and the script exits non-zero without a result line):
         3 bf16 steps, the NCCL version;
      d. python -m simple_pose_torch.eval gt on the fixture (seeded
         ResNet-50-DConv+SE, f32, decoder basic) in one process and through
-        torchrun as two ranks on cuda:0 with --multihost: the stats and the
-        predictions equal.
+        torchrun --standalone (its agent binds the store on port 0) as two
+        ranks on cuda:0 with --multihost: the stats and the predictions
+        equal.
  14. K2 on every layer1 the JAX kernel takes (Bottleneck width 128, maps
      wider than a band of whole rows):
      a. K2 at wide_resnet50_2+SE's seeded layer1 (width 128: 64 -> 128 ->
@@ -272,9 +274,11 @@ raises, and the script exits non-zero without a result line):
      d. ResNet-50-DConv+SE (the flagship family, SE in layer1's block 0)
         trained 1 epoch, then fused_layer1 on one val batch: K2 once (the
         SE route: sums pass, se_gate, full pass), its heatmaps within
-        FUSED_HEAT_TOL of the unfused forward's; then c's chain unfused
-        and fused: K2 once per pose batch in the fused pass, never in the
-        other.
+        FUSED_HEAT_TOL of the unfused forward's; that batch's layer1 input
+        through K2, cuDNN (bf16) and the plain chain against the f32 layer1
+        without TF32: K2 within TOL["bf16"] of f32, each error printed;
+        then c's chain unfused and fused: K2 once per pose batch in the
+        fused pass, never in the other.
 
 The line before the last holds the kernels' JSON; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -357,7 +361,7 @@ from simple_pose_torch.ops.warp import (
     invert_affine_batch,
     stage1_resample,
 )
-from simple_pose_torch.parallel.distributed import free_port
+from simple_pose_torch.parallel.distributed import file_rendezvous
 from simple_pose_torch.train.solver import PoseSolver, init_train_state, make_train_step
 from simple_pose_torch.utils.cuda_build import build_library, launch_counts, zero_launch_counts
 
@@ -2884,7 +2888,7 @@ import chip_smoke as C
 from simple_pose_torch.parallel import distributed as D
 from simple_pose_torch.train.solver import PoseSolver, init_train_state, make_train_step
 
-mode, rank, world, port, workdir = sys.argv[1], *map(int, sys.argv[2:5]), sys.argv[5]
+mode, rank, world, init, workdir = sys.argv[1], *map(int, sys.argv[2:4]), *sys.argv[4:6]
 torch.backends.cudnn.allow_tf32 = False
 torch.backends.cuda.matmul.allow_tf32 = False
 with open(os.path.join(workdir, "spec.json")) as f:
@@ -2945,9 +2949,9 @@ if mode == "one":  # the reference: one process on the global batch; the
     real_save(out, os.path.join(workdir, f"{mode}_rank{rank}.pt"))
     sys.exit(0)
 if mode == "ddp":
-    info = D.init_multihost(f"localhost:{port}", world, rank, device=dev)
+    info = D.init_multihost(init, world, rank, device=dev)
 else:
-    info = D.init_multihost(f"localhost:{port}", world, rank)
+    info = D.init_multihost(init, world, rank)
 out["info"] = info
 b = spec["rank_batch"]
 batch = {k: torch.from_numpy(data[k][rank * b:(rank + 1) * b]).to(dev) for k in data.files}
@@ -3019,10 +3023,11 @@ def check_decoder_fixture():
 
 
 def run_children(mode, world, workdir):
-    """DDP_CHILD as ``world`` ranks of ``mode``; each rank's saved result."""
-    port = str(free_port())
+    """DDP_CHILD as ``world`` ranks of ``mode``, meeting through a file in
+    ``workdir``; each rank's saved result."""
+    init = file_rendezvous(workdir, f"rendezvous_{mode}")
     env = {**os.environ, "PYTHONPATH": os.getcwd()}
-    procs = [subprocess.Popen([sys.executable, "-c", DDP_CHILD, mode, str(r), str(world), port,
+    procs = [subprocess.Popen([sys.executable, "-c", DDP_CHILD, mode, str(r), str(world), init,
                                workdir], env=env, stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True) for r in range(world)]
     try:
@@ -3211,9 +3216,8 @@ def run_eval_multihost(workdir):
     env = {**os.environ, "PYTHONPATH": os.getcwd()}
     runs = {}
     for name, cmd in (("one", [sys.executable] + args),
-                      ("two", [sys.executable, "-m", "torch.distributed.run",
-                               "--nproc_per_node", "2", "--master_port", str(free_port())]
-                       + args + ["--multihost"])):
+                      ("two", [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                               "--nproc_per_node", "2"] + args + ["--multihost"])):
         t0 = time.perf_counter()
         proc = subprocess.run(cmd + ["--out", os.path.join(workdir, f"{name}.json")], env=env,
                               capture_output=True, text=True, timeout=CHILD_TIMEOUT)
@@ -3453,18 +3457,24 @@ def discrim_variants(gate, args, ckpt, va_root, va_ann):
     return res
 
 
-def fused_heatmaps(gate, ckpt, args, va_root, va_ann, canvas=224):
-    """K2 on a trained layer1 (``gate.model_cfg(args)``): heatmaps of one val
-    batch with fused_layer1 against the unfused forward (bf16), K2's
-    launches counted."""
-    model_cfg = gate.model_cfg(args)
+def first_val_batch(args, va_root, va_ann, canvas):
+    """The first batch of the gate's val records at its crop size."""
     shape = (args.input, args.input)
     pipe = data_pipeline.PosePipeline(load_coco_keypoints(va_root, va_ann), args.batch_size,
                                       input_shape=shape, output_shape=(shape[0] // 4,
                                                                        shape[1] // 4),
                                       canvas=canvas, augment=False, shuffle=False,
                                       drop_last=False)
-    batch = next(iter(pipe.epoch(0)))
+    return next(iter(pipe.epoch(0)))
+
+
+def fused_heatmaps(gate, ckpt, args, va_root, va_ann, canvas=224):
+    """K2 on a trained layer1 (``gate.model_cfg(args)``): heatmaps of one val
+    batch with fused_layer1 against the unfused forward (bf16), K2's
+    launches counted."""
+    model_cfg = gate.model_cfg(args)
+    shape = (args.input, args.input)
+    batch = first_val_batch(args, va_root, va_ann, canvas)
     fused = PoseEvaluator(model_cfg, ckpt, shape, fused_layer1=True, device=args.device)
     unfused = PoseEvaluator(model_cfg, ckpt, shape, device=args.device)
     zero_launch_counts()
@@ -3478,6 +3488,27 @@ def fused_heatmaps(gate, ckpt, args, va_root, va_ann, canvas=224):
            "max_abs_unfused": hu.float().abs().max().item(), "tol": list(FUSED_HEAT_TOL)}
     assert launches == 1, res
     assert max_rel < FUSED_HEAT_TOL[0] and mean_rel < FUSED_HEAT_TOL[1], res
+    return res
+
+
+def layer1_vs_f32(chain, ckpt, args, va_root, va_ann):
+    """16d: layer1 of a trained ResNet on one val batch, its input taken
+    from the unfused bf16 forward, through K2 (bf16), cuDNN (bf16 autocast)
+    and the plain chain, each against the f32 layer1 without TF32 on the
+    same input (max and mean relative to max|f32|).  K2 must lie within
+    TOL["bf16"] of f32.  Its launch here compares and is not counted."""
+    batch = first_val_batch(args, va_root, va_ann, chain.CANVAS)
+    evs = chain.evaluators(args, ckpt)
+    with torch.no_grad(), chain.layer1_taps(evs["unfused"].model) as taps:
+        evs["unfused"].heatmaps(batch)
+        ys = chain.layer1_outputs(evs, taps["x"][0])
+    torch.cuda.synchronize()
+    res = {name: dict(zip(("max_rel", "mean_rel"), errors(ys[name], ys["f32"])[1:]))
+           for name in ("k2", "cudnn", "plain")}
+    res.update(shape=list(taps["x"][0].shape), dtype=str(taps["x"][0].dtype),
+               tol=list(TOL["bf16"]),
+               k2_mean_at_or_below_cudnn=res["k2"]["mean_rel"] <= res["cudnn"]["mean_rel"])
+    assert res["k2"]["max_rel"] < TOL["bf16"][0] and res["k2"]["mean_rel"] < TOL["bf16"][1], res
     return res
 
 
@@ -3655,11 +3686,13 @@ def run_detchain_phase(card):
         assert rlaunches["rotate_resample_crop"] == rsteps > 0, rlaunches
         assert rlaunches["rotate_resample"] == rlaunches["bottleneck_chain"] == 0, rlaunches
         heat = fused_heatmaps(chain, rckpt, rargs, va_root, va_ann, canvas=chain.CANVAS)
+        layer1 = layer1_vs_f32(chain, rckpt, rargs, va_root, va_ann)
         passes = {fused: detchain_pass(chain, rargs, rckpt, va_root, va_ann, det_json,
                                        det_stats["total"], fused=fused)
                   for fused in (False, True)}
         summary["16d_r50_se"] = {"train_launches": rlaunches, "steps": rsteps,
-                                 "heatmaps": heat, "unfused": passes[False],
+                                 "heatmaps": heat, "layer1_vs_f32": layer1,
+                                 "unfused": passes[False],
                                  "fused_layer1": passes[True],
                                  "full_chain_delta": passes[True]["ap"]["full_chain"]
                                  - passes[False]["ap"]["full_chain"],

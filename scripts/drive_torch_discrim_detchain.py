@@ -7,6 +7,8 @@ The counterpart of scripts/drive_discrim_detchain.py.
     python scripts/drive_torch_discrim_detchain.py                    # ResNet-18-DConv
     python scripts/drive_torch_discrim_detchain.py --model pose_resnet_dconv:resnet50 --se \\
         --out DISCRIM_TORCH_DETCHAIN_R50.json                         # + the K2 variant
+    python scripts/drive_torch_discrim_detchain.py --model pose_resnet_dconv:resnet50 --se \\
+        --witness tests/data_torch_detchain/r50se_witness.npz         # + its witness
     python scripts/drive_torch_discrim_detchain.py --ckpt <dir>/weights/pose_resnet_dconv_last.pth
     python scripts/drive_torch_discrim_detchain.py --device cpu --epochs 1 --train-images 8 \\
         --val-images 4 --input 64                                     # rehearsal on the CPU
@@ -35,6 +37,12 @@ Runs on CUDA unless ``--device cpu`` is given; without a card it exits 2.
 * **The K2 variant**, where layer1 is a Bottleneck chain (ResNet-50): the
   same pass with ``fused_layer1``; its full-chain AP, its delta and how far
   it moved the keypoints, K2's launches.
+* **The witness** (``--witness``, :func:`witness`): the detection whose
+  keypoint the K2 variant moved furthest, replayed through the fused, the
+  unfused and an f32 evaluator: its folded layer1 blocks, layer1 four ways
+  on the crop and its flip (K2, the plain chain, cuDNN bf16, f32 without
+  TF32) and the three heatmaps, in one ``.npz`` that
+  tests/test_torch_detchain_witness.py holds against JAX.
 
 Writes one JSON (``--out``: the JAX script's schema plus the card, torch's
 version, the launch counts and the gate) and exits 1 when the gate fails:
@@ -45,6 +53,7 @@ version, the launch counts and the gate) and exits 1 when the gate fails:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import shutil
@@ -136,6 +145,8 @@ def parse_args(argv=None):
                          ".discrim_torch/detchain_<type>_<name>[_se]_s<seed>)")
     ap.add_argument("--out", default=None,
                     help="result JSON (default DISCRIM_TORCH_DETCHAIN.json at the repo root)")
+    ap.add_argument("--witness", default=None,
+                    help="write the K2 variant's largest keypoint shift's witness to this .npz")
     args = ap.parse_args(argv)
     args.val_every = min(args.val_every, args.epochs)
     if args.epochs % args.val_every:
@@ -149,6 +160,8 @@ def parse_args(argv=None):
     args.out = os.path.abspath(args.out or os.path.join(REPO, "DISCRIM_TORCH_DETCHAIN.json"))
     if args.ckpt:
         args.ckpt = os.path.abspath(args.ckpt)
+    if args.witness:
+        args.witness = os.path.abspath(args.witness)
     return args
 
 
@@ -258,7 +271,8 @@ def has_bottleneck_layer1(args) -> bool:
 
 def kp_shift(raw_want, raw_got):
     """How far one pass's keypoints lie from another's on the same
-    detections: the mean and the largest distance in image px."""
+    detections: the mean and the largest distance in image px, and the
+    [detection, joint] of the largest."""
     with open(raw_want) as f:
         want = json.load(f)
     with open(raw_got) as f:
@@ -268,7 +282,194 @@ def kp_shift(raw_want, raw_got):
     kw, kg = (np.asarray([p["kps"] for p in ps]).reshape(len(ps), -1, 3)[..., :2]
               for ps in (want, got))
     d = np.linalg.norm(kg - kw, axis=-1)
-    return {"kp_shift_px_mean": float(d.mean()), "kp_shift_px_max": float(d.max())}
+    det, joint = np.unravel_index(int(np.argmax(d)), d.shape)
+    return {"kp_shift_px_mean": float(d.mean()), "kp_shift_px_max": float(d.max()),
+            "kp_shift_argmax": [int(det), int(joint)]}
+
+
+@contextlib.contextmanager
+def layer1_taps(model):
+    """Records, on each forward of a ResNet pose ``model``, what its layer1
+    takes (the stem's max-pool output) and gives (layer2's input) under
+    ``"x"`` and ``"y"``: the same taps whether layer1 runs as modules or
+    as the folded chain."""
+    seen = {"x": [], "y": []}
+    hooks = [model.maxpool.register_forward_hook(lambda m, i, o: seen["x"].append(o.detach())),
+             model.layer2.register_forward_pre_hook(lambda m, i: seen["y"].append(i[0].detach()))]
+    try:
+        yield seen
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """f32 convs and matmuls in full f32 (cuDNN's TF32 is on by default)."""
+    import torch
+
+    flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+
+
+def evaluators(args, ckpt):
+    """{"fused", "unfused", "f32"}: the K2 variant's and the chain's
+    evaluators (amp as the passes run them) and an f32 one."""
+    from simple_pose_torch.evalkit.workflows import PoseEvaluator
+
+    shape = (args.input, args.input)
+    return {name: PoseEvaluator(model_cfg(args), ckpt, shape, fused_layer1=name == "fused",
+                                amp=False if name == "f32" else "auto", device=args.device)
+            for name in ("fused", "unfused", "f32")}
+
+
+def layer1_outputs(evs, x):
+    """layer1 on ``x`` (its input, [B, C, h, w] in the passes' dtype) four
+    ways: {"k2": the fused evaluator's folded chain (the kernel on a card),
+    "plain": bottleneck_chain_reference on the same folded blocks,
+    "cudnn": the unfused evaluator's modules under its autocast, "f32": the
+    f32 evaluator's modules on x in f32, without TF32}."""
+    import torch
+
+    from simple_pose_torch.ops.bottleneck_chain import bottleneck_chain, bottleneck_chain_reference
+
+    fused, unfused = evs["fused"], evs["unfused"]
+    cd = fused.dtype or torch.float32
+    out = {"k2": bottleneck_chain(x, fused._layer1_folded, compute_dtype=cd),
+           "plain": bottleneck_chain_reference(x, fused._layer1_folded, compute_dtype=cd)}
+    with torch.autocast(x.device.type, dtype=unfused.dtype or torch.float32,
+                        enabled=unfused.dtype is not None):
+        out["cudnn"] = unfused.model.layer1(x)
+    with no_tf32():
+        out["f32"] = evs["f32"].model.layer1(x.float())
+    return out
+
+
+def rel_errors(got, want):
+    """(max, mean) of |got - want| relative to max|want|."""
+    d = (got.float() - want.float()).abs()
+    scale = want.float().abs().max().item()
+    return d.max().item() / scale, d.mean().item() / scale
+
+
+def _bits(t):
+    """A tensor as numpy for the witness: bf16 as its raw uint16 bits, else
+    float32."""
+    import torch
+
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.float().numpy()
+
+
+# the witness's bf16 layer1 outputs, in the order of its ``y_bf16``
+Y_BF16 = ("k2", "plain", "cudnn")
+
+
+def witness(args, ckpt, va_root, det_json, raw_unfused, raw_fused, shift, path):
+    """Replay the pose batch that holds detection ``shift["kp_shift_argmax"]``
+    (the K2 variant's largest keypoint shift) through the three
+    :func:`evaluators`, and save what its layer1 saw to ``path`` (.npz):
+    ``x`` (layer1's input of the crop, as the fused pass took it, and of its
+    flip), ``block<i>_<key>`` (the folded blocks as the chain takes them:
+    matrices in the compute dtype, biases f32), ``y_bf16`` (K2's, the plain
+    chain's and cuDNN's :func:`layer1_outputs` of x stacked in
+    :data:`Y_BF16`'s order) and ``y_f32``, ``heat_fused``, ``heat_unfused``,
+    ``heat_f32`` (the crop's heatmaps in the replayed batch), ``trans_inv``,
+    ``kps_fused`` / ``kps_unfused`` (the passes' keypoints of the
+    detection, x, y, conf) and ``kps_f32``, and ``meta`` (JSON: where the
+    crop lies, the replay's agreement with the passes, the errors on the
+    device).  bf16 tensors are kept as raw uint16 bits (:func:`save_npz_lzma`).
+
+    :returns: meta"""
+    import torch
+
+    from simple_pose_torch.data.coco import load_detection_boxes
+    from simple_pose_torch.data.pipeline import DetBoxPipeline
+    from simple_pose_torch.evalkit.workflows import _dedup_plan
+    from simple_pose_torch.ops.bottleneck_chain import FOLDED_KEYS
+
+    det, joint = shift["kp_shift_argmax"]
+    shape = (args.input, args.input)
+    pipe = DetBoxPipeline(load_detection_boxes(va_root, det_json, img_ext=".png"),
+                          args.batch_size, input_shape=shape,
+                          output_shape=(shape[0] // 4, shape[1] // 4), canvas=CANVAS,
+                          use_native=False, **_dedup_plan(args.batch_size, True))
+    seen = 0
+    for index, batch in enumerate(pipe.epoch(0)):  # the passes keep the valid rows in order
+        valid = np.flatnonzero(np.asarray(batch["valid"]) > 0.5)
+        if det < seen + len(valid):
+            row = int(valid[det - seen])
+            break
+        seen += len(valid)
+    else:
+        raise RuntimeError(f"detection {det} is past the pass's {seen} predictions")
+    evs = evaluators(args, ckpt)
+    got = {}
+    with torch.no_grad():
+        for name, ev in evs.items():
+            with layer1_taps(ev.model) as taps, (no_tf32() if name == "f32"
+                                                 else contextlib.nullcontext()):
+                out = ev(batch)
+                heat = ev.heatmaps(batch)
+            got[name] = {"kps": out["kps"][row].cpu().numpy(), "heat": heat[row],
+                         "x": taps["x"][0][row:row + 1], "y": taps["y"][0][row:row + 1]}
+        fused = evs["fused"]
+        crop = fused._inputs(*fused._batch_tensors(batch))[row:row + 1]
+        with layer1_taps(fused.model) as taps:
+            fused._forward(crop.flip(3))
+        x = torch.cat([got["fused"]["x"], taps["x"][0]])
+        ys = layer1_outputs(evs, x)
+    card = {}
+    for name, raw in (("fused", raw_fused), ("unfused", raw_unfused)):
+        with open(raw) as f:
+            card[name] = np.asarray(json.load(f)[det]["kps"], np.float32).reshape(-1, 3)
+    errs = {f"{a}_vs_{b}": rel_errors(ys[a], ys[b])
+            for a, b in (("k2", "plain"), ("k2", "f32"), ("cudnn", "f32"), ("plain", "f32"),
+                         ("k2", "cudnn"))}
+    meta = {
+        "detection": int(det), "joint": int(joint), "batch": index, "row": row,
+        "img_id": int(np.asarray(batch["img_id"])[row]),
+        "kp_shift_px_max": shift["kp_shift_px_max"],
+        "dtype": str(x.dtype), "device": str(x.device),
+        "card": ap_gate.card_line() if x.device.type == "cuda" else None,
+        # the replay against the passes: keypoints (px) and layer1 (max abs)
+        "replay_kp_px": {n: float(np.abs(got[n]["kps"] - card[n][:, :2]).max())
+                         for n in ("fused", "unfused")},
+        "x_fused_vs_unfused": (got["fused"]["x"].float() - got["unfused"]["x"].float())
+        .abs().max().item(),
+        "k2_batch_vs_pair": (got["fused"]["y"].float() - ys["k2"][:1].float()).abs().max().item(),
+        "cudnn_batch_vs_pair": (got["unfused"]["y"].float() - ys["cudnn"][:1].float())
+        .abs().max().item(),
+        "rel_errors": errs,
+    }
+    arrays = {"x": _bits(x), "trans_inv": np.asarray(batch["trans_inv"], np.float32)[row],
+              "y_bf16": np.stack([_bits(ys[k]) for k in Y_BF16]), "y_f32": _bits(ys["f32"]),
+              "kps_f32": got["f32"]["kps"], "meta": np.asarray(json.dumps(meta))}
+    arrays.update({f"heat_{n}": _bits(got[n]["heat"]) for n in evs})
+    arrays.update({f"kps_{n}": card[n] for n in card})
+    for i, blk in enumerate(fused._layer1_folded):
+        arrays.update({f"block{i}_{k}": _bits(v) for k, v in blk.items() if k in FOLDED_KEYS})
+    save_npz_lzma(path, arrays)
+    return meta
+
+
+def save_npz_lzma(path, arrays):
+    """``np.savez`` with each member LZMA-compressed (``np.load`` reads it):
+    its window spans a whole member, so near-equal tensors stacked in one
+    cost little more than one."""
+    import zipfile
+
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with zipfile.ZipFile(path, "w", compression=zipfile.ZIP_LZMA) as zf:
+        for name, arr in arrays.items():
+            with zf.open(f"{name}.npy", "w") as f:
+                np.lib.format.write_array(f, np.asarray(arr), allow_pickle=False)
 
 
 def gate(ap_raw, ap_full, fused):
@@ -351,6 +552,10 @@ def main(argv=None) -> int:
                  "delta": got["AP"] - ap_full, **kp_shift(raw, raw_fused),
                  "k2_launches": chain_launches["fused_layer1"]["bottleneck_chain"]}
         print(json.dumps({"fused_layer1": fused}), flush=True)
+        if args.witness:
+            fused["witness"] = witness(args, ckpt, va_root, det_json, raw, raw_fused, fused,
+                                       args.witness)
+            print(json.dumps({"witness": fused["witness"]}), flush=True)
     verdict = gate(aps["raw_dump"], ap_full, fused)
     if fused is not None:
         del fused["delta"]

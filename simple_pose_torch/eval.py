@@ -53,7 +53,7 @@ images and every rank gathers the full prediction list; rank 0 writes the
 output files and prints the stats, which equal one process's.  ``gen-dets``
 and ``e2e`` run on one rank, and ``--fused-layer1`` too, as in JAX:
 
-    torchrun --nproc_per_node=N -m simple_pose_torch.eval gt ... --multihost
+    torchrun --standalone --nproc_per_node=N -m simple_pose_torch.eval gt ... --multihost
     python -m simple_pose_torch.eval gt ... --mesh-devices N
     python -m simple_pose_torch.eval gt ... --mesh-devices 2 --device cpu
 

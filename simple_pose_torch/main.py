@@ -1,7 +1,7 @@
 """Training entry point of the port (the counterpart of the root main.py).
 
     python -m simple_pose_torch.main --cfg configs/fast_pose.yaml [--resume] [--device cpu]
-    torchrun --nproc_per_node=N -m simple_pose_torch.main --cfg ... --multihost
+    torchrun --standalone --nproc_per_node=N -m simple_pose_torch.main --cfg ... --multihost
     python -m simple_pose_torch.main --cfg ... --mesh-devices N
 
 Trains on one CUDA device unless ``--device cpu`` is given.  ``--multihost``

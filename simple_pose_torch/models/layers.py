@@ -83,11 +83,10 @@ class BatchNorm2d(nn.BatchNorm2d):
     batch statistics are the global batch's, as in the JAX package's SPMD
     step (train/solver.py:1-10): the per-channel count, sum and sum of
     squares (f32) are all-reduced, in one call, through the autograd-aware
-    ``torch.distributed.nn.functional.all_reduce``, so the backward is
-    global too; the variance is flax's one-pass E[x^2] - E[x]^2 (biased,
-    clamped at 0).  A recompute makes the same collectives, so every rank
-    makes them in the same order.  ``nn.SyncBatchNorm`` is not used: it
-    refuses CPU tensors."""
+    :class:`_AllReduceSum`, so the backward is global too; the variance
+    is flax's one-pass E[x^2] - E[x]^2 (biased, clamped at 0).  A recompute
+    makes the same collectives, so every rank makes them in the same order.
+    ``nn.SyncBatchNorm`` is not used: it refuses CPU tensors."""
 
     update_stats = True
 
@@ -110,12 +109,11 @@ class BatchNorm2d(nn.BatchNorm2d):
         return y
 
     def _global_batch_forward(self, x):
-        from torch.distributed.nn.functional import all_reduce
-
         c, shape = x.shape[1], (1, x.shape[1], 1, 1)
         xf = x.float()
         count = torch.full((1,), x.numel() // c, dtype=torch.float32, device=x.device)
-        stats = all_reduce(torch.cat([xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3)), count]))
+        stats = _AllReduceSum.apply(
+            torch.cat([xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3)), count]))
         n = stats[2 * c]
         mean = stats[:c] / n
         var = torch.clamp(stats[c:2 * c] / n - mean * mean, min=0.0)
@@ -128,6 +126,27 @@ class BatchNorm2d(nn.BatchNorm2d):
                 self.running_var.mul_(1.0 - m).add_(var.detach(), alpha=m)
                 self.num_batches_tracked.add_(1)
         return y.to(x.dtype)
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """The sum of a tensor over the ranks, whose backward sums the gradient
+    over the ranks: what ``torch.distributed.nn.functional.all_reduce``
+    computes.  That module is not imported: a process that has imported
+    ``torch.distributed.nn`` and run gloo collectives now and then aborts
+    at exit ("terminate called without an active exception"), which fails
+    its launcher."""
+
+    @staticmethod
+    def forward(ctx, t):
+        t = t.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(t)
+        return t
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(grad)
+        return grad
 
 
 def batch_norm(channels):

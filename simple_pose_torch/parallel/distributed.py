@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import json
 import os
-import socket
+import tempfile
 from datetime import timedelta
 from typing import Dict, Optional, Tuple
 
@@ -29,7 +29,7 @@ import torch.distributed as dist
 
 __all__ = ["init_multihost", "host_info", "rank_world", "is_main", "barrier",
            "allgather_tiled", "allreduce_sum", "allreduce_mean", "allreduce_max",
-           "shard_kwargs", "write_once", "shutdown", "free_port", "spawn_ranks",
+           "shard_kwargs", "write_once", "shutdown", "file_rendezvous", "spawn_ranks",
            "add_launch_args", "launch"]
 
 
@@ -44,8 +44,10 @@ def init_multihost(coordinator_address: Optional[str] = None,
 
     With no arguments it reads torchrun's environment (``RANK``,
     ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``);
-    ``coordinator_address`` ("host:port") with ``num_processes`` and
-    ``process_id`` sets up a group by hand.
+    ``coordinator_address`` with ``num_processes`` and ``process_id`` sets
+    up a group by hand: "host:port", where rank 0 binds the group's store,
+    or an init URL such as "file:///dir/rendezvous", a file no earlier
+    group used, through which the ranks meet without a port.
 
     :param backend: None picks it: NCCL where each rank has a card of its
         own, gloo on the CPU and where several local ranks are pinned to one
@@ -66,7 +68,8 @@ def init_multihost(coordinator_address: Optional[str] = None,
             raise ValueError("coordinator_address needs num_processes and process_id")
         rank, world, local_rank = int(process_id), int(num_processes), int(process_id)
         local_world = world
-        init_method = f"tcp://{coordinator_address}"
+        init_method = (coordinator_address if "://" in coordinator_address
+                       else f"tcp://{coordinator_address}")
     dev = torch.device(f"cuda:{local_rank}" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available() or (dev.index or 0) >= torch.cuda.device_count():
@@ -175,15 +178,19 @@ def shutdown() -> None:
         dist.destroy_process_group()
 
 
-def free_port() -> int:
-    """A free TCP port on localhost (for a group's coordinator)."""
-    with socket.socket() as sock:
-        sock.bind(("localhost", 0))
-        return sock.getsockname()[1]
+def file_rendezvous(directory, name: str = "rendezvous") -> str:
+    """An init URL for :func:`init_multihost`'s ``coordinator_address``:
+    the file ``<directory>/<name>``, removed first where an earlier group
+    left it (a file store must not hold another group's keys).  The ranks
+    meet through the file, so no port is chosen before they start."""
+    path = os.path.join(os.path.abspath(str(directory)), name)
+    if os.path.exists(path):
+        os.remove(path)
+    return "file://" + path
 
 
-def _spawned_rank(rank, world, port, device, target, args):
-    init_multihost(f"localhost:{port}", world, rank, device=device)
+def _spawned_rank(rank, world, init_method, device, target, args):
+    init_multihost(init_method, world, rank, device=device)
     try:
         target(*args)
     finally:
@@ -193,13 +200,15 @@ def _spawned_rank(rank, world, port, device, target, args):
 def spawn_ranks(target, world: int, device=None, args=()):
     """``target(*args)`` in ``world`` new processes, one rank each, joined
     as a group on localhost.  Rank r runs on ``cuda:r`` (device None: an
-    error where fewer cards exist) or every rank on ``device``.  Raises if
-    a rank fails."""
+    error where fewer cards exist) or every rank on ``device``.  The ranks
+    meet through :func:`file_rendezvous` in a directory removed after they
+    end.  Raises if a rank fails."""
     if device is None and torch.cuda.device_count() < world:
         raise RuntimeError(f"{world} ranks need {world} CUDA devices; "
                            f"{torch.cuda.device_count()} are present")
-    torch.multiprocessing.spawn(_spawned_rank, nprocs=world, join=True,
-                                args=(world, free_port(), device, target, args))
+    with tempfile.TemporaryDirectory(prefix="ranks-") as tmp:
+        torch.multiprocessing.spawn(_spawned_rank, nprocs=world, join=True,
+                                    args=(world, file_rendezvous(tmp), device, target, args))
 
 
 def add_launch_args(parser) -> None:

@@ -6,6 +6,7 @@ equals its multi-process run).  Each multi-process run has its own timeout
 (tests/torch_ddp_worker.run_ranks) and its own working directory."""
 
 import json
+import socket
 
 import flax.linen as fnn
 import jax
@@ -16,6 +17,7 @@ import torch
 
 from simple_pose_torch.convert.from_jax import load_jax_train_state
 from simple_pose_torch.models.layers import BatchNorm2d
+from simple_pose_torch.parallel import distributed as D
 from simple_pose_torch.train.solver import PoseSolver, init_train_state
 from simple_pose_tpu.convert.torch2flax import convert_torch_state
 from simple_pose_tpu.parallel.mesh import make_mesh
@@ -24,12 +26,49 @@ from simple_pose_tpu.train.solver import PoseSolver as JaxPoseSolver
 from simple_pose_tpu.train.solver import TrainState as JaxTrainState
 from simple_pose_tpu.train.solver import make_train_step as jax_make_train_step
 from tests import torch_train_pair as P
-from tests.torch_ddp_worker import run_ranks
+from tests.torch_ddp_worker import global_batchnorm, run_ranks
 from tests.util_synth import make_synth_coco
 
 torch.set_num_threads(1)
 
 BN_TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def test_spawn_ranks_needs_no_prechosen_port(tmp_path, monkeypatch):
+    """spawn_ranks (``--mesh-devices``) lets its ranks meet without a port
+    chosen before they start: with the port an earlier scheme handed them
+    (``free_port``: bind port 0, read it, release it) held by another
+    process's socket, two CPU ranks still join and take the global batch's
+    statistics, and the parent binds no socket of its own."""
+    binds = []
+    real_bind = socket.socket.bind
+
+    def recording_bind(sock, address):
+        binds.append(address)
+        return real_bind(sock, address)
+
+    with socket.socket() as squatter:
+        squatter.bind(("localhost", 0))
+        squatter.listen(1)
+        port = squatter.getsockname()[1]
+        monkeypatch.setattr(D, "free_port", lambda: port, raising=False)
+        monkeypatch.setattr(socket.socket, "bind", recording_bind)
+        D.spawn_ranks(global_batchnorm, 2, device="cpu", args=(str(tmp_path),))
+    assert binds == []
+    for r in range(2):
+        got = torch.load(tmp_path / f"bn_rank{r}.pt")
+        assert got["world"] == 2 and torch.equal(got["mean"], torch.full((3,), 0.5)), (r, got)
+
+
+def test_global_batchnorm_leaves_torch_distributed_nn_unimported(tmp_path):
+    """The global-batch BatchNorm2d all-reduces through the port's own
+    autograd Function: a gloo rank that has imported ``torch.distributed.nn``
+    now and then aborts at exit ("terminate called without an active
+    exception"), which failed test_batchnorm_global_batch_over_two_ranks
+    under load."""
+    D.spawn_ranks(global_batchnorm, 2, device="cpu", args=(str(tmp_path),))
+    for r in range(2):
+        assert torch.load(tmp_path / f"bn_rank{r}.pt")["modules"] == [], r
 
 
 def test_batchnorm_global_batch_over_two_ranks(tmp_path):

@@ -17,7 +17,7 @@ import torch
 from simple_pose_torch.evalkit import workflows as W
 from simple_pose_torch.evalkit.fused import fused_eval
 from simple_pose_torch.models.registry import build_from_cfg
-from tests.torch_ddp_worker import free_port, run_ranks
+from tests.torch_ddp_worker import run_ranks
 from tests.util_synth import make_synth_coco
 
 torch.set_num_threads(1)
@@ -126,8 +126,9 @@ def _train_cfg(data, work, mesh_data=-1):
 
 def _run(args, cwd, torchrun=False):
     env = {**os.environ, "PYTHONPATH": REPO, "OMP_NUM_THREADS": "1"}
-    cmd = [sys.executable] + (["-m", "torch.distributed.run", "--nproc_per_node", "2",
-                               "--master_port", str(free_port())] if torchrun else []) + args
+    # --standalone: the agent binds its store on port 0 and keeps it
+    cmd = [sys.executable] + (["-m", "torch.distributed.run", "--standalone",
+                               "--nproc_per_node", "2"] if torchrun else []) + args
     return subprocess.run(cmd, cwd=str(cwd), env=env, capture_output=True, text=True,
                           timeout=TIMEOUT)
 

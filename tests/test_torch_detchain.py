@@ -317,4 +317,5 @@ def test_chip_smoke_phase16_rehearses_on_cpu(monkeypatch):
     assert batches == r50["unfused"]["pose_batches"] > 0
     assert counts["k2_fused_layer1"] == batches + 1  # + the heatmap check's batch
     assert r50["heatmaps"]["k2_launches"] == 1
+    assert {"k2", "cudnn", "plain"} <= set(r50["layer1_vs_f32"]), r50["layer1_vs_f32"]
     assert summary["16c_chain"]["kept"]["raw"] == summary["16c_detections"]["total"]

@@ -1,13 +1,14 @@
 """One rank of the port's multi-process tests (tests/test_torch_ddp*.py).
 
-    python -m tests.torch_ddp_worker <case> <rank> <world> <port> <workdir>
+    python -m tests.torch_ddp_worker <case> <rank> <world> <init URL> <workdir>
 
-Joins a gloo group on localhost with parallel/distributed.init_multihost
-(on the CPU), runs ``case`` on this rank's share of what the test wrote to
-``workdir`` and saves what it got to ``workdir/<case>_rank<rank>.pt``.  It
-imports the port alone (no JAX): the tests hold the results against JAX
-and against one process.  Every file a rank opens for writing under
-``workdir`` is recorded in its result as ``written``."""
+Joins a gloo group with parallel/distributed.init_multihost (on the CPU)
+through the init URL (a file in ``workdir``: no port), runs ``case`` on
+this rank's share of what the test wrote to ``workdir`` and saves what it
+got to ``workdir/<case>_rank<rank>.pt``.  It imports the port alone (no
+JAX): the tests hold the results against JAX and against one process.
+Every file a rank opens for writing under ``workdir`` is recorded in its
+result as ``written``."""
 
 import builtins
 import json
@@ -18,7 +19,7 @@ import sys
 import numpy as np
 import torch
 
-from simple_pose_torch.parallel.distributed import free_port
+from simple_pose_torch.parallel.distributed import file_rendezvous
 
 torch.set_num_threads(1)
 
@@ -184,19 +185,37 @@ def case_workflows(rank, world, workdir):
     return out
 
 
+def global_batchnorm(workdir):
+    """A target of parallel/distributed.spawn_ranks: a global-batch
+    BatchNorm2d forward and backward on this rank's half of a batch; saves
+    the world size, the batch mean the statistics saw, and the
+    ``torch.distributed.nn`` modules this rank has imported to
+    ``workdir/bn_rank<rank>.pt``."""
+    from simple_pose_torch.models.layers import BatchNorm2d
+    from simple_pose_torch.parallel import distributed as D
+
+    rank, world = D.rank_world()
+    x = torch.full((2, 3, 4, 5), float(rank), requires_grad=True)
+    bn = BatchNorm2d(3, momentum=1.0)
+    bn(x).square().sum().backward()
+    torch.save({"world": world, "mean": bn.running_mean.clone(),
+                "modules": sorted(m for m in sys.modules if m.startswith("torch.distributed.nn"))},
+               os.path.join(workdir, f"bn_rank{rank}.pt"))
+
+
 CASES = {"bn": case_bn, "train": case_train, "solver": case_solver,
          "workflows": case_workflows}
 
 
 def run_ranks(case, workdir, world=2, timeout=120):
-    """Runs ``case`` on ``world`` ranks (one process each, cwd ``workdir``);
-    returns each rank's result.  A rank that fails or hangs past
-    ``timeout`` seconds fails the test."""
+    """Runs ``case`` on ``world`` ranks (one process each, cwd ``workdir``,
+    meeting through a file there); returns each rank's result.
+    A rank that fails or hangs past ``timeout`` seconds fails the test."""
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = {**os.environ, "PYTHONPATH": repo, "OMP_NUM_THREADS": "1"}
-    port = str(free_port())
+    init = file_rendezvous(workdir, f"rendezvous_{case}")
     procs = [subprocess.Popen([sys.executable, "-m", "tests.torch_ddp_worker", case, str(r),
-                               str(world), port, str(workdir)], cwd=str(workdir), env=env,
+                               str(world), init, str(workdir)], cwd=str(workdir), env=env,
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
              for r in range(world)]
     try:
@@ -211,11 +230,11 @@ def run_ranks(case, workdir, world=2, timeout=120):
 
 
 def main():
-    case, rank, world, port, workdir = sys.argv[1], *map(int, sys.argv[2:5]), sys.argv[5]
+    case, rank, world, init, workdir = sys.argv[1], *map(int, sys.argv[2:4]), *sys.argv[4:6]
     from simple_pose_torch.parallel import distributed as D
 
     written = _record_writes(workdir)
-    info = D.init_multihost(f"localhost:{port}", world, rank, device="cpu")
+    info = D.init_multihost(init, world, rank, device="cpu")
     assert info["process_index"] == rank and info["backend"] == "gloo", info
     try:
         result = CASES[case](rank, world, workdir)
