@@ -1,0 +1,12 @@
+"""Share of the traced slice of training steps in which no operation ran on
+the device (the union of the trace's kernel, copy and set intervals)."""
+
+UNIT, LAYER, MOVES = "%", "the device", "train_crops_per_s"
+READS = ("trace device operations", "trace window")
+
+
+def read(ctx):
+    tr = ctx.get("trace")
+    if tr is None or not tr.ops:
+        return None
+    return 100.0 * (1.0 - tr.busy_s() / tr.window_s)
