@@ -73,6 +73,7 @@ from simple_pose_torch.ops.decode import (
 from simple_pose_torch.ops.oks import oks_nms
 from simple_pose_torch.ops.warp import affine_crop_separable
 from simple_pose_torch.parallel import distributed as D
+from simple_pose_torch.utils import tracing
 from simple_pose_torch.utils.device import resolve_device
 
 __all__ = ["PoseEvaluator", "predicts_by_gt", "predicts_by_detections", "rescore_and_filter",
@@ -187,6 +188,7 @@ class PoseEvaluator:
         self.quant_scales = quant_scales
         self._quant = quantized(self.model, quant, quant_scales)
         self._layer1_folded = None
+        self._calls = 0
         if fused_layer1:
             if D.rank_world()[1] > 1:
                 raise ValueError(
@@ -203,7 +205,11 @@ class PoseEvaluator:
                 self.dtype or torch.float32)
 
     def _to_device(self, v):
-        return torch.as_tensor(v).to(self.device, non_blocking=True)
+        t = torch.as_tensor(v)
+        if (tracing.enabled() and t.device.type == "cpu" and self.device.type != "cpu"
+                and not t.is_pinned()):
+            tracing.add("pageable_bytes", t.nbytes)
+        return t.to(self.device, non_blocking=True)
 
     def _forward(self, x, params=None):
         """The pose net (quantized when set) -> f32 heatmaps; ``params``:
@@ -287,16 +293,28 @@ class PoseEvaluator:
     def __call__(self, batch) -> dict:
         """batch: {canvas u8 [U,S,S,3], trans [B,2,3], trans_inv [B,2,3],
         optional canvas_idx [B]} as numpy arrays or tensors.  Returns device
-        tensors {kps [B,J,2], conf [B,J,1], scores [B]}."""
-        canvas, trans, idx = self._batch_tensors(batch)
-        if self._decode is None:  # dark_original, on the host (JAX workflows.py:302-316)
-            heat = self._heatmaps(canvas, trans, idx)
-            trans_inv = torch.as_tensor(batch["trans_inv"]).cpu().numpy()
-            kps, conf = decode_dark_original(heat.cpu().numpy(), trans_inv)
-            scores = conf[..., 0].mean(-1) + conf[..., 0].max(-1)
-            return {"kps": torch.from_numpy(kps), "conf": torch.from_numpy(conf),
-                    "scores": torch.from_numpy(scores)}
-        return self.step(canvas, trans, self._to_device(batch["trans_inv"]), idx)
+        tensors {kps [B,J,2], conf [B,J,1], scores [B]}.
+
+        Traced (utils/tracing): ``serve.call`` (id: the call's number) holds
+        ``serve.h2d``, the batch's copies to the device with the bytes that
+        came from pageable host memory (``pageable_bytes``), then
+        ``serve.device``, the launches of the device program."""
+        self._calls += 1
+        with tracing.span("serve.call", id=self._calls):
+            dark = self._decode is None
+            with tracing.span("serve.h2d"):
+                canvas, trans, idx = self._batch_tensors(batch)
+                trans_inv = None if dark else self._to_device(batch["trans_inv"])
+            with tracing.span("serve.device"):
+                if not dark:
+                    return self.step(canvas, trans, trans_inv, idx)
+                # dark_original, on the host (JAX workflows.py:302-316)
+                heat = self._heatmaps(canvas, trans, idx)
+                trans_inv = torch.as_tensor(batch["trans_inv"]).cpu().numpy()
+                kps, conf = decode_dark_original(heat.cpu().numpy(), trans_inv)
+                scores = conf[..., 0].mean(-1) + conf[..., 0].max(-1)
+                return {"kps": torch.from_numpy(kps), "conf": torch.from_numpy(conf),
+                        "scores": torch.from_numpy(scores)}
 
 
 def _dedup_plan(batch_size: int, dedup: bool) -> dict:

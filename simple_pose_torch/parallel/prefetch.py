@@ -24,6 +24,8 @@ from typing import Iterable, Iterator, Optional, Sequence
 
 import torch
 
+from simple_pose_torch.utils import tracing
+
 __all__ = ["device_prefetch"]
 
 
@@ -32,26 +34,35 @@ def device_prefetch(batches: Iterable[dict], device, depth: int = 2,
     """Yield each batch with its ``device_keys`` (all keys if None) as tensors
     on ``device``, staging up to ``depth`` batches ahead of the consumer; the
     other keys pass through as they are.  On the CPU the values become
-    tensors that share the numpy arrays' memory."""
+    tensors that share the numpy arrays' memory.
+
+    Traced (utils/tracing): ``prefetch.stage`` (id: the batch's number)
+    holds ``prefetch.pin``, the pinning of the host arrays that are not
+    pinned, with their bytes (``pinned_bytes``)."""
     device = torch.device(device)
     cuda = device.type == "cuda"
     stream = torch.cuda.Stream(device) if cuda else None
 
-    def stage(batch):
+    def stage(batch, number):
         """(batch with its keys staged, the copied tensors, their event)."""
         keys = list(batch) if device_keys is None else [k for k in device_keys if k in batch]
         staged = dict(batch)
-        if not cuda:
-            staged.update({k: torch.as_tensor(batch[k]) for k in keys})
-            return staged, [], None
-        with torch.cuda.stream(stream):
-            for k in keys:
-                host = torch.as_tensor(batch[k])
-                if not host.is_pinned():
-                    host = host.pin_memory()
-                staged[k] = host.to(device, non_blocking=True)
-            ready = torch.cuda.Event()
-            ready.record(stream)
+        with tracing.span("prefetch.stage", id=number):
+            if not cuda:
+                staged.update({k: torch.as_tensor(batch[k]) for k in keys})
+                return staged, [], None
+            host = {k: torch.as_tensor(batch[k]) for k in keys}
+            pageable = [k for k in keys if not host[k].is_pinned()]
+            if pageable:
+                with tracing.span("prefetch.pin"):
+                    for k in pageable:
+                        host[k] = host[k].pin_memory()
+                        tracing.add("pinned_bytes", host[k].nbytes)
+            with torch.cuda.stream(stream):
+                for k in keys:
+                    staged[k] = host[k].to(device, non_blocking=True)
+                ready = torch.cuda.Event()
+                ready.record(stream)
         return staged, [staged[k] for k in keys], ready
 
     def release(entry):
@@ -64,8 +75,8 @@ def device_prefetch(batches: Iterable[dict], device, depth: int = 2,
         return staged
 
     buf = deque()
-    for b in batches:
-        buf.append(stage(b))
+    for number, b in enumerate(batches):
+        buf.append(stage(b, number))
         if len(buf) >= depth:
             yield release(buf.popleft())
     while buf:

@@ -67,6 +67,7 @@ from simple_pose_torch.parallel.prefetch import device_prefetch
 from simple_pose_torch.train import schedules as S
 from simple_pose_torch.train.config import OptimConfig, TrainConfig, load_config
 from simple_pose_torch.train.ema import ema_update
+from simple_pose_torch.utils import tracing
 from simple_pose_torch.utils.device import resolve_device
 
 __all__ = ["TrainState", "PoseSolver", "init_train_state", "load_pretrained",
@@ -255,6 +256,12 @@ def make_train_step(out_shape=(64, 48), crop_shape=(256, 192), amp=False, crop_i
     ema=False: the EMA slots track the raw weights (solver.py:84-88).
     encoding: 'unbiased' (RefineSimpleTransform) or 'biased'
     (BasicSimpleTransform, with stride 1: joints are in heatmap coordinates).
+
+    Traced (utils/tracing): ``train.step`` (id: ``state.step`` on entry)
+    holds ``train.forward`` (the model and the loss), ``train.backward``
+    (zero_grad and the backward) and ``train.update`` (the schedule, the
+    optimizer and EMA); the crop, the targets and the accuracy are the
+    step's own.
     """
     inter = int(math.ceil(np.hypot(*crop_shape))) + 8
     if crop_impl == "kernel":
@@ -273,6 +280,10 @@ def make_train_step(out_shape=(64, 48), crop_shape=(256, 192), amp=False, crop_i
         raise KeyError(encoding)
 
     def train_step(state: TrainState, batch):
+        with tracing.span("train.step", id=state.step):
+            return _train_step(state, batch)
+
+    def _train_step(state: TrainState, batch):
         model, opt = state.model, state.optimizer
         device = next(model.parameters()).device
         with torch.no_grad():
@@ -282,21 +293,27 @@ def make_train_step(out_shape=(64, 48), crop_shape=(256, 192), amp=False, crop_i
             targets, weights = encode_fn(_to(batch["joints"], device))
             mask = weights[..., None, None]
         model.train()
-        preds = (state.ddp or model)(x).float()
-        loss = 0.5 * torch.mean((preds * mask - targets * mask) ** 2)
-        opt.zero_grad(set_to_none=True)
-        loss.backward()
-        # optax evaluates the schedule at the count of previous updates
-        for group, schedule in zip(opt.param_groups, state.schedules):
-            group["lr"] = schedule(state.step)
-        opt.step()
-        state.step += 1
+        with tracing.span("train.forward"):
+            preds = (state.ddp or model)(x).float()
+            loss = 0.5 * torch.mean((preds * mask - targets * mask) ** 2)
+        # zero_grad before the backward keeps the step's order of memory use;
+        # its time counts as the backward's
+        with tracing.span("train.backward"):
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+        with tracing.span("train.update"):
+            # optax evaluates the schedule at the count of previous updates
+            for group, schedule in zip(opt.param_groups, state.schedules):
+                group["lr"] = schedule(state.step)
+            opt.step()
+            state.step += 1
+            with torch.no_grad():
+                ema_tensors, live = state.ema_pairs()
+                if ema:
+                    ema_update(ema_tensors, live, state.step)
+                else:
+                    torch._foreach_copy_(ema_tensors, live)
         with torch.no_grad():
-            ema_tensors, live = state.ema_pairs()
-            if ema:
-                ema_update(ema_tensors, live, state.step)
-            else:
-                torch._foreach_copy_(ema_tensors, live)
             # summed over the ranks (their own values on one rank)
             correct, valid = heatmap_accuracy_counts(preds.detach() * mask, targets * mask)
             c = correct.shape[0]
